@@ -1,0 +1,30 @@
+"""PyTorch/CUDA port of the multimodal brain-pattern identification system.
+
+The serving forward (raw EEG + raw spectrogram → log-probs) runs on an
+NVIDIA Hopper card through hand-written CUDA kernels (``csrc/``); every
+kernel has a plain PyTorch version beside it that CPU tensors take.
+Imports ``torch``, numpy and scipy only.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from . import config
+
+__all__ = ["config", "resolve_device"]
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller names
+    another.  Raises when CUDA is asked for (explicitly or by default) and
+    no card is present — an entry point never moves to the CPU silently."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU")
+    return dev

@@ -1,0 +1,97 @@
+"""Build and load the package's CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), loaded
+with ``ctypes``.  Builds happen at first use, into ``_build/`` beside this
+file (listed in ``.gitignore``); the library's file name carries a hash of
+its source, so an edited source is rebuilt.  Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+#: ``nvcc``'s diagnostics of each build (``-Xptxas -v``: registers,
+#: shared memory and spills per kernel), by source name
+build_logs: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start one ``nvcc`` into a temporary file; returns (proc, tmp, out)."""
+    out = _target(name)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, proc, tmp: str, out: Path) -> None:
+    log, _ = proc.communicate()
+    build_logs[name] = log
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)      # atomic: no process loads a partial file
+
+
+def build(names: Iterable[str]) -> None:
+    """Compile every named source that has no current library, one
+    ``nvcc`` per source, all started together."""
+    with _lock:
+        todo = [n for n in names if n not in _libs and not _target(n).exists()]
+        jobs = [(n, *_start(n)) for n in todo]
+        for n, proc, tmp, out in jobs:
+            _finish(n, proc, tmp, out)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, building it if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        build([name])
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(_target(name)))
+                _libs[name] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a C entry."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")

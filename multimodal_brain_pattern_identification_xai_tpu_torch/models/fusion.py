@@ -1,0 +1,24 @@
+"""Late-fusion multimodal model (counterpart of the JAX package's
+``models/fusion.py``): concatenate the EEG branch's and the spectrogram
+branch's log-probs → FC128 → ReLU → FC → log-softmax."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class MultimodalModel(nn.Module):
+    def __init__(self, eeg_model: nn.Module, spectrogram_model: nn.Module):
+        super().__init__()
+        self.eeg_model = eeg_model
+        self.spectrogram_model = spectrogram_model
+        self.fc1 = nn.Linear(2 * 6, 128)
+        self.fc2 = nn.Linear(128, 6)
+
+    def forward(self, eeg_data: torch.Tensor,
+                spectrogram_data: torch.Tensor) -> torch.Tensor:
+        combined = torch.cat([self.eeg_model(eeg_data),
+                              self.spectrogram_model(spectrogram_data)], -1)
+        return F.log_softmax(self.fc2(F.relu(self.fc1(combined))), dim=-1)

@@ -1,0 +1,93 @@
+"""Shared building blocks (counterpart of the JAX package's
+``models/layers.py``), NCHW, with the reference torch module names so a
+reference checkpoint loads with ``load_state_dict``."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops import cuda_specblock
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm over dim 1 with running statistics, eps 1e-5
+    (torch's default, which the JAX package matches).  Holds exactly the
+    reference's keys (``weight``, ``bias``, ``running_mean``,
+    ``running_var``); serving never updates them."""
+
+    def __init__(self, num_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, training=False,
+                            eps=1e-5)
+
+
+class Attention(nn.Module):
+    """Single-head scaled-dot attention over a token axis:
+    (B, L, D_in) → (output (B, L, D), weights (B, L, L))."""
+
+    def __init__(self, in_dim: int, attention_dim: int):
+        super().__init__()
+        self.attention_dim = attention_dim
+        self.query = nn.Linear(in_dim, attention_dim)
+        self.key = nn.Linear(in_dim, attention_dim)
+        self.value = nn.Linear(in_dim, attention_dim)
+
+    def forward(self, x: torch.Tensor):
+        q, k, v = self.query(x), self.key(x), self.value(x)
+        scores = q @ k.transpose(-2, -1) * self.attention_dim ** -0.5
+        weights = torch.softmax(scores, dim=-1)
+        return weights @ v, weights
+
+
+class SpectrogramBlock(nn.Module):
+    """3× conv3x3+ReLU → 2×2 pool → BN → dropout, plus a bilinear-resized
+    1×1-conv skip connection.
+
+    ``fused=True`` serves the conv×3+pool chain through the fused block of
+    :mod:`..ops.cuda_specblock` when the module is in eval mode and the
+    plane's sides are even (the JAX package's conditions); parameters are
+    the same either way.  The fused path has no backward yet: a gradient
+    request through it raises ``NotImplementedError``."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 pool_type: str = "max", fused: bool = False):
+        super().__init__()
+        self.pool_type = pool_type
+        self.fused = fused
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv3 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.bn = BatchNorm(out_channels)
+        self.dropout = nn.Dropout(0.5)
+        self.conv1x1 = nn.Conv2d(in_channels, out_channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        identity = x
+        convs = (self.conv1, self.conv2, self.conv3)
+        if (self.fused and not self.training
+                and cuda_specblock.fused_applies(*x.shape[2:])):
+            y = cuda_specblock.fused_specblock_convpool(
+                x.permute(0, 2, 3, 1).contiguous(),
+                [c.weight.permute(2, 3, 1, 0) for c in convs],
+                [c.bias for c in convs], pool=self.pool_type, dtype=x.dtype)
+            x = y.permute(0, 3, 1, 2)
+        else:
+            for conv in convs:
+                x = F.relu(conv(x))
+            pool = F.max_pool2d if self.pool_type == "max" else F.avg_pool2d
+            x = pool(x, 2)
+        x = self.dropout(self.bn(x))
+        if identity.shape != x.shape:
+            identity = F.interpolate(identity, size=x.shape[2:],
+                                     mode="bilinear", align_corners=False)
+            identity = self.conv1x1(identity)
+        return x + identity

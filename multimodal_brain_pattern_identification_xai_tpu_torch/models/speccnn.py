@@ -1,0 +1,37 @@
+"""Spectrogram 2D-CNN (counterpart of the JAX package's
+``models/speccnn.py``): five conv blocks with pooled skip connections →
+global average pool → FC → log-softmax."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .layers import SpectrogramBlock
+
+WIDTHS = (16, 32, 64, 128, 256)
+POOLS = ("max", "avg", "max", "avg", "max")
+N_CLASSES = 6
+
+
+class SpectrogramCNN(nn.Module):
+    """Input (B, 3, H, W) NCHW → (B, 6) log-probs.
+
+    ``fused_blocks=N`` serves the first N blocks through the fused
+    conv×3+pool kernel in eval mode; the parameters are those of the
+    unfused model."""
+
+    def __init__(self, fused_blocks: int = 0):
+        super().__init__()
+        cin = 3
+        for i, (w, p) in enumerate(zip(WIDTHS, POOLS)):
+            self.add_module(f"block{i+1}", SpectrogramBlock(
+                cin, w, pool_type=p, fused=i < fused_blocks))
+            cin = w
+        self.fc = nn.Linear(cin, N_CLASSES)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(len(WIDTHS)):
+            x = getattr(self, f"block{i+1}")(x)
+        return F.log_softmax(self.fc(x.mean(dim=(2, 3))), dim=-1)

@@ -1,0 +1,8 @@
+"""Signal-processing ops of the serving slice (PyTorch; CUDA kernels in
+:mod:`.cuda_iir` and :mod:`.cuda_specblock`)."""
+
+from .preprocess import (hms_eeg_preprocess, hms_spectrogram_preprocess,
+                         preprocess_multimodal)
+
+__all__ = ["hms_eeg_preprocess", "hms_spectrogram_preprocess",
+           "preprocess_multimodal"]

@@ -1,0 +1,139 @@
+"""Fused spectrogram-block kernel (counterpart of the JAX package's
+``ops/pallas_specblock.py``) with its plain PyTorch version.
+
+:func:`fused_specblock_convpool` computes, on NHWC input, three 3×3 SAME
+convs with bias and ReLU (Cin→C, C→C, C→C) and then a 2×2 stride-2 VALID
+max or avg pool, each stage stored in ``dtype`` (float32, or bf16 with
+float32 accumulation).  A CUDA tensor launches ``specblock_convpool``
+(``csrc/specblock.cu``), whose intermediates never leave shared memory; a
+CPU tensor takes :func:`_plain_convpool` (``F.conv2d`` ×3 + pool).  Launches
+are counted in ``fused_specblock_convpool.launches``.
+
+The function is not differentiable yet: a gradient request raises
+``NotImplementedError`` (the fused block's custom VJP is a later port).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+
+#: output widths the kernel is instantiated for
+KERNEL_COUTS = (8, 16, 32)
+MAX_BATCH = 65535
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/specblock.cu``."""
+    lib = _build.load("specblock")
+    lib.specblock_convpool.argtypes = [_P] * 6 + [_I] * 7 + [_P]
+    lib.specblock_convpool.restype = _I
+    lib.specblock_smem_bytes.argtypes = [_I, _I]
+    lib.specblock_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def fused_applies(h: int, w: int) -> bool:
+    """Whether the fused block takes an (h, w) plane: the applicability
+    rule of the JAX package's ``choose_fused_config`` (2×2 pool windows
+    must tile the plane: h and w even)."""
+    return h >= 2 and h % 2 == 0 and w % 2 == 0
+
+
+def _plain_convpool(x: torch.Tensor, kernels: Sequence[torch.Tensor],
+                    biases: Sequence[torch.Tensor], pool: str,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """The plain PyTorch version: conv (float32 accumulation over
+    ``dtype``-rounded inputs and weights) + bias + ReLU, rounded to
+    ``dtype`` after each stage, then the pool (avg sums in float32)."""
+    h = x.to(dtype).permute(0, 3, 1, 2).float()
+    for k, b in zip(kernels, biases):
+        w = k.to(dtype).float().permute(3, 2, 0, 1)         # HWIO → OIHW
+        h = F.conv2d(h, w, padding=1) + b.float()[None, :, None, None]
+        h = torch.relu(h).to(dtype).float()
+    h = F.max_pool2d(h, 2) if pool == "max" else F.avg_pool2d(h, 2)
+    return h.to(dtype).permute(0, 2, 3, 1)
+
+
+def _check_cuda_args(x, kernels, biases, pool, dtype) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"expected a CPU or CUDA tensor, got {x.device}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous NHWC tensor")
+    b, h, w, cin = x.shape
+    co = kernels[0].shape[-1]
+    if not fused_applies(h, w) or b > MAX_BATCH:
+        raise ValueError(f"fused block does not take (B, H, W) = {(b, h, w)}")
+    if co not in KERNEL_COUTS:
+        raise ValueError(f"fused block kernel takes Cout in {KERNEL_COUTS}, "
+                         f"got {co}")
+    want = [(3, 3, cin, co), (3, 3, co, co), (3, 3, co, co)]
+    if [tuple(k.shape) for k in kernels] != want:
+        raise ValueError(f"kernels must be HWIO {want}")
+    if any(tuple(bi.shape) != (co,) for bi in biases):
+        raise ValueError(f"biases must be ({co},)")
+    if pool not in ("max", "avg"):
+        raise ValueError(f"pool must be 'max' or 'avg', got {pool!r}")
+    if any(t.device != x.device for t in (*kernels, *biases)):
+        raise ValueError("x, kernels and biases must share one device")
+
+
+def _launch(x, kernels, biases, pool, dtype) -> torch.Tensor:
+    _check_cuda_args(x, kernels, biases, pool, dtype)
+    x = x.to(dtype)
+    b, h, w, cin = x.shape
+    co = kernels[0].shape[-1]
+    ws = [k.to(dtype).float().contiguous() for k in kernels]
+    bias = torch.stack([bi.float() for bi in biases]).contiguous()
+    out = torch.empty((b, h // 2, w // 2, co), dtype=dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _lib().specblock_convpool(
+            x.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(),
+            ws[2].data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, cin,
+            co, int(pool == "max"), int(dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "specblock_convpool")
+    fused_specblock_convpool.launches += 1
+    return out
+
+
+class _FusedConvPool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, k1, k2, k3, b1, b2, b3, pool, dtype):
+        ks, bs = (k1, k2, k3), (b1, b2, b3)
+        if x.device.type == "cpu":
+            return _plain_convpool(x, ks, bs, pool, dtype)
+        return _launch(x, ks, bs, pool, dtype)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "the fused spectrogram block has no backward yet; run the "
+            "model in training mode (unfused convs) to differentiate")
+
+
+def fused_specblock_convpool(x: torch.Tensor,
+                             kernels: Sequence[torch.Tensor],
+                             biases: Sequence[torch.Tensor],
+                             pool: str = "max",
+                             dtype: torch.dtype = torch.bfloat16
+                             ) -> torch.Tensor:
+    """conv3x3+bias+ReLU ×3 → 2×2 pool (stride 2, VALID).  ``x`` NHWC
+    (B, H, W, Cin); ``kernels`` three HWIO (3, 3, ·, C); ``biases`` three
+    (C,).  Returns NHWC (B, H/2, W/2, C) in ``dtype``."""
+    return _FusedConvPool.apply(x, *kernels, *biases, pool, dtype)
+
+
+fused_specblock_convpool.launches = 0

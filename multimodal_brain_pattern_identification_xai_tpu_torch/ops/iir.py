@@ -1,0 +1,299 @@
+"""IIR filtering: host-side design (float64) and plain PyTorch application.
+
+Counterpart of the JAX package's ``ops/iir.py``.  Coefficients are designed
+on the host with scipy in float64 and applied to float32 tensors as a
+cascade of second-order sections (biquads) in transposed direct-form II,
+the numerically sound form in float32.
+
+Two plain PyTorch routes apply a cascade:
+
+* :func:`_sos_scan`: the sequential scan over time (optionally from an
+  initial state).  A NaN reaches only the outputs at and after it, as in
+  scipy.
+* :func:`_cascade_block_matmul`: the block-Toeplitz formulation (every
+  128-sample block's zero-state response and exit state as one matmul, the
+  block entry states chained by a log-depth scan), with an optional output
+  operator (``out_map``) and initial state (``z0``).  Exact on finite
+  input; a NaN smears back to the start of its block (0·NaN), so it is
+  used on finite signals only.
+
+:func:`lfilter` and :func:`filtfilt` dispatch by device: a CUDA tensor goes
+to the kernels of :mod:`.cuda_iir`, a CPU tensor to the sequential scan.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+class FilterCoeffs(NamedTuple):
+    """IIR filter: transfer function (b, a) plus an equivalent cascade of
+    second-order sections, as hashable float tuples (cache keys)."""
+    b: Tuple[float, ...]
+    a: Tuple[float, ...]
+    sos: Tuple[Tuple[float, ...], ...]  # K × (b0,b1,b2,a0,a1,a2)
+
+    @staticmethod
+    def make(b, a, sos=None) -> "FilterCoeffs":
+        """``sos`` defaults to the single section of a biquad (b, a)."""
+        b = np.asarray(b, np.float64)
+        a = np.asarray(a, np.float64)
+        if sos is None:
+            if max(len(b), len(a)) > 3:
+                raise ValueError("pass sos for a filter of order above 2")
+            sos = np.zeros((1, 6))
+            sos[0, :len(b)] = b
+            sos[0, 3:3 + len(a)] = a
+        sos = np.asarray(sos, np.float64)
+        return FilterCoeffs(
+            tuple(b.tolist()), tuple(a.tolist()),
+            tuple(tuple(row) for row in sos.tolist()))
+
+
+# ---------------------------------------------------------------------------
+# Host-side design (float64)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def butter_bandpass(low: float, high: float, fs: float,
+                    order: int) -> FilterCoeffs:
+    """Butterworth bandpass design."""
+    from scipy.signal import butter
+    nyq = 0.5 * fs
+    wn = [low / nyq, high / nyq]
+    b, a = butter(order, wn, btype="band")
+    sos = butter(order, wn, btype="band", output="sos")
+    return FilterCoeffs.make(b, a, sos)
+
+
+def cascade(*filters: FilterCoeffs) -> FilterCoeffs:
+    """Compose filters into one SOS cascade (LTI composition is exact)."""
+    b = np.asarray([1.0])
+    a = np.asarray([1.0])
+    sos = []
+    for f in filters:
+        b = np.polymul(b, np.asarray(f.b))
+        a = np.polymul(a, np.asarray(f.a))
+        sos.extend(f.sos)
+    return FilterCoeffs.make(b, a, np.asarray(sos))
+
+
+@functools.lru_cache(maxsize=64)
+def iirnotch(freq: float, quality: float, fs: float) -> FilterCoeffs:
+    """Second-order IIR notch design."""
+    from scipy.signal import iirnotch as _iirnotch
+    b, a = _iirnotch(freq, quality, fs)
+    return FilterCoeffs.make(b, a)
+
+
+def _norm_section(sec: Tuple[float, ...]) -> Tuple[np.ndarray, np.ndarray]:
+    """One SOS row → (b[3], a[3]) normalized to a0 = 1."""
+    s = np.asarray(sec, np.float64)
+    b, a = s[:3], s[3:]
+    return b / a[0], a / a[0]
+
+
+def section_coefs(sos: Tuple[Tuple[float, ...], ...]) -> np.ndarray:
+    """(K, 5) float32 ``(b0, b1, b2, a1, a2)`` per normalised section — the
+    constants the sequential scan and the CUDA kernels multiply by."""
+    rows = []
+    for sec in sos:
+        b, a = _norm_section(sec)
+        rows.append((b[0], b[1], b[2], a[1], a[2]))
+    return np.asarray(rows, np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _sos_zi(coeffs: FilterCoeffs) -> np.ndarray:
+    """Per-section steady-state unit-step DF2T state, (K, 2) — the SOS
+    analogue of ``scipy.signal.lfilter_zi`` (``sosfilt_zi``)."""
+    from scipy.signal import lfilter_zi
+    zis = []
+    gain = 1.0
+    for sec in coeffs.sos:
+        b, a = _norm_section(sec)
+        zis.append(lfilter_zi(b, a) * gain)
+        gain *= b.sum() / a.sum()   # section DC gain scales the next input
+    return np.asarray(zis, np.float64)
+
+
+def _section_state_space(sec: Tuple[float, ...]):
+    """Biquad DF2T as ``z' = A z + B x``, ``y = C z + D x``."""
+    b, a = _norm_section(sec)
+    A = np.array([[-a[1], 1.0], [-a[2], 0.0]])
+    B = np.array([b[1] - a[1] * b[0], b[2] - a[2] * b[0]])
+    C = np.array([1.0, 0.0])
+    return A, B, C, float(b[0])
+
+
+def _compose_state_space(sos: Tuple[Tuple[float, ...], ...]):
+    """The K-section cascade as one (A, B, C, D) system whose state is the
+    concatenation of the per-section DF2T states, with
+    ``z[t] = A z[t-1] + B x[t]``, ``y[t] = C z[t-1] + D x[t]``."""
+    A = np.zeros((0, 0))
+    B = np.zeros((0,))
+    Cc = np.zeros((0,))
+    D = 1.0
+    for sec in sos:
+        Ak, Bk, Ck, Dk = _section_state_space(sec)
+        n = A.shape[0]
+        A2 = np.zeros((n + 2, n + 2))
+        A2[:n, :n] = A
+        A2[n:, :n] = np.outer(Bk, Cc)       # next section driven by y_k
+        A2[n:, n:] = Ak
+        B = np.concatenate([B, Bk * D])
+        Cc = np.concatenate([Dk * Cc, Ck])
+        A = A2
+        D = Dk * D
+    return A, B, Cc, D
+
+
+@functools.lru_cache(maxsize=256)
+def _cascade_block_matmul_ops(sos: Tuple[Tuple[float, ...], ...],
+                              block: int):
+    """Float64 operators of the block-Toeplitz formulation of a cascade:
+    ``L`` (block, block) zero-state impulse-response Toeplitz, ``S``
+    (block, 2K) block inputs → exit state, ``A_blk`` (2K, 2K) = ``A^block``,
+    ``obs`` (block, 2K) entry state → outputs (``C A^t``)."""
+    A, B, C, D = _compose_state_space(sos)
+    n = A.shape[0]
+    h = np.zeros(block)
+    S = np.zeros((block, n))
+    z = np.zeros(n)
+    for t in range(block):
+        x_t = 1.0 if t == 0 else 0.0
+        h[t] = C @ z + D * x_t
+        z = A @ z + B * x_t
+    S[block - 1] = B
+    for s in range(block - 2, -1, -1):
+        S[s] = A @ S[s + 1]                 # A^{block-1-s} B
+    idx = np.arange(block)
+    L = np.where(idx[:, None] >= idx[None, :],
+                 h[idx[:, None] - idx[None, :]], 0.0)
+    obs = np.zeros((block, n))
+    Ak = np.eye(n)
+    for t in range(block):
+        obs[t] = C @ Ak
+        Ak = Ak @ A
+    return L, S, Ak, obs
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch application
+# ---------------------------------------------------------------------------
+
+def _sos_scan(x: torch.Tensor, sos: Tuple[Tuple[float, ...], ...],
+              zi: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sequential SOS cascade over the last axis.
+
+    ``x``: (..., T); ``zi``: DF2T state per section broadcastable to
+    (..., K, 2), or None for zeros."""
+    coef = section_coefs(sos).tolist()
+    K = len(coef)
+    batch = x.shape[:-1]
+    if zi is None:
+        z0 = [x.new_zeros(batch) for _ in range(K)]
+        z1 = [x.new_zeros(batch) for _ in range(K)]
+    else:
+        zi = zi.to(x.dtype).expand(batch + (K, 2))
+        z0 = [zi[..., k, 0].clone() for k in range(K)]
+        z1 = [zi[..., k, 1].clone() for k in range(K)]
+    xt = x.movedim(-1, 0)
+    ys = torch.empty_like(xt)
+    for t in range(xt.shape[0]):
+        v = xt[t]
+        for k, (b0, b1, b2, a1, a2) in enumerate(coef):
+            y = torch.add(z0[k], v, alpha=b0)                 # b0 v + z0
+            z0[k] = torch.add(z1[k], v, alpha=b1).sub_(y, alpha=a1)
+            z1[k] = torch.mul(v, b2).sub_(y, alpha=a2)
+            v = y
+        ys[t] = v
+    return ys.movedim(0, -1)
+
+
+def _chain_entry_states(z_zs: torch.Tensor, A_blk: np.ndarray) -> torch.Tensor:
+    """Entry state of every block, ``z_entry[n] = Σ_{m<n} A_blk^{n-1-m}
+    z_zs[m]``, by a Hillis-Steele scan whose level j applies the constant
+    ``A_blk^(2^j)``.  Levels whose matrix has decayed below 1e-10 (below
+    float32 resolution of the states) are exact no-ops and are skipped.
+    ``z_zs``: (..., n, 2K)."""
+    n = z_zs.shape[-2]
+    s = z_zs
+    A_pow = np.asarray(A_blk, np.float64)
+    shift = 1
+    while shift < n:
+        if np.abs(A_pow).max() < 1e-10:
+            break
+        Aj = torch.as_tensor(A_pow, dtype=s.dtype, device=s.device)
+        shifted = F.pad(s, (0, 0, shift, 0))[..., :n, :]
+        s = s + shifted @ Aj.T
+        A_pow = A_pow @ A_pow
+        shift *= 2
+    return F.pad(s, (0, 0, 1, 0))[..., :n, :]
+
+
+def _cascade_block_matmul(x: torch.Tensor,
+                          sos: Tuple[Tuple[float, ...], ...],
+                          block: int = 128,
+                          out_map: Optional[np.ndarray] = None,
+                          z0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Whole cascade along the last axis as block-Toeplitz matmuls.
+
+    ``out_map``: optional (block_out, block) operator applied to each
+    block's output (e.g. rolling-mean-4 + ::4); the output then has
+    ``block_out`` samples per block.  ``z0``: optional initial state
+    broadcastable to (..., 2K), in the concatenated per-section layout
+    (``_sos_zi(...).reshape(-1)`` order)."""
+    T = x.shape[-1]
+    pad = (-T) % block
+    if pad:
+        x = F.pad(x, (0, pad))
+    n_blocks = x.shape[-1] // block
+    batch = x.shape[:-1]
+    dt, dev = x.dtype, x.device
+
+    L_np, S_np, A_blk_np, obs_np = _cascade_block_matmul_ops(tuple(sos), block)
+    if out_map is not None:
+        L_np = out_map @ L_np
+        obs_np = out_map @ obs_np
+    LS = torch.as_tensor(np.concatenate([L_np.T, S_np], axis=-1), dtype=dt,
+                         device=dev)                  # (block, bo + 2K)
+    obs = torch.as_tensor(obs_np, dtype=dt, device=dev)
+    bo = L_np.shape[0]
+
+    zz = x.reshape(batch + (n_blocks, block)) @ LS
+    y_zs, z_zs = zz[..., :bo], zz[..., bo:]
+    if z0 is not None:
+        z0 = z0.to(dt).expand(batch + (z_zs.shape[-1],))
+        A_blk = torch.as_tensor(A_blk_np, dtype=dt, device=dev)
+        # z_entry[n≥1] gains A_blk^n z0: fold it into block 0's exit state
+        z_zs = z_zs.clone()
+        z_zs[..., 0, :] += z0 @ A_blk.T
+    z_entry = _chain_entry_states(z_zs, A_blk_np)
+    if z0 is not None:
+        z_entry[..., 0, :] = z0
+    y = (y_zs + z_entry @ obs.T).reshape(batch + (n_blocks * bo,))
+    T_out = T if out_map is None else (T * bo + block - 1) // block
+    return y[..., :T_out]
+
+
+def lfilter(coeffs: FilterCoeffs, x: torch.Tensor, axis: int = -1
+            ) -> torch.Tensor:
+    """``scipy.signal.sosfilt`` along ``axis`` from zero state; all other
+    axes are independent lanes.  CUDA tensors run the CUDA kernel, CPU
+    tensors the sequential scan."""
+    from .cuda_iir import sosfilt
+    return sosfilt(coeffs, x.movedim(axis, -1)).movedim(-1, axis)
+
+
+def filtfilt(coeffs: FilterCoeffs, x: torch.Tensor, axis: int = -1,
+             padlen: Optional[int] = None) -> torch.Tensor:
+    """Zero-phase filtering with ``scipy.signal.filtfilt`` semantics (odd
+    extension by ``3·max(len a, len b)``, ``lfilter_zi`` initial state)."""
+    from .cuda_iir import filtfilt as _filtfilt
+    return _filtfilt(coeffs, x.movedim(axis, -1), padlen).movedim(-1, axis)

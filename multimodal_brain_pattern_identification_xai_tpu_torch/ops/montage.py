@@ -1,0 +1,53 @@
+"""Bipolar-montage differencing as one (C_out, C_in) matrix product over the
+channel axis (counterpart of the JAX package's ``ops/montage.py``)."""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import config as C
+
+
+def montage_matrix(pairs: Sequence[Tuple[str, str]],
+                   keep_channels: Optional[Sequence[str]] = None) -> np.ndarray:
+    """The (C_out, 20) montage matrix over the raw ``EEG_COLUMNS``: the kept
+    original channels (all 20 unless ``keep_channels``), then one row per
+    bipolar pair with +1 at the first channel and −1 at the second."""
+    columns = C.EEG_COLUMNS
+    f2i = {name: i for i, name in enumerate(columns)}
+    rows = []
+    for ch in (keep_channels if keep_channels is not None else columns):
+        row = np.zeros(len(columns), np.float32)
+        row[f2i[ch]] = 1.0
+        rows.append(row)
+    for a, b in pairs:
+        row = np.zeros(len(columns), np.float32)
+        row[f2i[a]] += 1.0
+        row[f2i[b]] -= 1.0
+        rows.append(row)
+    return np.stack(rows)
+
+
+def apply_montage(x: torch.Tensor, matrix: np.ndarray) -> torch.Tensor:
+    """``x``: (..., C_in, T) → (..., C_out, T)."""
+    m = torch.as_tensor(matrix, dtype=x.dtype, device=x.device)
+    return torch.matmul(m, x)
+
+
+def bipolar_differential(x: torch.Tensor) -> torch.Tensor:
+    """Append the 18 double-banana differentials to the 20 raw rows:
+    (..., 20, T) → (..., 38, T)."""
+    return apply_montage(x, montage_matrix(C.MAP_FEATURES))
+
+
+def select_and_map_channels(x: torch.Tensor) -> torch.Tensor:
+    """Keep the 19 scalp channels + the 18 trailing differential rows:
+    (..., 38, T) → (..., 37, T)."""
+    n_cols = len(C.EEG_COLUMNS)
+    f2i = {name: i for i, name in enumerate(C.EEG_COLUMNS)}
+    idx = [f2i[ch] for ch in C.EEG_FEATURES] + list(
+        range(n_cols, n_cols + len(C.MAP_FEATURES)))
+    return x[..., torch.as_tensor(idx, device=x.device), :]

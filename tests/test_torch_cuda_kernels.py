@@ -1,0 +1,110 @@
+"""CUDA kernels of the PyTorch port against their plain PyTorch versions,
+at the main path's shapes.  Needs an NVIDIA GPU (sm_90a) and nvcc: every
+test here carries the ``cuda`` marker and skips without a card.  Run on
+the card with ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
+
+Bounds: tests/test_pallas_iir.py (rel 2e-4, filtfilt 1e-3) and
+tests/test_pallas_specblock.py (f32 1e-5; bf16 max 0.03 / mean 0.003 at
+tensor scale).  The sequential plain scan runs on the CPU over a subset of
+lanes (it is a Python loop over time)."""
+
+import numpy as np
+import pytest
+import torch
+
+from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
+    cuda_iir, cuda_specblock, iir)
+
+pytestmark = pytest.mark.cuda
+
+BP5 = iir.butter_bandpass(0.5, 20.0, 200.0, 5)
+BP6 = iir.butter_bandpass(0.5, 20.0, 200.0, 6)
+NOTCH = iir.iirnotch(60.0, 30.0, 200.0)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / (b.abs().max() + 1e-12))
+
+
+def _signal(shape, scale, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.standard_normal(shape) * scale,
+                           dtype=torch.float32)
+
+
+def test_sosfilt_zero_init(dev):
+    x = _signal((80, 10_000), 40)
+    n0 = cuda_iir.sosfilt.launches
+    got = cuda_iir.sosfilt(BP5, x.to(dev))
+    torch.cuda.synchronize()
+    assert cuda_iir.sosfilt.launches == n0 + 1
+    assert _rel(got[::10], cuda_iir.sosfilt(BP5, x[::10])) < 2e-4
+
+
+def test_sosfilt_nan_mask(dev):
+    x = _signal((64, 2000), 40)
+    x[5, 300] = float("nan")
+    got = cuda_iir.sosfilt(BP5, x.to(dev)).cpu()
+    want = cuda_iir.sosfilt(BP5, x)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+
+
+def test_filtfilt_steady_state(dev):
+    x = _signal((1200, 400), 5)
+    got = cuda_iir.filtfilt(NOTCH, x.to(dev))
+    assert _rel(got[::40], cuda_iir.filtfilt(NOTCH, x[::40])) < 1e-3
+
+
+@pytest.mark.parametrize("k", [6, 11])
+def test_sosfilt_rolldec(dev, k):
+    coeffs = BP6 if k == 6 else iir.cascade(BP5, BP6)
+    x = _signal((152, 10_000), 20)
+    n0 = cuda_iir.sosfilt_rolldec.launches
+    got = cuda_iir.sosfilt_rolldec(coeffs, x.to(dev))
+    torch.cuda.synchronize()
+    assert cuda_iir.sosfilt_rolldec.launches == n0 + 1
+    assert got.shape == (152, 2500)
+    assert _rel(got[::19], cuda_iir.sosfilt_rolldec(coeffs, x[::19])) < 2e-4
+
+
+def _block_args(cin, cout, h, w, b=2, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32)
+    x = f(b, h, w, cin)
+    ks = [f(3, 3, ci, cout) * 0.2 for ci in (cin, cout, cout)]
+    bs = [f(cout) * 0.1 for _ in range(3)]
+    return x, ks, bs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,h,w,pool", [
+    (3, 16, 400, 300, "max"),       # block 1
+    (16, 32, 200, 150, "avg"),      # block 2
+    (5, 8, 8, 20, "max"),           # ragged small plane
+])
+def test_specblock_matches_plain(dev, dtype, cin, cout, h, w, pool):
+    x, ks, bs = _block_args(cin, cout, h, w)
+    xd, kd, bd = x.to(dev), [k.to(dev) for k in ks], [b.to(dev) for b in bs]
+    n0 = cuda_specblock.fused_specblock_convpool.launches
+    got = cuda_specblock.fused_specblock_convpool(xd, kd, bd, pool=pool,
+                                                  dtype=dtype).float()
+    torch.cuda.synchronize()
+    assert cuda_specblock.fused_specblock_convpool.launches == n0 + 1
+    truth = cuda_specblock._plain_convpool(xd, kd, bd, pool,
+                                           torch.float32).float()
+    assert got.shape == truth.shape == (2, h // 2, w // 2, cout)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, truth, rtol=1e-5, atol=1e-5)
+    else:
+        err = (got - truth).abs() / truth.abs().max()
+        assert float(err.max()) < 0.03 and float(err.mean()) < 0.003
