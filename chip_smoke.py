@@ -7,17 +7,26 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 1. device   — the card's name and power limit (nvidia-smi);
 2. build    — nvcc builds every kernel from ``csrc/``, all sources at
               once; prints ptxas's register / shared-memory / spill lines;
-3. kernels  — every kernel against its plain PyTorch version on the card
-              (float32 with TF32 off; bf16 for the spectrogram block), at
-              the main path's shapes, with the bounds of the JAX package's
-              kernel tests;
+3. kernels  — every serving kernel against its plain PyTorch version on
+              the card (float32 with TF32 off; bf16 for the spectrogram
+              block), at the main path's shapes, with the bounds of the JAX
+              package's kernel tests; ``filtfilt`` timed at its shapes;
 4. main     — the serving entry at B=4 on cuda, NaN route (a NaN run in one
               channel of one window) and finite route, with every kernel's
               launch counter read around that run; log-probs held against
               the same forward on the CPU's plain versions;
 5. timing   — the finite-route serving forward at B=256 (CUDA events),
               windows/s, and every kernel's time beside its plain
-              version, its bound and the library call where one exists.
+              version, its bound and the library call where one exists;
+6. xai      — input-gradient attribution through the fused serving model
+              (``explain_entry``): saliency, Grad-CAM, IG and expected
+              gradients at B=4 (B=2 for the spectrogram sweeps) held
+              against the CPU and against the unfused model, with the fused
+              block's launches and backward calls read around them; then
+              their times at B=256 (IG on the spectrogram branch at B=32)
+              and the fused block's VJP beside the cuDNN chain's backward;
+7. convprobe — the conv probe's duty kernel against its plain version at
+              the probe's four GEMM shapes, then its rate at R=512.
 
 Output: a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, then the
 last line ``{"ok": true, "device": {...}}``.  Needs one card; imports
@@ -26,6 +35,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -36,8 +46,26 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 on the tensor cores
 B_MAIN, B_TIME = 4, 256
 LOGP_ATOL = 1e-3                 # GPU vs CPU log-probs (see main_path)
+# Attributions, card vs CPU and fused vs unfused (see phase_xai), relative
+# to the reference tensor's max |value|: float32 on both sides with sums in
+# other orders (cuDNN's backward convolutions use atomics), the JAX
+# package's attribution bound rtol 1e-3 (tests/test_xai.py:229).
+XAI_REL = 1e-3
+# Spectrogram input gradients pass ReLUs and max pools in five blocks.
+# Where the two sides' roundings (fused kernel vs cuDNN, card vs CPU, NHWC
+# vs NCHW algorithms) put a ReLU input or a max-pool pair on opposite sides
+# of a tie, the gradient steps by that unit's whole contribution, and a
+# unit of blocks 3-5 reaches much of the image.  At full width a few such
+# flips per sample are expected: on the CPU alone the fused and unfused
+# models differ by 8e-3 (max) and 3e-3 (normwise) on a random spectrogram
+# for this reason, while the fused block alone agrees to 4e-7; card vs CPU
+# saliency at B=4 differed by 2.6e-2 (max) and 3.8e-3 (normwise).  The
+# normwise bound is the guard: a wrong gradient differs by O(1).
+XAI_KINK_REL, XAI_KINK_NORM = 1e-1, 1e-2
+DUTY_REL = 1e-4                  # duty kernel vs plain (exact bf16 products)
 PKG = "multimodal_brain_pattern_identification_xai_tpu_torch"
 
 
@@ -82,6 +110,15 @@ def max_abs(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def norm_rel(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / (b.norm() + 1e-30))
+
+
+def peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
 # ---------------------------------------------------------------------------
 
 def phase_device() -> str:
@@ -98,11 +135,11 @@ def phase_device() -> str:
 def phase_build(card: str) -> None:
     from multimodal_brain_pattern_identification_xai_tpu_torch import _build
     from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
-        cuda_specblock)
+        cuda_duty, cuda_specblock)
     t0 = time.perf_counter()
-    _build.build(["iir", "specblock"])
-    print(f"[build] nvcc iir.cu + specblock.cu in "
-          f"{time.perf_counter() - t0:.1f} s (both in parallel; empty log "
+    _build.build(["iir", "specblock", "duty"])
+    print(f"[build] nvcc iir.cu + specblock.cu + duty.cu in "
+          f"{time.perf_counter() - t0:.1f} s (all in parallel; empty log "
           f"= already built)")
     for name, log in sorted(_build.build_logs.items()):
         for line in log.splitlines():
@@ -113,6 +150,9 @@ def phase_build(card: str) -> None:
     for cin, co in ((3, 16), (16, 32)):
         print(f"[build] specblock dynamic smem (cin={cin}, cout={co}): "
               f"{lib.specblock_smem_bytes(cin, co)} bytes")
+    for co, k in cuda_duty.SHAPES:
+        print(f"[build] duty dynamic smem (co={co}, k={k}): "
+              f"{cuda_duty._lib().duty_smem_bytes(co, k)} bytes")
 
 
 def phase_kernels(card: str, dev) -> dict:
@@ -149,21 +189,41 @@ def phase_kernels(card: str, dev) -> dict:
           f"bound {b:.4f} ms by {b_by} [{card}]")
     del x, y, y_plain
 
-    # --- #1 with zi: filtfilt of the spectrogram notch, 400-sample lanes --
-    xs = signal((B_MAIN * 300, 400), 5, 2, dev)
-    got = cuda_iir.filtfilt(notch, xs)
-    n_plain = cuda_iir.sosfilt.launches
+    # --- #1 with zi: filtfilt (#1') of the spectrogram notch, 400-sample
+    # lanes, held at B_MAIN and timed there and at B_TIME.  Bound: both
+    # passes read and write the odd-extended lanes, against their f32
+    # operations (9 per biquad step)
     pad = 3 * max(len(notch.a), len(notch.b))          # scipy's default
-    ext = torch.cat([2 * xs[..., :1] - xs[..., 1:pad + 1].flip(-1), xs,
-                     2 * xs[..., -1:] - xs[..., -pad - 1:-1].flip(-1)], -1)
     zi = torch.as_tensor(iir._sos_zi(notch), dtype=torch.float32, device=dev)
-    yp = iir._sos_scan(ext, notch.sos, zi * ext[..., :1, None]).flip(-1)
-    yp = iir._sos_scan(yp, notch.sos, zi * yp[..., :1, None]).flip(-1)
-    r = rel(got, yp[..., pad:pad + 400])
-    require(cuda_iir.sosfilt.launches == n_plain, "plain filtfilt launched")
-    require(r < 1e-3, f"filtfilt (zi mode) rel err {r}")
-    print(f"[kernels] iir_sosfilt zi mode (filtfilt notch, {tuple(xs.shape)})"
-          f": rel {r:.2e}")
+
+    def plain_filtfilt(xs):
+        ext = torch.cat([2 * xs[..., :1] - xs[..., 1:pad + 1].flip(-1), xs,
+                         2 * xs[..., -1:] - xs[..., -pad - 1:-1].flip(-1)],
+                        -1)
+        yp = iir._sos_scan(ext, notch.sos, zi * ext[..., :1, None]).flip(-1)
+        yp = iir._sos_scan(yp, notch.sos, zi * yp[..., :1, None]).flip(-1)
+        return yp[..., pad:pad + xs.shape[-1]]
+
+    for lanes in (B_MAIN * 300, B_TIME * 300):
+        xs = signal((lanes, 400), 5, 2, dev)
+        got = cuda_iir.filtfilt(notch, xs)
+        n_plain = cuda_iir.sosfilt.launches
+        t0 = time.perf_counter()
+        want = plain_filtfilt(xs)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        require(cuda_iir.sosfilt.launches == n_plain, "plain filtfilt launched")
+        r = rel(got, want)
+        require(r < 1e-3, f"filtfilt (zi mode) rel err {r}")
+        ms = cuda_ms(lambda: cuda_iir.filtfilt(notch, xs), 10)
+        t_ext = 400 + 2 * pad
+        b, b_by = bound_ms(2 * 2 * lanes * t_ext * 4,
+                           2 * 9 * len(notch.sos) * lanes * t_ext)
+        print(f"[kernels] filtfilt notch (sosfilt zi mode) ({lanes}, 400): "
+              f"rel {r:.2e}, {ms:.4f} ms (two sosfilt launches; plain "
+              f"two-pass scan {plain_ms:.1f} ms, host clock), bound "
+              f"{b:.5f} ms by {b_by} [{card}]")
+    del xs, got, want
 
     # --- #2 rolldec: K=11 (finite route) and K=6 (NaN route bp2) ---------
     for coeffs, k, lanes in ((casc, 11, B_TIME * 20), (bp6, 6, B_TIME * 38)):
@@ -302,9 +362,12 @@ def phase_main(card: str) -> dict:
     return launches
 
 
-def phase_timing(card: str) -> None:
+def phase_timing(card: str) -> float:
+    """Serving forward at B_TIME, both routes; returns the finite route's
+    ms/batch."""
     from multimodal_brain_pattern_identification_xai_tpu_torch.entry import (
         entry)
+    times = {}
     for route in ("finite", "nan"):
         fwd, (eeg, spec) = entry(device="cuda", batch=B_TIME,
                                  assume_finite=route == "finite")
@@ -314,8 +377,267 @@ def phase_timing(card: str) -> None:
               f"{ms:.3f} ms/batch, {B_TIME / ms * 1e3:.1f} windows/s; peak "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
               f"[{card}]")
+        times[route] = ms
         del fwd, eeg, spec
         torch.cuda.empty_cache()
+    return times["finite"]
+
+
+def _held(what: str, got, want, kink: bool = False) -> None:
+    """Hold an attribution against its reference: max |diff| over the
+    reference's max |value| and ||diff|| / ||ref|| below XAI_REL
+    (XAI_KINK_REL and XAI_KINK_NORM where ReLU and max-pool ties may
+    flip)."""
+    got, want = got.detach().cpu(), want.detach().cpu()
+    require(got.shape == want.shape, f"{what}: shape {got.shape}")
+    require(bool(torch.isfinite(got).all()), f"{what}: non-finite")
+    scale = float(want.abs().max())
+    require(scale > 0, f"{what}: the reference is all zero")
+    e_max, e_norm = rel(got, want), norm_rel(got, want)
+    b_max, b_norm = (XAI_KINK_REL, XAI_KINK_NORM) if kink else (XAI_REL,
+                                                                XAI_REL)
+    print(f"[xai] {what} {tuple(got.shape)}: max|diff|/max|ref| {e_max:.2e} "
+          f"(bound {b_max}), ||diff||/||ref|| {e_norm:.2e} (bound "
+          f"{b_norm}); max|ref| {scale:.3e}")
+    require(e_max < b_max and e_norm < b_norm,
+            f"{what}: {e_max:.3e} / {e_norm:.3e}")
+
+
+def phase_xai(card: str, dev, serving_ms: float) -> dict:
+    """Attribution through the fused serving model: correctness on the
+    card against the CPU and the unfused model, the fused block's launches
+    and backward calls read around that run, then times at B_TIME."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import xai
+    from multimodal_brain_pattern_identification_xai_tpu_torch.entry import (
+        explain_entry)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.models import (
+        SpectrogramCNN)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
+        cuda_specblock)
+    import torch.nn.functional as F
+    fused = cuda_specblock.fused_specblock_convpool
+
+    def unfused_twin(m):
+        twin = copy.deepcopy(m)
+        twin.spectrogram_model = SpectrogramCNN(fused_blocks=0)
+        twin.spectrogram_model.load_state_dict(
+            m.spectrogram_model.state_dict())
+        return twin.to(dev).eval().requires_grad_(False)
+
+    # --- correctness, B_MAIN (B=2 for the spectrogram sweeps) ------------
+    model, (eeg, spec) = explain_entry(device="cuda", batch=B_MAIN)
+    cpu = copy.deepcopy(model).cpu()
+    ceeg, cspec = eeg.cpu(), spec.cpu()
+    unfused = unfused_twin(model)
+    with torch.no_grad():        # targets from the CPU, given to both sides
+        t_mm = cpu(ceeg, cspec).argmax(-1)
+        t_eeg = cpu.forward_eeg(ceeg).argmax(-1)
+        t_spec = cpu.forward_spectrogram(cspec).argmax(-1)
+    fused.launches = fused.backward_calls = 0
+    ge, gs = xai.multimodal_saliency(model, eeg, spec, target=t_mm.to(dev))
+    ue, us = xai.multimodal_saliency(unfused, eeg, spec, target=t_mm.to(dev))
+    ce, cs = xai.multimodal_saliency(cpu, ceeg, cspec, target=t_mm)
+    _held("multimodal saliency, EEG, card vs CPU", ge, ce)
+    _held("multimodal saliency, spectrogram, card vs CPU", gs, cs, kink=True)
+    _held("multimodal saliency, EEG, fused vs unfused (card)", ge, ue)
+    _held("multimodal saliency, spectrogram, fused vs unfused (card)", gs, us,
+          kink=True)
+    for name, x, cx, tgt, size in (
+            ("eeg_model", eeg, ceeg, t_eeg, (1, 3000)),
+            ("spectrogram_model", spec, cspec, t_spec, (400, 300))):
+        got = xai.grad_cam(getattr(model, name), x, target=tgt.to(dev),
+                           upsample_to=size)
+        require(float(got.min()) >= 0 and float(got.max()) <= 1 + 1e-6,
+                f"grad_cam {name}: not in [0, 1]")
+        _held(f"grad_cam {name}, card vs CPU", got,
+              xai.grad_cam(getattr(cpu, name), cx, target=tgt,
+                           upsample_to=size))
+    _held("integrated_gradients, spectrogram, steps 8 chunk 4, card vs CPU",
+          xai.integrated_gradients(model.forward_spectrogram, spec[:2],
+                                   target=t_spec[:2].to(dev), steps=8,
+                                   chunk=4),
+          xai.integrated_gradients(cpu.forward_spectrogram, cspec[:2],
+                                   target=t_spec[:2], steps=8, chunk=4),
+          kink=True)
+    for branch, x, cx, tgt in (("eeg", eeg, ceeg, t_eeg),
+                               ("spectrogram", spec[:2], cspec[:2],
+                                t_spec[:2])):
+        fwd, cfwd = (getattr(m, f"forward_{branch}") for m in (model, cpu))
+        _held(f"expected_gradients, {branch}, nsamples 8 chunk 4, card vs CPU "
+              f"(same draws)",
+              xai.expected_gradients(fwd, x, x, torch.Generator().manual_seed(0),
+                                     tgt.to(dev), nsamples=8, chunk=4),
+              xai.expected_gradients(cfwd, cx, cx,
+                                     torch.Generator().manual_seed(0), tgt,
+                                     nsamples=8, chunk=4),
+              kink=branch == "spectrogram")
+    torch.cuda.synchronize()
+    counts = {"launches": fused.launches, "backward_calls": fused.backward_calls}
+    print(f"[xai] fused_specblock_convpool during the attribution run: {counts}")
+    require(counts["launches"] > 0, "the fused block was not launched under "
+            "attribution")
+    require(counts["backward_calls"] > 0, "the fused block's VJP never ran")
+    del model, cpu, unfused, eeg, spec, ceeg, cspec
+    torch.cuda.empty_cache()
+
+    # --- times, B_TIME ---------------------------------------------------
+    model, (e256, s256) = explain_entry(device="cuda", batch=B_TIME)
+    x = signal((B_TIME, 1, 37, 3000), 1.0, 0, dev)
+    eeg_m = model.eeg_model
+
+    def infer():
+        with torch.no_grad():
+            return eeg_m(x)
+    t_inf = cuda_ms(infer, 10, warmup=2)
+    torch.cuda.reset_peak_memory_stats()
+    t_cam = cuda_ms(lambda: xai.grad_cam(eeg_m, x), 10, warmup=2)
+    print(f"[xai] gradcam_cost_vs_inference (EEGNetAttentionRegularized, "
+          f"B={B_TIME}): {t_cam / t_inf:.4f}x (grad_cam {t_cam:.3f} ms, "
+          f"inference {t_inf:.3f} ms); peak {peak_gib():.2f} GiB [{card}]")
+
+    steps, nsamples = 50, 32           # bench.py:737-759's sweep and chunks
+    chunk_ig = max(1, 2048 // B_TIME)
+    while steps % chunk_ig:
+        chunk_ig -= 1
+    chunk_eg = max(1, 1024 // B_TIME)
+    while nsamples % chunk_eg:
+        chunk_eg -= 1
+    fwd = model.forward_eeg
+    with torch.no_grad():
+        tgt = fwd(x).argmax(-1)
+    torch.cuda.reset_peak_memory_stats()
+    t_ig = cuda_ms(lambda: xai.integrated_gradients(
+        fwd, x, target=tgt, steps=steps, chunk=chunk_ig), 2)
+    print(f"[xai] IG, EEG branch, B={B_TIME}, steps {steps}, chunk "
+          f"{chunk_ig}: {t_ig:.3f} ms, {B_TIME / t_ig * 1e3:.1f} maps/s; peak "
+          f"{peak_gib():.2f} GiB [{card}]")
+    gen = torch.Generator().manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    t_shap = cuda_ms(lambda: xai.gradient_shap_values(
+        fwd, x, x[:16], gen, nsamples=nsamples, chunk=chunk_eg), 1)
+    print(f"[xai] gradient SHAP, EEG branch, B={B_TIME}, 6 classes x "
+          f"nsamples {nsamples}, chunk {chunk_eg}: {t_shap:.3f} ms, "
+          f"{B_TIME / t_shap * 1e3:.2f} maps/s; peak {peak_gib():.2f} GiB "
+          f"[{card}]")
+    del x, tgt
+
+    unfused = unfused_twin(model)
+    times = {}
+    for name, m in (("fused", model), ("unfused", unfused)):
+        torch.cuda.reset_peak_memory_stats()
+        times[name] = cuda_ms(lambda: xai.multimodal_saliency(m, e256, s256),
+                              3)
+        print(f"[xai] multimodal saliency, {name} model, B={B_TIME}: "
+              f"{times[name]:.3f} ms ({times[name] / serving_ms:.3f}x the "
+              f"serving forward's {serving_ms:.3f} ms); peak "
+              f"{peak_gib():.2f} GiB [{card}]")
+    del unfused
+    xs32, fwd, chunk = s256[:32], model.forward_spectrogram, 10
+    with torch.no_grad():
+        tgt = fwd(xs32).argmax(-1)
+    torch.cuda.reset_peak_memory_stats()
+    t_igs = cuda_ms(lambda: xai.integrated_gradients(
+        fwd, xs32, target=tgt, steps=steps, chunk=chunk), 1)
+    print(f"[xai] IG, fused spectrogram branch, B=32, steps {steps}, chunk "
+          f"{chunk}: {t_igs:.3f} ms, {32 / t_igs * 1e3:.2f} maps/s; peak "
+          f"{peak_gib():.2f} GiB [{card}]")
+    del model, e256, s256, xs32, tgt
+    torch.cuda.empty_cache()
+
+    # --- the fused block's VJP (#3') at B_TIME: backward = fused forward +
+    # backward minus fused forward; library = the backward alone of the
+    # cuDNN chain's kept graph; bound = the recomputed forward's and the
+    # data-gradient's f32 operations against x, g and dx moved once
+    vjp = dict(ms=0.0, library_ms=0.0, t_bytes=0.0, t_ops=0.0)
+    for name, cin, co, h, w, pool in (("block1", 3, 16, 400, 300, "max"),
+                                      ("block2", 16, 32, 200, 150, "avg")):
+        rng = np.random.default_rng(4)
+        mk = lambda *sh: torch.as_tensor(rng.standard_normal(sh),
+                                         dtype=torch.float32, device=dev)
+        ks = [mk(3, 3, ci, co) * 0.2 for ci in (cin, co, co)]
+        bs = [mk(co) * 0.1 for _ in range(3)]
+        x = mk(B_TIME, h, w, cin)
+        g = mk(B_TIME, h // 2, w // 2, co)
+        xr = x.clone().requires_grad_()
+        t_f = cuda_ms(lambda: fused(x, ks, bs, pool=pool, dtype=torch.float32),
+                      5)
+        t_fb = cuda_ms(lambda: torch.autograd.grad(
+            fused(xr, ks, bs, pool=pool, dtype=torch.float32), xr, g), 5)
+        xn = x.permute(0, 3, 1, 2).contiguous().requires_grad_()
+        hh = xn
+        for k, b in zip(ks, bs):
+            hh = F.relu(F.conv2d(hh, k.permute(3, 2, 0, 1), b, padding=1))
+        out = F.max_pool2d(hh, 2) if pool == "max" else F.avg_pool2d(hh, 2)
+        gn = g.permute(0, 3, 1, 2)
+        t_lib = cuda_ms(lambda: torch.autograd.grad(out, xn, gn,
+                                                    retain_graph=True), 5)
+        nbytes = (2 * x.numel() + g.numel()) * 4
+        flops = 2 * 2 * 9 * (cin * co + 2 * co * co) * B_TIME * h * w
+        b_ms, b_by = bound_ms(nbytes, flops)
+        print(f"[xai] fused block VJP {name} (B={B_TIME}): fused fwd+bwd "
+              f"{t_fb:.3f} ms - fwd {t_f:.3f} ms = {t_fb - t_f:.3f} ms; cuDNN "
+              f"chain backward alone {t_lib:.3f} ms; bound {b_ms:.3f} ms by "
+              f"{b_by} [{card}]")
+        vjp["ms"] += t_fb - t_f
+        vjp["library_ms"] += t_lib
+        vjp["t_bytes"] += nbytes / HBM_BYTES_PER_S * 1e3
+        vjp["t_ops"] += flops / F32_FLOP_PER_S * 1e3
+        del x, xr, xn, hh, out, g, gn
+        torch.cuda.empty_cache()
+    print(f"[xai] fused block VJP, blocks 1+2: {vjp['ms']:.3f} ms, cuDNN "
+          f"backward {vjp['library_ms']:.3f} ms, bound "
+          f"{max(vjp['t_bytes'], vjp['t_ops']):.3f} ms [{card}]")
+    return counts
+
+
+def phase_convprobe(card: str, dev) -> dict:
+    """The duty kernel against its plain version at the probe's four
+    shapes (N=16384, small R), the probe's run at R=512 with its launches
+    counted, then its times."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
+        cuda_duty)
+    n, r_check, r_run = 16384, 4, 512
+    ops = {}
+    for co, k in cuda_duty.SHAPES:
+        rng = np.random.default_rng(co + k)
+        w = torch.as_tensor(rng.standard_normal((co, k)),
+                            dtype=torch.bfloat16).to(dev)
+        p = torch.as_tensor(rng.standard_normal((k, n)) * 0.1,
+                            dtype=torch.bfloat16).to(dev)
+        got, want = cuda_duty.duty(w, p, r_check), cuda_duty._plain_duty(
+            w, p, r_check)
+        e = rel(got, want)
+        require(e < DUTY_REL, f"duty ({co}, {k}) rel err {e}")
+        ops[(co, k)] = (w, p, max_abs(got, want), e)
+    cuda_duty.duty.launches = 0
+    for w, p, _, _ in ops.values():
+        cuda_duty.duty(w, p, r_run)
+    torch.cuda.synchronize()
+    launches = cuda_duty.duty.launches
+    require(launches > 0, "the duty kernel was not launched by the probe")
+    tot = dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    for (co, k), (w, p, err, e) in ops.items():
+        ms = cuda_ms(lambda: cuda_duty.duty(w, p, r_run), 5)
+        plain_ms = cuda_ms(lambda: cuda_duty._plain_duty(w, p, r_run), 5)
+        lib_ms = r_run * cuda_ms(
+            lambda: torch.mm(w, p, out_dtype=torch.float32), 20)
+        flops = 2 * r_run * co * k * n
+        b_ms = flops / BF16_FLOP_PER_S * 1e3
+        print(f"[convprobe] duty ({co}, {k}) N={n}: rel {e:.2e} at R="
+              f"{r_check} (bound {DUTY_REL}); R={r_run}: {ms:.4f} ms = "
+              f"{flops / ms / 1e9:.2f} TFLOP/s ({flops / ms / 1e9 / 989:.4f} "
+              f"of 989), bound {b_ms:.4f} ms by operations; plain f32 "
+              f"{plain_ms:.4f} ms; torch.mm bf16->f32 x R {lib_ms:.4f} ms "
+              f"[{card}]")
+        tot["err"] = max(tot["err"], err)
+        tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
+        tot["bound_ms"] += b_ms
+        tot["library_ms"] += lib_ms
+    tot["bound_by"] = "operations"
+    tot["launches"] = launches
+    print(f"[convprobe] duty launches during the probe's run: {launches}")
+    return tot
 
 
 def main() -> int:
@@ -331,27 +653,48 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    card = phase_device()
-    phase_build(card)
-    rec = phase_kernels(card, dev)
-    launches = phase_main(card)
-    phase_timing(card)
+    clock = [time.perf_counter()]
 
+    def done(phase: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] phase {phase}: {now - clock[0]:.1f} s")
+        clock[0] = now
+    card = phase_device()
+    done("device")
+    phase_build(card)
+    done("build")
+    rec = phase_kernels(card, dev)
+    done("kernels")
+    launches = phase_main(card)
+    done("main")
+    serving_ms = phase_timing(card)
+    done("timing")
+    xai_counts = phase_xai(card, dev, serving_ms)
+    done("xai")
+    rec["duty"] = phase_convprobe(card, dev)
+    done("convprobe")
+
+    xai_tpu = "multimodal_brain_pattern_identification_xai_tpu"
     src = {"iir_sosfilt": (f"{PKG}/csrc/iir.cu",
-                           "multimodal_brain_pattern_identification_xai_tpu/"
-                           "ops/pallas_iir.py:165"),
+                           f"{xai_tpu}/ops/pallas_iir.py:165", "serving"),
            "iir_sosfilt_rolldec": (f"{PKG}/csrc/iir.cu",
-                                   "multimodal_brain_pattern_identification_"
-                                   "xai_tpu/ops/pallas_iir.py:254"),
+                                   f"{xai_tpu}/ops/pallas_iir.py:254",
+                                   "serving"),
            "specblock_convpool": (f"{PKG}/csrc/specblock.cu",
-                                  "multimodal_brain_pattern_identification_"
-                                  "xai_tpu/ops/pallas_specblock.py:242")}
+                                  f"{xai_tpu}/ops/pallas_specblock.py:242",
+                                  "serving+xai"),
+           "duty": (f"{PKG}/csrc/duty.cu", "bench.py:1123", "convprobe")}
+    launches["duty"] = rec["duty"].pop("launches")
     kernels = [{"name": name, "route": "cuda", "source": src[name][0],
-                "replaces": src[name][1], "launches": launches[name],
+                "replaces": src[name][1], "path": src[name][2],
+                "launches": launches[name],
                 "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
                for name, r in rec.items()]
+    for k in kernels:
+        if k["name"] == "specblock_convpool":
+            k["xai_launches"] = xai_counts["launches"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of the multimodal brain-pattern identification system.
 
-The serving forward (raw EEG + raw spectrogram → log-probs) runs on an
-NVIDIA Hopper card through hand-written CUDA kernels (``csrc/``); every
-kernel has a plain PyTorch version beside it that CPU tensors take.
+The serving forward (raw EEG + raw spectrogram → log-probs, ``entry``)
+and input-gradient XAI on the served model (``xai``, ``entry.
+explain_entry``) run on an NVIDIA Hopper card through hand-written CUDA
+kernels (``csrc/``); every kernel has a plain PyTorch version beside it
+that CPU tensors take.
 Imports ``torch``, numpy and scipy only.
 """
 

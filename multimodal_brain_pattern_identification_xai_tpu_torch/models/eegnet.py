@@ -39,13 +39,22 @@ class EEGNetAttentionRegularized(nn.Module):
         self.dense1 = nn.Linear(F2 * (samples // 32), 128)
         self.dense2 = nn.Linear(128, N_CLASSES)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """The stem through ELU → avgpool (1, 8) → dropout: the feature map
+        (B, F2, 1, T') that Grad-CAM reads (the JAX model's
+        ``sow("feature_map")``)."""
         x = self.batchnorm1(self.conv1(x))
         x = self.batchnorm2(self.depthwiseConv(x))
         x = self.dropout(F.avg_pool2d(F.elu(x), (1, 4)))
         x = self.batchnorm3(self.separableConv(x))
-        x = self.dropout(F.avg_pool2d(F.elu(x), (1, 8)))     # (B, F2, 1, T')
-        tokens, _ = self.attention_layer(x.flatten(2).transpose(1, 2))
+        return self.dropout(F.avg_pool2d(F.elu(x), (1, 8)))
+
+    def head(self, a: torch.Tensor) -> torch.Tensor:
+        """Feature map (B, F2, 1, T') → log-probs (B, 6)."""
+        tokens, _ = self.attention_layer(a.flatten(2).transpose(1, 2))
         x = tokens.transpose(1, 2).flatten(1)                # channel-major
         x = self.dense2(self.dropout(self.dense1(x)))
         return F.log_softmax(x, dim=-1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.head(self.features(x))

@@ -1,6 +1,8 @@
 """Late-fusion multimodal model (counterpart of the JAX package's
 ``models/fusion.py``): concatenate the EEG branch's and the spectrogram
-branch's log-probs → FC128 → ReLU → FC → log-softmax."""
+branch's log-probs → FC128 → ReLU → FC → log-softmax.  ``forward_eeg`` and
+``forward_spectrogram`` run one branch alone (the targets of per-branch
+attribution)."""
 
 from __future__ import annotations
 
@@ -22,3 +24,12 @@ class MultimodalModel(nn.Module):
         combined = torch.cat([self.eeg_model(eeg_data),
                               self.spectrogram_model(spectrogram_data)], -1)
         return F.log_softmax(self.fc2(F.relu(self.fc1(combined))), dim=-1)
+
+    def forward_eeg(self, eeg_data: torch.Tensor) -> torch.Tensor:
+        """The EEG branch alone: (B, 1, 37, T) → log-probs (B, 6)."""
+        return self.eeg_model(eeg_data)
+
+    def forward_spectrogram(self, spectrogram_data: torch.Tensor
+                            ) -> torch.Tensor:
+        """The spectrogram branch alone: (B, 3, H, W) → log-probs (B, 6)."""
+        return self.spectrogram_model(spectrogram_data)

@@ -55,8 +55,8 @@ class SpectrogramBlock(nn.Module):
     ``fused=True`` serves the conv×3+pool chain through the fused block of
     :mod:`..ops.cuda_specblock` when the module is in eval mode and the
     plane's sides are even (the JAX package's conditions); parameters are
-    the same either way.  The fused path has no backward yet: a gradient
-    request through it raises ``NotImplementedError``."""
+    the same either way.  Gradients flow through the fused path by the
+    fused block's VJP (the unfused chain's autograd)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  pool_type: str = "max", fused: bool = False):

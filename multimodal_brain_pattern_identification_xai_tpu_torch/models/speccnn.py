@@ -31,7 +31,16 @@ class SpectrogramCNN(nn.Module):
             cin = w
         self.fc = nn.Linear(cin, N_CLASSES)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """Blocks 1-5: the feature map (B, 256, H', W') that Grad-CAM
+        reads (the JAX model's ``sow("feature_map")``)."""
         for i in range(len(WIDTHS)):
             x = getattr(self, f"block{i+1}")(x)
-        return F.log_softmax(self.fc(x.mean(dim=(2, 3))), dim=-1)
+        return x
+
+    def head(self, a: torch.Tensor) -> torch.Tensor:
+        """Feature map → global average pool → FC → log-probs (B, 6)."""
+        return F.log_softmax(self.fc(a.mean(dim=(2, 3))), dim=-1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.head(self.features(x))

@@ -9,8 +9,12 @@ float32 accumulation).  A CUDA tensor launches ``specblock_convpool``
 CPU tensor takes :func:`_plain_convpool` (``F.conv2d`` ×3 + pool).  Launches
 are counted in ``fused_specblock_convpool.launches``.
 
-The function is not differentiable yet: a gradient request raises
-``NotImplementedError`` (the fused block's custom VJP is a later port).
+The function is differentiable, with the JAX package's custom VJP
+(``_fused_vjp_bwd``): the forward saves its primals, and the backward
+recomputes :func:`_chain_convpool` (the same function as unfused stock ops,
+cuDNN on the card) from them and returns that chain's autograd.  As in the
+JAX package, no backward kernel is written: the Pallas kernel had none.
+Backward calls are counted in ``fused_specblock_convpool.backward_calls``.
 """
 
 from __future__ import annotations
@@ -50,19 +54,26 @@ def fused_applies(h: int, w: int) -> bool:
     return h >= 2 and h % 2 == 0 and w % 2 == 0
 
 
-def _plain_convpool(x: torch.Tensor, kernels: Sequence[torch.Tensor],
+def _chain_convpool(x: torch.Tensor, kernels: Sequence[torch.Tensor],
                     biases: Sequence[torch.Tensor], pool: str,
                     dtype: torch.dtype) -> torch.Tensor:
-    """The plain PyTorch version: conv (float32 accumulation over
-    ``dtype``-rounded inputs and weights) + bias + ReLU, rounded to
-    ``dtype`` after each stage, then the pool (avg sums in float32)."""
-    h = x.to(dtype).permute(0, 3, 1, 2).float()
+    """The fused block's function as unfused, differentiable stock ops
+    (the JAX package's ``_xla_chain_convpool``): conv (float32
+    accumulation over ``dtype``-rounded inputs and weights) + bias + ReLU,
+    rounded to ``dtype`` after each stage, then the pool (avg sums in
+    float32, as the kernel does)."""
+    # contiguous NCHW with the bias inside conv2d: cuDNN's fast f32 path
+    h = x.to(dtype).float().permute(0, 3, 1, 2).contiguous()
     for k, b in zip(kernels, biases):
         w = k.to(dtype).float().permute(3, 2, 0, 1)         # HWIO → OIHW
-        h = F.conv2d(h, w, padding=1) + b.float()[None, :, None, None]
-        h = torch.relu(h).to(dtype).float()
+        h = torch.relu(F.conv2d(h, w, b.float(), padding=1))
+        h = h.to(dtype).float()
     h = F.max_pool2d(h, 2) if pool == "max" else F.avg_pool2d(h, 2)
     return h.to(dtype).permute(0, 2, 3, 1)
+
+
+#: the kernel's plain PyTorch version is the chain itself
+_plain_convpool = _chain_convpool
 
 
 def _check_cuda_args(x, kernels, biases, pool, dtype) -> None:
@@ -112,16 +123,25 @@ def _launch(x, kernels, biases, pool, dtype) -> torch.Tensor:
 class _FusedConvPool(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, k1, k2, k3, b1, b2, b3, pool, dtype):
+        ctx.save_for_backward(x, k1, k2, k3, b1, b2, b3)
+        ctx.pool, ctx.dtype = pool, dtype
         ks, bs = (k1, k2, k3), (b1, b2, b3)
         if x.device.type == "cpu":
             return _plain_convpool(x, ks, bs, pool, dtype)
         return _launch(x, ks, bs, pool, dtype)
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "the fused spectrogram block has no backward yet; run the "
-            "model in training mode (unfused convs) to differentiate")
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[:7]
+        with torch.enable_grad():
+            prim = [t.detach().requires_grad_(n)
+                    for t, n in zip(ctx.saved_tensors, need)]
+            out = _chain_convpool(prim[0], prim[1:4], prim[4:7], ctx.pool,
+                                  ctx.dtype)
+            grads = iter(torch.autograd.grad(
+                out, [p for p, n in zip(prim, need) if n], g.to(ctx.dtype)))
+        fused_specblock_convpool.backward_calls += 1
+        return (*(next(grads) if n else None for n in need), None, None)
 
 
 def fused_specblock_convpool(x: torch.Tensor,
@@ -137,3 +157,4 @@ def fused_specblock_convpool(x: torch.Tensor,
 
 
 fused_specblock_convpool.launches = 0
+fused_specblock_convpool.backward_calls = 0

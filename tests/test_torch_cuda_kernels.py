@@ -3,9 +3,10 @@ at the main path's shapes.  Needs an NVIDIA GPU (sm_90a) and nvcc: every
 test here carries the ``cuda`` marker and skips without a card.  Run on
 the card with ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 
-Bounds: tests/test_pallas_iir.py (rel 2e-4, filtfilt 1e-3) and
+Bounds: tests/test_pallas_iir.py (rel 2e-4, filtfilt 1e-3),
 tests/test_pallas_specblock.py (f32 1e-5; bf16 max 0.03 / mean 0.003 at
-tensor scale).  The sequential plain scan runs on the CPU over a subset of
+tensor scale; gradients 2e-4) and the duty probe's 1e-4 relative (bf16
+products are exact in float32; only the summation order differs).  The sequential plain scan runs on the CPU over a subset of
 lanes (it is a Python loop over time)."""
 
 import numpy as np
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
-    cuda_iir, cuda_specblock, iir)
+    cuda_duty, cuda_iir, cuda_specblock, iir)
 
 pytestmark = pytest.mark.cuda
 
@@ -108,3 +109,40 @@ def test_specblock_matches_plain(dev, dtype, cin, cout, h, w, pool):
     else:
         err = (got - truth).abs() / truth.abs().max()
         assert float(err.max()) < 0.03 and float(err.mean()) < 0.003
+
+
+@pytest.mark.parametrize("pool", ["max", "avg"])
+def test_specblock_vjp_matches_unfused_chain(dev, pool):
+    """The fused block's backward on the card (fused forward, recomputed
+    cuDNN chain) against autograd of the unfused chain, w.r.t. x, kernels
+    and biases, at block 2's shape."""
+    x, ks, bs = _block_args(16, 32, 200, 150)
+    args = [t.to(dev).requires_grad_() for t in (x, *ks, *bs)]
+    g = torch.randn((2, 100, 75, 32), generator=torch.Generator().manual_seed(1))
+    n0 = cuda_specblock.fused_specblock_convpool.launches
+    out = cuda_specblock.fused_specblock_convpool(
+        args[0], args[1:4], args[4:7], pool=pool, dtype=torch.float32)
+    got = torch.autograd.grad(out, args, g.to(dev))
+    assert cuda_specblock.fused_specblock_convpool.launches == n0 + 1
+    ref = cuda_specblock._chain_convpool(args[0], args[1:4], args[4:7], pool,
+                                         torch.float32)
+    want = torch.autograd.grad(ref, args, g.to(dev))
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert _rel(a, b) < 2e-4
+
+
+@pytest.mark.parametrize("co,k", cuda_duty.SHAPES)
+def test_duty_matches_plain(dev, co, k):
+    rng = np.random.default_rng(co + k)
+    w = torch.as_tensor(rng.standard_normal((co, k)),
+                        dtype=torch.bfloat16).to(dev)
+    p = torch.as_tensor(rng.standard_normal((k, 1024)) * 0.1,
+                        dtype=torch.bfloat16).to(dev)
+    n0 = cuda_duty.duty.launches
+    got = cuda_duty.duty(w, p, 3)
+    torch.cuda.synchronize()
+    assert cuda_duty.duty.launches == n0 + 1
+    assert got.shape == (co, 1024) and got.dtype == torch.float32
+    assert _rel(got, cuda_duty._plain_duty(w, p, 3)) < 1e-4
+    assert torch.equal(cuda_duty.duty(w, p, 0), torch.zeros_like(got))

@@ -31,7 +31,8 @@ def _imported_roots(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [REPO / "chip_smoke.py"],
+                         [REPO / "chip_smoke.py"] +
+                         sorted((REPO / "scripts").glob("torch_*.py")),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_no_jax(path):
     for name in _imported_roots(path):
@@ -49,6 +50,10 @@ def test_port_runs_with_jax_blocked():
         "torch.set_num_threads(2)\n"
         "from multimodal_brain_pattern_identification_xai_tpu_torch.entry "
         "import entry\n"
+        "from multimodal_brain_pattern_identification_xai_tpu_torch import "
+        "xai\n"
+        "from multimodal_brain_pattern_identification_xai_tpu_torch.ops "
+        "import cuda_duty\n"
         "fwd, args = entry(device='cpu', batch=2, assume_finite=True)\n"
         "out = fwd(*args)\n"
         "assert out.shape == (2, 6) and bool(torch.isfinite(out).all())\n"
