@@ -6,11 +6,18 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 
 1. device   — the card's name and power limit (nvidia-smi);
 2. build    — nvcc builds every kernel from ``csrc/``, all sources at
-              once; prints ptxas's register / shared-memory / spill lines;
+              once; prints ptxas's register / shared-memory / spill lines
+              (the f32 spectrogram block's tensor-core kernel must not
+              spill), each block's dynamic shared memory for f32 and bf16,
+              and, where ``cuobjdump`` is found, the TF32 ``HMMA``
+              instructions in each kernel's SASS;
 3. kernels  — every serving kernel against its plain PyTorch version on
               the card (float32 with TF32 off; bf16 for the spectrogram
               block), at the main path's shapes, with the bounds of the JAX
-              package's kernel tests; ``filtfilt`` timed at its shapes;
+              package's kernel tests; ``filtfilt`` timed at its shapes; the
+              spectrogram block's f32 time beside the cuDNN chain's, its
+              useful TFLOP/s, and its 3xTF32 tensor-core bound beside the
+              f32 CUDA-core one;
 4. main     — the serving entry at B=4 on cuda, NaN route (a NaN run in one
               channel of one window) and finite route, with every kernel's
               launch counter read around that run; log-probs held against
@@ -37,15 +44,19 @@ from __future__ import annotations
 
 import copy
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12         # H100 SXM dense TF32 on the tensor cores
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 on the tensor cores
 B_MAIN, B_TIME = 4, 256
 LOGP_ATOL = 1e-3                 # GPU vs CPU log-probs (see main_path)
@@ -142,14 +153,47 @@ def phase_build(card: str) -> None:
           f"{time.perf_counter() - t0:.1f} s (all in parallel; empty log "
           f"= already built)")
     for name, log in sorted(_build.build_logs.items()):
+        func = None
         for line in log.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                func = m.group(1)
             if "ptxas info" in line and ("Used" in line or "spill" in line
                                          or "Compiling" in line):
                 print(f"[build] {name}: {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and func and "specblock_tc_kernel" in func:
+                print(f"[build] specblock_tc_kernel ({func}): spill stores "
+                      f"{m.group(1)} B, spill loads {m.group(2)} B")
+                require(m.group(1) == m.group(2) == "0",
+                        f"{func} spills registers")
     lib = cuda_specblock._lib()
     for cin, co in ((3, 16), (16, 32)):
-        print(f"[build] specblock dynamic smem (cin={cin}, cout={co}): "
-              f"{lib.specblock_smem_bytes(cin, co)} bytes")
+        print(f"[build] specblock dynamic smem (cin={cin}, cout={co}): f32 "
+              f"(tensor cores) {lib.specblock_smem_bytes(cin, co, 0)} bytes, "
+              f"bf16 (CUDA cores) {lib.specblock_smem_bytes(cin, co, 1)} "
+              f"bytes")
+    cuobjdump = shutil.which("cuobjdump") or str(
+        Path(_build._nvcc()).parent / "cuobjdump")
+    if Path(cuobjdump).exists():
+        sass = subprocess.run([cuobjdump, "-sass",
+                               str(_build._target("specblock"))],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        counts, func = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                func = m.group(1)
+            elif "HMMA" in line and "TF32" in line and func:
+                counts[func] = counts.get(func, 0) + 1
+        for func, n in sorted(counts.items()):
+            print(f"[build] SASS {func}: {n} HMMA ... TF32 instructions")
+        require(sum("specblock_tc_kernel" in f for f in counts) == 3,
+                "the f32 spectrogram block kernels issue no TF32 HMMA")
+    else:
+        print("[build] cuobjdump not found: SASS not inspected")
     for co, k in cuda_duty.SHAPES:
         print(f"[build] duty dynamic smem (co={co}, k={k}): "
               f"{cuda_duty._lib().duty_smem_bytes(co, k)} bytes")
@@ -268,6 +312,7 @@ def phase_kernels(card: str, dev) -> dict:
         y, y_plain = fused(), plain()
         torch.testing.assert_close(y, y_plain, rtol=1e-5, atol=1e-5)
         err = max_abs(y, y_plain)
+        margin = float(((y - y_plain).abs() - 1e-5 * y_plain.abs()).max())
         xs_ = x[:16]
         yb = fused(torch.bfloat16, xs_).float()
         tb = cuda_specblock._plain_convpool(xs_, ks, bs, pool, torch.float32)
@@ -290,20 +335,32 @@ def phase_kernels(card: str, dev) -> dict:
         lib_ms = cuda_ms(library, 3)
         nbytes = (x.numel() + sum(k.numel() for k in ks) + 3 * co
                   + B_TIME * (h // 2) * (w // 2) * co) * 4
-        flops = (2 * 9 * (cin * co + 2 * co * co) * B_TIME * h * w
-                 + (3 if pool == "max" else 4) * B_TIME * (h // 2) * (w // 2) * co)
-        b, b_by = bound_ms(nbytes, flops)
+        conv_flops = 2 * 9 * (cin * co + 2 * co * co) * B_TIME * h * w
+        pool_flops = (3 if pool == "max" else 4) * B_TIME * (h // 2) \
+            * (w // 2) * co
+        # 3xTF32: three tensor-core products per useful one (the pool's few
+        # f32 operations run beside them on the CUDA cores)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_tc = max(3 * conv_flops / TF32_FLOP_PER_S,
+                   pool_flops / F32_FLOP_PER_S) * 1e3
+        t_f32 = (conv_flops + pool_flops) / F32_FLOP_PER_S * 1e3
+        b, b_by = max(t_bytes, t_tc), "bytes" if t_bytes >= t_tc \
+            else "operations"
         print(f"[kernels] specblock_convpool {name} ({B_TIME},{h},{w},{cin})"
-              f"->{co} {pool}: f32 max abs {err:.2e}, bf16 max "
-              f"{float(eb.max()):.2e} mean {float(eb.mean()):.2e} (tensor "
-              f"scale); {ms:.3f} ms (plain {plain_ms:.3f} ms, library "
-              f"{lib_ms:.3f} ms), bound {b:.3f} ms by {b_by} [{card}]")
+              f"->{co} {pool}: f32 max abs {err:.2e} (max |d| - 1e-5 |ref| "
+              f"{margin:.2e}, bound 1e-5), bf16 max {float(eb.max()):.2e} "
+              f"mean {float(eb.mean()):.2e} (tensor scale); f32 {ms:.3f} ms "
+              f"= {(conv_flops + pool_flops) / ms / 1e9:.1f} useful TFLOP/s; "
+              f"cuDNN chain (TF32 off) {lib_ms:.3f} ms; plain {plain_ms:.3f} "
+              f"ms; bound {b:.3f} ms by {b_by} (3xTF32 on the tensor cores "
+              f"at 495 TFLOP/s; f32 on the CUDA cores {t_f32:.3f} ms) "
+              f"[{card}]")
         tot["err"] = max(tot["err"], err)
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
         tot["library_ms"] += lib_ms
-        tot["t_bytes"] += nbytes / HBM_BYTES_PER_S * 1e3
-        tot["t_ops"] += flops / F32_FLOP_PER_S * 1e3
+        tot["t_bytes"] += t_bytes
+        tot["t_ops"] += t_tc
         del x, xn
     tot["bound_ms"] = max(tot.pop("t_bytes"), tot["t_ops"])
     tot["bound_by"] = "operations" if tot.pop("t_ops") >= tot["bound_ms"] \

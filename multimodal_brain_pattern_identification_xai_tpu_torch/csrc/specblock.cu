@@ -7,35 +7,75 @@
 // reach device memory.  The TPU kernel's phase-packed GEMM layout existed
 // to fill the MXU and is not carried over.
 //
-// Design: one CTA of 256 threads per (sample, 16x16 tile of conv3
-// outputs).  It stages the input tile with a 3-pixel halo in shared memory
-// (channel-planar, zero outside the image), then runs
+// Tiling (both storage types): one CTA of 256 threads per (sample, 16x16
+// tile of conv3 outputs).  It stages the input tile with a 3-pixel halo in
+// shared memory (channel-planar, zero outside the image), then runs
 //   conv1: (16+6)^2 x Cin  -> (16+4)^2 x C
 //   conv2: (16+4)^2 x C    -> (16+2)^2 x C
 //   conv3: (16+2)^2 x C    ->  16^2    x C
 // through shared memory, each stage's weights (HWIO, i.e. [tap][ci][co])
-// staged in shared memory and read as warp-uniform float4 broadcasts.  A
-// thread owns one output pixel and all C output channels in registers.
+// staged in shared memory, then pools the conv3 tile into the NHWC output
+// (ragged edges masked; W = 300, 150 are not multiples of 16).
 // SAME-padding trap: each conv is padded on its own, so every intermediate
 // position outside the image is written as zero (not as a conv output over
 // the padded input) — the TPU kernel re-zeros them after every stage.
-// Ragged edges (W = 300, 150 are not multiples of 16) are masked at the
-// pooled store.  Storage type T (float or bf16): every stage's f32
-// bias+ReLU result is rounded to T, and the avg pool sums in f32 and
-// divides by 4, as _xla_chain_convpool and the TPU kernel do.
 //
-// Shared memory (f32 words): weights 9*max(Cin,C)*C + bias 3C +
-// max(Cin*22^2, C*18^2) + max(C*20^2, C*(16^2+1)).  Block 2 (Cin=16, C=32)
-// needs 129,920 bytes (above 48 KB, so cudaFuncSetAttribute raises the
-// limit), block 1 (Cin=3, C=16) 55,744 bytes.
+// float32 storage: specblock_tc_kernel<C>, an implicit GEMM per conv stage
+// on the tensor cores (mma.sync.m16n8k8 tf32).  M = the stage's output
+// positions (400, 324, 256, padded to multiples of 16; padded rows read a
+// clamped in-bounds address and are dropped at the store), N = C in n-tiles
+// of 8, K = 9 taps x Cin in k-steps of 8 channels within one tap.  The A
+// fragment is gathered straight from the channel-planar source: element
+// (m, k) is src[(k0+k)*pitch + (py(m)+ky)*rin + px(m)+kx], so a tap is an
+// address offset and no im2col buffer exists.  3xTF32 keeps f32 accuracy:
+// each weight is split once per CTA into hi = tf32(w), lo = tf32(w - hi)
+// (two shared arrays), each activation after its fragment load, and each
+// k-step issues lo*hi, hi*lo, hi*hi (lo*lo, ~2^-22 relative, is left out).
+// The tensor cores truncate toward zero when they add into an accumulator:
+// with all three products chained in one accumulator the block-2 output
+// sat ~10x further from a float64 reference than cuDNN's f32 convolution
+// and missed rtol = atol = 1e-5.  So the small products chain in their own
+// accumulator, and each k-step's hi*hi starts from zero and is added to
+// the main accumulator by an f32 add that rounds to nearest; the result
+// is then closer to float64 than cuDNN's f32 convolution.  A warp owns a
+// contiguous run of m-tiles, taken in pairs over all n-tiles, so each B
+// fragment serves two m-tiles (C = 8, one n-tile, takes them singly).
+// conv1 with Cin % 8 != 0 (block 1's Cin = 3) stays a direct convolution
+// on the CUDA cores (conv_stage): padding 3 channels to a k-step of 8
+// would waste 2.7x on it.  Bank padding: the planes an A fragment is
+// gathered from have pitches = 8 (mod 32) words (484 -> 488, 400 -> 424,
+// 324 -> 328), so the four k-columns x eight rows of a fragment hit
+// distinct banks (up to 2-way where the eight rows wrap an image row); the
+// weights' co pitch is C + 8 for C in {16, 32} for the same reason; the
+// conv3 plane keeps an odd pitch (257) for the pool pass, which reads it
+// channel-fastest.  x and the weights are read as float4 (16-byte aligned).
+//
+// bf16 storage: specblock_kernel<C, bf16>, a direct convolution on the
+// CUDA cores.  A thread owns one output pixel and all C output channels in
+// registers and reads the weights as warp-uniform float4 broadcasts.  Every
+// stage's f32 bias+ReLU result is rounded to bf16, and the avg pool sums in
+// f32 and divides by 4, as _xla_chain_convpool and the TPU kernel do.
+//
+// Shared memory per CTA (specblock_smem_bytes), f32 words:
+//   f32:  2 * 9*max(Cin,C)*wpitch(C) (weights hi + lo) + 3C (bias)
+//         + max(Cin*488, C*328) + max(C*424, C*257)
+//         block 2 (Cin=16, C=32): 188,800 B (1 CTA per SM); block 1 (Cin=3,
+//         C=16): 75,968 B.
+//   bf16: 9*max(Cin,C)*C + 3C + max(Cin*484, C*324) + max(C*400, C*257)
+//         block 2: 129,920 B; block 1: 55,744 B.
+// Above 48 KB, so cudaFuncSetAttribute raises the limit per launch.
 //
 // What bounds it on an H100: at the main path's B=256 block 1 moves
-// ~369 MB in and ~491 MB out (~0.26 ms at 3.35 TB/s) but needs ~0.31
-// TFLOP of f32 multiply-adds (~4.6 ms at 67 TFLOP/s on the CUDA cores);
-// block 2 ~0.74 GB and ~0.35 TFLOP (~5.3 ms).  Both are bound by
-// operations.  This first kernel runs them as direct convolution on the
-// CUDA cores, with ~1.56x (conv1) and ~1.27x (conv2) halo recompute; an
-// implicit-GEMM formulation on the tensor cores is later work.
+// ~369 MB in and ~491 MB out (~0.26 ms at 3.35 TB/s) and block 2 ~0.74 GB,
+// against 3.1e11 and 3.5e11 useful flops.  3xTF32 issues three tensor-core
+// products per useful one: 1.88 and 2.15 ms at 495 TFLOP/s dense TF32
+// (f32 on the CUDA cores: 4.6 and 5.3 ms at 67 TFLOP/s).  Both are bound by
+// operations.  Halo recompute (~1.56x on conv1, ~1.27x on conv2) and M
+// padding add ~1.24x on block 2; one CTA per SM at block 2's budget leaves
+// the staging loads and the __syncthreads between stages unhidden.
+
+#include <cstdint>
+#include <initializer_list>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,11 +84,16 @@ namespace {
 
 constexpr int kTile = 16;                 // conv3 output tile edge
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kR0 = kTile + 6;            // staged input edge
 constexpr int kR1 = kTile + 4;            // conv1 output edge
 constexpr int kR2 = kTile + 2;            // conv2 output edge
 constexpr int kP3 = kTile * kTile + 1;    // conv3 plane pitch (odd: no bank
                                           // conflicts in the pool pass)
+// tensor-core kernel: plane pitches = 8 (mod 32) words (see the header)
+constexpr int kP0 = 488;                  // staged input, 22^2 = 484
+constexpr int kP1 = 424;                  // conv1 output, 20^2 = 400
+constexpr int kP2 = 328;                  // conv2 output, 18^2 = 324
 constexpr int kMaxSmem = 232448;
 
 __device__ __forceinline__ float load_f(float v) { return v; }
@@ -70,6 +115,7 @@ __device__ __forceinline__ float round_to(float v) {
 
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
+// --- CUDA-core kernel's shared-memory layout (bf16) ----------------------
 __host__ __device__ inline int weight_words(int cin, int c) {
   return 9 * imax(cin, c) * c;
 }
@@ -84,26 +130,60 @@ inline size_t smem_bytes(int cin, int c) {
                                              buf0_words(cin, c) + bufa_words(c));
 }
 
-// One conv stage: src (cin planes of rin x rin) -> dst (C planes of
-// rout x rout, plane pitch `pitch`), rout = rin - 2; `halo` = how far the
-// dst region starts above/left of the tile origin (y0, x0).
+// --- tensor-core kernel's shared-memory layout (f32) ---------------------
+__host__ __device__ constexpr int wpitch(int c) { return c == 8 ? 8 : c + 8; }
+__host__ __device__ inline int tc_weight_words(int cin, int c) {  // hi or lo
+  return 9 * imax(cin, c) * wpitch(c);
+}
+__host__ __device__ inline int tc_buf0_words(int cin, int c) {
+  return imax(cin * kP0, c * kP2);
+}
+__host__ __device__ inline int tc_bufa_words(int c) {
+  return imax(c * kP1, c * kP3);
+}
+inline size_t tc_smem_bytes(int cin, int c) {
+  return sizeof(float) *
+         static_cast<size_t>(2 * tc_weight_words(cin, c) + 3 * c +
+                             tc_buf0_words(cin, c) + tc_bufa_words(c));
+}
+
+// Input tile with a 3-pixel halo into channel-planar shared memory (plane
+// pitch `pitch`); zero outside the image.
+template <typename T>
+__device__ __forceinline__ void stage_input(const T* __restrict__ x,
+                                            float* __restrict__ buf,
+                                            int pitch, int b, int y0, int x0,
+                                            int H, int W, int cin) {
+  for (int i = threadIdx.x; i < kR0 * kR0 * cin; i += blockDim.x) {
+    const int c = i % cin, p = i / cin;
+    const int gy = y0 - 3 + p / kR0, gx = x0 - 3 + p % kR0;
+    float v = 0.f;
+    if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+      v = load_f(x[((static_cast<size_t>(b) * H + gy) * W + gx) * cin + c]);
+    buf[c * pitch + p] = v;
+  }
+}
+
+// One conv stage on the CUDA cores: src (cin planes of rin x rin, pitch
+// `spitch`) -> dst (C planes of rout x rout, pitch `dpitch`), rout =
+// rin - 2; weights [tap][ci][co] unpadded; `halo` = how far the dst region
+// starts above/left of the tile origin (y0, x0).
 template <int C, typename T>
 __device__ __forceinline__ void conv_stage(const float* __restrict__ src,
-                                           int rin, int cin,
+                                           int rin, int spitch, int cin,
                                            const float* __restrict__ sw,
                                            const float* __restrict__ sb,
-                                           float* __restrict__ dst, int pitch,
-                                           int halo, int y0, int x0, int H,
-                                           int W) {
+                                           float* __restrict__ dst,
+                                           int dpitch, int halo, int y0,
+                                           int x0, int H, int W) {
   const int rout = rin - 2;
-  const int plane = rin * rin;
   for (int p = threadIdx.x; p < rout * rout; p += blockDim.x) {
     const int py = p / rout, px = p - py * rout;
     float acc[C];
 #pragma unroll
     for (int co = 0; co < C; ++co) acc[co] = 0.f;
     for (int ci = 0; ci < cin; ++ci) {
-      const float* s = src + ci * plane + py * rin + px;
+      const float* s = src + ci * spitch + py * rin + px;
 #pragma unroll
       for (int ky = 0; ky < 3; ++ky) {
 #pragma unroll
@@ -127,8 +207,30 @@ __device__ __forceinline__ void conv_stage(const float* __restrict__ src,
 #pragma unroll
     for (int co = 0; co < C; ++co) {
       const float r = inside ? fmaxf(acc[co] + sb[co], 0.f) : 0.f;
-      dst[co * pitch + p] = round_to<T>(r);
+      dst[co * dpitch + p] = round_to<T>(r);
     }
+  }
+}
+
+// 2x2 pool of the conv3 tile (plane pitch kP3); NHWC store, channel
+// fastest (coalesced), ragged edges masked.
+template <int C, typename T>
+__device__ __forceinline__ void pool_store(const float* __restrict__ src,
+                                           T* __restrict__ out, int b,
+                                           int y0, int x0, int H, int W,
+                                           int pool_max) {
+  const int ho = H / 2, wo = W / 2, half = kTile / 2;
+  for (int i = threadIdx.x; i < half * half * C; i += blockDim.x) {
+    const int co = i % C, q = i / C;
+    const int qy = q / half, qx = q % half;
+    const int oy = y0 / 2 + qy, ox = x0 / 2 + qx;
+    if (oy >= ho || ox >= wo) continue;
+    const float* s = src + co * kP3 + 2 * qy * kTile + 2 * qx;
+    const float a = s[0], bb = s[1], c = s[kTile], d = s[kTile + 1];
+    const float r = pool_max ? fmaxf(fmaxf(a, bb), fmaxf(c, d))
+                             : (a + bb + c + d) * 0.25f;
+    out[((static_cast<size_t>(b) * ho + oy) * wo + ox) * C + co] =
+        store_t<T>(r);
   }
 }
 
@@ -149,53 +251,290 @@ specblock_kernel(const T* __restrict__ x, const float* __restrict__ w1,
   const int x0 = (blockIdx.x % tiles_x) * kTile;
   const int tid = threadIdx.x;
 
-  // input tile with a 3-pixel halo, channel-planar; zero outside the image
-  for (int i = tid; i < kR0 * kR0 * cin; i += blockDim.x) {
-    const int c = i % cin, p = i / cin;
-    const int gy = y0 - 3 + p / kR0, gx = x0 - 3 + p % kR0;
-    float v = 0.f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-      v = load_f(x[((static_cast<size_t>(b) * H + gy) * W + gx) * cin + c]);
-    buf0[c * kR0 * kR0 + p] = v;
-  }
+  stage_input(x, buf0, kR0 * kR0, b, y0, x0, H, W, cin);
   for (int i = tid; i < 3 * C; i += blockDim.x) sb[i] = bias[i];
   for (int i = tid; i < 9 * cin * C; i += blockDim.x) sw[i] = w1[i];
   __syncthreads();
-  conv_stage<C, T>(buf0, kR0, cin, sw, sb, bufa, kR1 * kR1, 2, y0, x0, H, W);
+  conv_stage<C, T>(buf0, kR0, kR0 * kR0, cin, sw, sb, bufa, kR1 * kR1, 2,
+                   y0, x0, H, W);
   __syncthreads();
   for (int i = tid; i < 9 * C * C; i += blockDim.x) sw[i] = w2[i];
   __syncthreads();
-  conv_stage<C, T>(bufa, kR1, C, sw, sb + C, buf0, kR2 * kR2, 1, y0, x0, H,
-                   W);
+  conv_stage<C, T>(bufa, kR1, kR1 * kR1, C, sw, sb + C, buf0, kR2 * kR2, 1,
+                   y0, x0, H, W);
   __syncthreads();
   for (int i = tid; i < 9 * C * C; i += blockDim.x) sw[i] = w3[i];
   __syncthreads();
-  conv_stage<C, T>(buf0, kR2, C, sw, sb + 2 * C, bufa, kP3, 0, y0, x0, H, W);
+  conv_stage<C, T>(buf0, kR2, kR2 * kR2, C, sw, sb + 2 * C, bufa, kP3, 0,
+                   y0, x0, H, W);
   __syncthreads();
+  pool_store<C, T>(bufa, out, b, y0, x0, H, W, pool_max);
+}
 
-  // 2x2 pool of the conv3 tile; NHWC store, channel fastest (coalesced)
-  const int ho = H / 2, wo = W / 2, half = kTile / 2;
-  for (int i = tid; i < half * half * C; i += blockDim.x) {
-    const int co = i % C, q = i / C;
-    const int qy = q / half, qx = q % half;
-    const int oy = y0 / 2 + qy, ox = x0 / 2 + qx;
-    if (oy >= ho || ox >= wo) continue;
-    const float* s = bufa + co * kP3 + 2 * qy * kTile + 2 * qx;
-    const float a = s[0], bb = s[1], c = s[kTile], d = s[kTile + 1];
-    const float r = pool_max ? fmaxf(fmaxf(a, bb), fmaxf(c, d))
-                             : (a + bb + c + d) * 0.25f;
-    out[((static_cast<size_t>(b) * ho + oy) * wo + ox) * C + co] =
-        store_t<T>(r);
+// --- tensor-core (3xTF32) path -------------------------------------------
+
+// stage_input for f32 with cin % 4 == 0: float4 loads (x 16-byte aligned),
+// several in flight per thread, into planes of pitch kP0.
+__device__ __forceinline__ void stage_input4(const float* __restrict__ x,
+                                             float* __restrict__ buf, int b,
+                                             int y0, int x0, int H, int W,
+                                             int cin) {
+  const int c4 = cin / 4;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < kR0 * kR0 * c4; i += blockDim.x) {
+    const int c = 4 * (i % c4), p = i / c4;
+    const int gy = y0 - 3 + p / kR0, gx = x0 - 3 + p % kR0;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+      v = *reinterpret_cast<const float4*>(
+          x + ((static_cast<size_t>(b) * H + gy) * W + gx) * cin + c);
+    buf[c * kP0 + p] = v.x;
+    buf[(c + 1) * kP0 + p] = v.y;
+    buf[(c + 2) * kP0 + p] = v.z;
+    buf[(c + 3) * kP0 + p] = v.w;
   }
 }
 
-template <int C, typename T>
-int launch(const void* x, const float* w1, const float* w2, const float* w3,
-           const float* bias, void* out, int B, int H, int W, int cin,
-           int pool_max, cudaStream_t st) {
-  const size_t smem = smem_bytes(cin, C);
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// d += a * b, m16n8k8, tf32 inputs (32-bit registers, low 13 mantissa bits
+// zero), f32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a * b (zero accumulator in)
+__device__ __forceinline__ void mma_tf32_z(float (&d)[4], const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+// Stage weights [tap][ci][co] (9*cin rows of C) as hi and lo tf32 halves,
+// row pitch wpitch(C); float4 along co.
+template <int C>
+__device__ __forceinline__ void stage_split(const float* __restrict__ w,
+                                            int cin, float* __restrict__ swh,
+                                            float* __restrict__ swl) {
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < 9 * cin * C / 4; i += blockDim.x) {
+    const int row = i / (C / 4), co = 4 * (i % (C / 4));
+    const float4 v = w4[i];
+    float4 hi, lo;
+    hi.x = __uint_as_float(tf32(v.x));
+    hi.y = __uint_as_float(tf32(v.y));
+    hi.z = __uint_as_float(tf32(v.z));
+    hi.w = __uint_as_float(tf32(v.w));
+    lo.x = __uint_as_float(tf32(v.x - hi.x));
+    lo.y = __uint_as_float(tf32(v.y - hi.y));
+    lo.z = __uint_as_float(tf32(v.z - hi.z));
+    lo.w = __uint_as_float(tf32(v.w - hi.w));
+    *reinterpret_cast<float4*>(swh + row * wpitch(C) + co) = hi;
+    *reinterpret_cast<float4*>(swl + row * wpitch(C) + co) = lo;
+  }
+}
+
+// NM (1 or 2) m-tiles of 16 output positions from `mt`, all C/8 n-tiles:
+// implicit GEMM over 9 taps x cin channels, then bias + ReLU + zero
+// outside the image into dst (plane pitch DP).  Fragment maps of
+// m16n8k8 (g = lane/4, t = lane%4): a0..a3 = (g, t), (g+8, t), (g, t+4),
+// (g+8, t+4); b0, b1 = (k=t, n=g), (t+4, g); c0..c3 = (g, 2t), (g, 2t+1),
+// (g+8, 2t), (g+8, 2t+1).  The tensor cores truncate when they add into an
+// accumulator, so the two small products chain in `cor` (their error is
+// 2^-11 smaller) while each k-step's hi*hi starts from zero and is added
+// to `acc` on the CUDA cores, rounded to nearest.
+template <int C, int NM, int RIN, int SP, int DP>
+__device__ __forceinline__ void mma_tiles(int mt, const float* __restrict__ src,
+                                          int cin,
+                                          const float* __restrict__ swh,
+                                          const float* __restrict__ swl,
+                                          const float* __restrict__ sb,
+                                          float* __restrict__ dst, int halo,
+                                          int y0, int x0, int H, int W) {
+  constexpr int ROUT = RIN - 2, M = ROUT * ROUT, NT = C / 8;
+  constexpr int WP = wpitch(C);
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+
+  const float* pa[NM][2];   // row g / g+8 of each m-tile, channel k0 + t
+#pragma unroll
+  for (int i = 0; i < NM; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = min((mt + i) * 16 + g + 8 * h, M - 1);   // clamp pad rows
+      pa[i][h] = src + t * SP + (m / ROUT) * RIN + m % ROUT;
+    }
+  const float* wh = swh + t * WP + g;
+  const float* wl = swl + t * WP + g;
+  const int tstride = cin * WP;
+
+  float acc[NM][NT][4], cor[NM][NT][4];
+#pragma unroll
+  for (int i = 0; i < NM; ++i)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][n][j] = cor[i][n][j] = 0.f;
+
+#pragma unroll 1
+  for (int k0 = 0; k0 < cin; k0 += 8) {
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int toff = (tap / 3) * RIN + tap % 3;
+      uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int o = tap * tstride + n * 8;
+        bh[n][0] = __float_as_uint(wh[o]);
+        bh[n][1] = __float_as_uint(wh[o + 4 * WP]);
+        bl[n][0] = __float_as_uint(wl[o]);
+        bl[n][1] = __float_as_uint(wl[o + 4 * WP]);
+      }
+#pragma unroll
+      for (int i = 0; i < NM; ++i) {
+        const float a[4] = {pa[i][0][toff], pa[i][1][toff],
+                            pa[i][0][toff + 4 * SP], pa[i][1][toff + 4 * SP]};
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          ah[j] = tf32(a[j]);
+          al[j] = tf32(a[j] - __uint_as_float(ah[j]));
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {   // small terms first
+          mma_tf32(cor[i][n], al, bh[n][0], bh[n][1]);
+          mma_tf32(cor[i][n], ah, bl[n][0], bl[n][1]);
+          float p[4];
+          mma_tf32_z(p, ah, bh[n][0], bh[n][1]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][n][j] += p[j];
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NM; ++i) {
+      pa[i][0] += 8 * SP;
+      pa[i][1] += 8 * SP;
+    }
+    wh += 8 * WP;
+    wl += 8 * WP;
+  }
+
+#pragma unroll
+  for (int i = 0; i < NM; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = (mt + i) * 16 + g + 8 * h;
+      if (m >= M) continue;
+      const int py = m / ROUT, px = m % ROUT;
+      const int gy = y0 - halo + py, gx = x0 - halo + px;
+      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int co = n * 8 + 2 * t + j;
+          const float v = acc[i][n][2 * h + j] + cor[i][n][2 * h + j];
+          const float r = inside ? fmaxf(v + sb[co], 0.f) : 0.f;
+          dst[co * DP + m] = r;
+        }
+    }
+}
+
+// One conv stage on the tensor cores: src (cin planes of RIN x RIN, pitch
+// SP, cin % 8 == 0) -> dst (C planes of (RIN-2)^2, pitch DP).  Warp w owns
+// m-tiles [w*MT/8, (w+1)*MT/8), taken in pairs (C >= 16: a B fragment then
+// serves two m-tiles; C = 8 has one n-tile and takes them singly).
+template <int C, int RIN, int SP, int DP>
+__device__ __forceinline__ void mma_stage(const float* __restrict__ src,
+                                          int cin,
+                                          const float* __restrict__ swh,
+                                          const float* __restrict__ swl,
+                                          const float* __restrict__ sb,
+                                          float* __restrict__ dst, int halo,
+                                          int y0, int x0, int H, int W) {
+  constexpr int MT = ((RIN - 2) * (RIN - 2) + 15) / 16;
+  const int warp = threadIdx.x / 32;
+  const int end = (warp + 1) * MT / kWarps;
+  int mt = warp * MT / kWarps;
+  for (; C > 8 && mt + 1 < end; mt += 2)
+    mma_tiles<C, 2, RIN, SP, DP>(mt, src, cin, swh, swl, sb, dst, halo, y0,
+                                 x0, H, W);
+  for (; mt < end; ++mt)
+    mma_tiles<C, 1, RIN, SP, DP>(mt, src, cin, swh, swl, sb, dst, halo, y0,
+                                 x0, H, W);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+specblock_tc_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                    const float* __restrict__ w2,
+                    const float* __restrict__ w3,
+                    const float* __restrict__ bias, float* __restrict__ out,
+                    int H, int W, int cin, int tiles_x, int pool_max) {
+  extern __shared__ float4 smem4[];
+  float* swh = reinterpret_cast<float*>(smem4);
+  const int ww = tc_weight_words(cin, C);
+  float* swl = swh + ww;
+  float* sb = swh + 2 * ww;
+  float* buf0 = sb + 3 * C;
+  float* bufa = buf0 + tc_buf0_words(cin, C);
+
+  const int b = blockIdx.y;
+  const int y0 = (blockIdx.x / tiles_x) * kTile;
+  const int x0 = (blockIdx.x % tiles_x) * kTile;
+  const int tid = threadIdx.x;
+
+  if (cin % 4)
+    stage_input(x, buf0, kP0, b, y0, x0, H, W, cin);
+  else
+    stage_input4(x, buf0, b, y0, x0, H, W, cin);
+  for (int i = tid; i < 3 * C; i += blockDim.x) sb[i] = bias[i];
+  if (cin % 8) {            // CUDA cores; unpadded f32 weights in swh
+    for (int i = tid; i < 9 * cin * C; i += blockDim.x) swh[i] = w1[i];
+    __syncthreads();
+    conv_stage<C, float>(buf0, kR0, kP0, cin, swh, sb, bufa, kP1, 2, y0, x0,
+                         H, W);
+  } else {
+    stage_split<C>(w1, cin, swh, swl);
+    __syncthreads();
+    mma_stage<C, kR0, kP0, kP1>(buf0, cin, swh, swl, sb, bufa, 2, y0, x0, H,
+                                W);
+  }
+  __syncthreads();
+  stage_split<C>(w2, C, swh, swl);
+  __syncthreads();
+  mma_stage<C, kR1, kP1, kP2>(bufa, C, swh, swl, sb + C, buf0, 1, y0, x0, H,
+                              W);
+  __syncthreads();
+  stage_split<C>(w3, C, swh, swl);
+  __syncthreads();
+  mma_stage<C, kR2, kP2, kP3>(buf0, C, swh, swl, sb + 2 * C, bufa, 0, y0, x0,
+                              H, W);
+  __syncthreads();
+  pool_store<C, float>(bufa, out, b, y0, x0, H, W, pool_max);
+}
+
+template <typename T>
+using Kernel = void (*)(const T*, const float*, const float*, const float*,
+                        const float*, T*, int, int, int, int, int);
+
+template <typename T>
+int launch(Kernel<T> kern, size_t smem, const void* x, const float* w1,
+           const float* w2, const float* w3, const float* bias, void* out,
+           int B, int H, int W, int cin, int pool_max, cudaStream_t st) {
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  auto kern = specblock_kernel<C, T>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -209,32 +548,33 @@ int launch(const void* x, const float* w1, const float* w2, const float* w3,
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int cout, const void* x, const float* w1, const float* w2,
+// f32 storage: the tensor-core kernel; bf16: the CUDA-core kernel
+template <int C>
+int dispatch(const void* x, const float* w1, const float* w2,
              const float* w3, const float* bias, void* out, int B, int H,
-             int W, int cin, int pool_max, cudaStream_t st) {
-  switch (cout) {
-    case 8:
-      return launch<8, T>(x, w1, w2, w3, bias, out, B, H, W, cin, pool_max,
-                          st);
-    case 16:
-      return launch<16, T>(x, w1, w2, w3, bias, out, B, H, W, cin, pool_max,
-                           st);
-    case 32:
-      return launch<32, T>(x, w1, w2, w3, bias, out, B, H, W, cin, pool_max,
-                           st);
-    default:
+             int W, int cin, int pool_max, int bf16, cudaStream_t st) {
+  if (bf16)
+    return launch<__nv_bfloat16>(specblock_kernel<C, __nv_bfloat16>,
+                                 smem_bytes(cin, C), x, w1, w2, w3, bias,
+                                 out, B, H, W, cin, pool_max, st);
+  for (const void* p : {x, static_cast<const void*>(w1),
+                        static_cast<const void*>(w2),
+                        static_cast<const void*>(w3)})
+    if (reinterpret_cast<uintptr_t>(p) % 16)   // float4 loads
       return cudaErrorInvalidValue;
-  }
+  return launch<float>(specblock_tc_kernel<C>, tc_smem_bytes(cin, C), x, w1,
+                       w2, w3, bias, out, B, H, W, cin, pool_max, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes one CTA needs for (cin, cout).
-long long specblock_smem_bytes(int cin, int cout) {
-  return static_cast<long long>(smem_bytes(cin, cout));
+// Shared-memory bytes one CTA needs for (cin, cout) and the storage type
+// (bf16 != 0: the CUDA-core kernel, else the tensor-core kernel).
+long long specblock_smem_bytes(int cin, int cout, int bf16) {
+  return static_cast<long long>(bf16 ? smem_bytes(cin, cout)
+                                     : tc_smem_bytes(cin, cout));
 }
 
 // x: (B, H, W, cin) NHWC of the storage type (bf16 != 0: __nv_bfloat16,
@@ -250,11 +590,19 @@ int specblock_convpool(const void* x, const float* w1, const float* w2,
   if (B < 1 || B > 65535 || H < 2 || W < 2 || H % 2 || W % 2 || cin < 1)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return dispatch<__nv_bfloat16>(cout, x, w1, w2, w3, bias, out, B, H, W,
-                                   cin, pool_max, st);
-  return dispatch<float>(cout, x, w1, w2, w3, bias, out, B, H, W, cin,
-                         pool_max, st);
+  switch (cout) {
+    case 8:
+      return dispatch<8>(x, w1, w2, w3, bias, out, B, H, W, cin, pool_max,
+                         bf16, st);
+    case 16:
+      return dispatch<16>(x, w1, w2, w3, bias, out, B, H, W, cin, pool_max,
+                          bf16, st);
+    case 32:
+      return dispatch<32>(x, w1, w2, w3, bias, out, B, H, W, cin, pool_max,
+                          bf16, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -6,8 +6,9 @@ convs with bias and ReLU (Cin→C, C→C, C→C) and then a 2×2 stride-2 VALID
 max or avg pool, each stage stored in ``dtype`` (float32, or bf16 with
 float32 accumulation).  A CUDA tensor launches ``specblock_convpool``
 (``csrc/specblock.cu``), whose intermediates never leave shared memory; a
-CPU tensor takes :func:`_plain_convpool` (``F.conv2d`` ×3 + pool).  Launches
-are counted in ``fused_specblock_convpool.launches``.
+CPU tensor takes :func:`_plain_convpool` (``F.conv2d`` ×3 + pool).  float32
+runs the tensor-core kernel (3xTF32 implicit GEMM) and bf16 the CUDA-core
+one.  Launches are counted in ``fused_specblock_convpool.launches``.
 
 The function is differentiable, with the JAX package's custom VJP
 (``_fused_vjp_bwd``): the forward saves its primals, and the backward
@@ -42,7 +43,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("specblock")
     lib.specblock_convpool.argtypes = [_P] * 6 + [_I] * 7 + [_P]
     lib.specblock_convpool.restype = _I
-    lib.specblock_smem_bytes.argtypes = [_I, _I]
+    lib.specblock_smem_bytes.argtypes = [_I, _I, _I]
     lib.specblock_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -101,12 +102,18 @@ def _check_cuda_args(x, kernels, biases, pool, dtype) -> None:
         raise ValueError("x, kernels and biases must share one device")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data does not start on 16 bytes
+    (the f32 kernel reads x and the weights as float4)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(x, kernels, biases, pool, dtype) -> torch.Tensor:
     _check_cuda_args(x, kernels, biases, pool, dtype)
-    x = x.to(dtype)
+    x = _aligned(x.to(dtype))
     b, h, w, cin = x.shape
     co = kernels[0].shape[-1]
-    ws = [k.to(dtype).float().contiguous() for k in kernels]
+    ws = [_aligned(k.to(dtype).float().contiguous()) for k in kernels]
     bias = torch.stack([bi.float() for bi in biases]).contiguous()
     out = torch.empty((b, h // 2, w // 2, co), dtype=dtype, device=x.device)
     with torch.cuda.device(x.device):
