@@ -7,24 +7,27 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 1. device   — the card's name and power limit (nvidia-smi);
 2. build    — nvcc builds every kernel from ``csrc/``, all sources at
               once; prints ptxas's register / shared-memory / spill lines
-              (the f32 spectrogram block's tensor-core kernel must not
-              spill), each block's dynamic shared memory for f32 and bf16,
-              and, where ``cuobjdump`` is found, the TF32 ``HMMA``
-              instructions in each kernel's SASS;
+              (for the IIR kernels a summary and the serving path's
+              instantiations; the f32 spectrogram block's tensor-core
+              kernel must not spill), each block's dynamic shared memory
+              for f32 and bf16, and, where ``cuobjdump`` is found, the TF32
+              ``HMMA`` instructions in each kernel's SASS;
 3. kernels  — every serving kernel against its plain PyTorch version on
               the card (float32 with TF32 off; bf16 for the spectrogram
               block), at the main path's shapes, with the bounds of the JAX
-              package's kernel tests; ``filtfilt`` timed at its shapes; the
-              spectrogram block's f32 time beside the cuDNN chain's, its
-              useful TFLOP/s, and its 3xTF32 tensor-core bound beside the
-              f32 CUDA-core one;
+              package's kernel tests: the IIR kernels at B=256 and B=4
+              lane counts, timed beside the block-Toeplitz matmul route
+              (the JAX package's route on its own chip, a few torch calls),
+              and on a DC-offset input at B=4's shortest chunk;
+              ``filtfilt`` timed at its shapes; the spectrogram block's f32
+              time beside the cuDNN chain's, its useful TFLOP/s, and its
+              3xTF32 tensor-core bound beside the f32 CUDA-core one;
 4. main     — the serving entry at B=4 on cuda, NaN route (a NaN run in one
               channel of one window) and finite route, with every kernel's
               launch counter read around that run; log-probs held against
               the same forward on the CPU's plain versions;
-5. timing   — the finite-route serving forward at B=256 (CUDA events),
-              windows/s, and every kernel's time beside its plain
-              version, its bound and the library call where one exists;
+5. timing   — the serving forward at B=256 (windows/s) and at B=4 (ms per
+              batch), both routes (CUDA events);
 6. xai      — input-gradient attribution through the fused serving model
               (``explain_entry``): saliency, Grad-CAM, IG and expected
               gradients at B=4 (B=2 for the spectrogram sweeps) held
@@ -143,6 +146,38 @@ def phase_device() -> str:
     return smi
 
 
+def _iir_ptxas(log: str) -> None:
+    """ptxas on csrc/iir.cu (60 instantiations: K = 1..12 × variant): the
+    register range, then the serving path's kernels — sosfilt K=5 (NaN
+    route, zero init), rolldec K=11 and K=6, sosfilt K=1 with zi (filtfilt's
+    notch) — with their registers and spills."""
+    stats, func = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)", line)
+        if m:
+            func = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and func:
+            stats.setdefault(func, {})["stack/spill st/ld B"] = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and func:
+            stats.setdefault(func, {})["registers"] = int(m.group(1))
+    regs = [v["registers"] for v in stats.values() if "registers" in v]
+    require(len(regs) == 60, f"iir.cu: {len(regs)} kernels in ptxas's log")
+    print(f"[build] iir: {len(regs)} chunked_scan_kernel instantiations, "
+          f"{min(regs)}-{max(regs)} registers")
+    path = {"sosfilt K=5": r"ILi5ELb0ELb1ENS_8StoreOutILb1E",
+            "rolldec K=11": r"ILi11ELb0ELb1ENS_7MeanOut",
+            "rolldec K=6": r"ILi6ELb0ELb1ENS_7MeanOut",
+            "sosfilt K=1 zi": r"ILi1ELb1ELb0ENS_8StoreOutILb0E"}
+    for what, pat in path.items():
+        found = [v for f, v in stats.items() if re.search(pat, f)]
+        require(len(found) == 1, f"iir.cu: no single kernel for {what}")
+        print(f"[build] iir {what}: {found[0]}")
+
+
 def phase_build(card: str) -> None:
     from multimodal_brain_pattern_identification_xai_tpu_torch import _build
     from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
@@ -153,6 +188,9 @@ def phase_build(card: str) -> None:
           f"{time.perf_counter() - t0:.1f} s (all in parallel; empty log "
           f"= already built)")
     for name, log in sorted(_build.build_logs.items()):
+        if name == "iir":
+            _iir_ptxas(log)
+            continue
         func = None
         for line in log.splitlines():
             m = re.search(r"Function properties for (\S+)", line)
@@ -203,7 +241,7 @@ def phase_kernels(card: str, dev) -> dict:
     """Kernel vs plain version on the card; returns per-kernel records
     with the error and the timings at B_TIME main-path shapes."""
     from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
-        cuda_iir, cuda_specblock, iir)
+        cuda_iir, cuda_specblock, iir, preprocess)
     import torch.nn.functional as F
 
     bp5 = iir.butter_bandpass(0.5, 20.0, 200.0, 5)
@@ -213,85 +251,118 @@ def phase_kernels(card: str, dev) -> dict:
     rec = {}
     T = 10_000
 
-    # --- #1 sosfilt, zero init: the NaN route's first bandpass, K=5 -------
-    lanes = B_TIME * 20
-    x = signal((lanes, T), 40, 1, dev)
-    y = cuda_iir.sosfilt(bp5, x)
-    t0 = time.perf_counter()
-    y_plain = iir._sos_scan(x, bp5.sos)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    r = rel(y, y_plain)
-    require(r < 2e-4, f"sosfilt K=5 rel err {r}")
-    ms = cuda_ms(lambda: cuda_iir.sosfilt(bp5, x), 5)
-    b, b_by = bound_ms(2 * lanes * T * 4, 9 * 5 * lanes * T)
-    rec["iir_sosfilt"] = dict(err=max_abs(y, y_plain), ms=ms,
-                              plain_ms=plain_ms, bound_ms=b, bound_by=b_by,
-                              library_ms=None)
-    print(f"[kernels] iir_sosfilt K=5 ({lanes}, {T}): rel {r:.2e}, "
-          f"{ms:.4f} ms (plain scan {plain_ms:.1f} ms, host clock), "
-          f"bound {b:.4f} ms by {b_by} [{card}]")
-    del x, y, y_plain
+    # --- #1 sosfilt (K=5, zero init: the NaN route's first bandpass, B·20
+    # lanes) and #2 rolldec (K=11: the finite route's cascade, B·20 lanes;
+    # K=6: the NaN route's second bandpass, B·38 lanes), at B_TIME and
+    # B_MAIN.  Plain version: the sequential scan on the card (host clock).
+    # Library yardstick: the block-Toeplitz matmul route (a few torch
+    # calls, the JAX package's route on its own chip; never used by the
+    # port's kernels).  Bound: x read once and y written once against 9 flop
+    # per biquad step (+1 per sample for the mean).
+    rolldec_map = preprocess._rolldec_map(128)
+    for batch, reps in ((B_TIME, 5), (B_MAIN, 50)):
+        for name, coeffs, per in (("iir_sosfilt", bp5, 20),
+                                  ("iir_sosfilt_rolldec", casc, 20),
+                                  ("iir_sosfilt_rolldec", bp6, 38)):
+            k, lanes = len(coeffs.sos), batch * per
+            roll = name == "iir_sosfilt_rolldec"
+            x = signal((lanes, T), 20 if roll else 40, k, dev)
+            run = (lambda: cuda_iir.sosfilt_rolldec(coeffs, x)) if roll else \
+                (lambda: cuda_iir.sosfilt(coeffs, x))
+            y = run()
+            t0 = time.perf_counter()
+            y_plain = iir._sos_scan(x, coeffs.sos)
+            if roll:
+                y_plain = y_plain.reshape(lanes, T // 4, 4).mean(-1)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            r = rel(y, y_plain)
+            require(r < 2e-4, f"{name} K={k} ({lanes} lanes) rel err {r}")
+            ms = cuda_ms(run, reps)
+            lib_ms = cuda_ms(lambda: iir._cascade_block_matmul(
+                x, coeffs.sos, 128, out_map=rolldec_map if roll else None),
+                max(3, reps // 5))
+            b, b_by = bound_ms(lanes * T * 4 * (1.25 if roll else 2),
+                               (9 * k + roll) * lanes * T)
+            L, C, G = cuda_iir.launch_shape(lanes, T, k)
+            print(f"[kernels] {name} K={k} ({lanes}, {T}) B={batch}: rel "
+                  f"{r:.2e}, {ms:.4f} ms (chunks of {L}, {C} a lane, {G} "
+                  f"lanes a CTA); block-matmul route {lib_ms:.4f} ms; plain "
+                  f"scan {plain_ms:.1f} ms (host clock); bound {b:.4f} ms by "
+                  f"{b_by} [{card}]")
+            if batch == B_TIME and k != 6:
+                rec[name] = dict(err=max_abs(y, y_plain), ms=ms,
+                                 plain_ms=plain_ms, bound_ms=b, bound_by=b_by,
+                                 library_ms=lib_ms)
+            if batch == B_MAIN and k != 6:
+                rec[name].update(ms_b4=ms, library_ms_b4=lib_ms)
+            del x, y, y_plain
+
+    # --- DC offset at B_MAIN's shortest chunk: ×20 noise on 500 µV plus a
+    # slow drift; sosfilt K=5 from the steady state (a zero-seeded chunk
+    # would miss the bound here) and rolldec K=11
+    t = torch.arange(T, device=dev) / 200.0
+    x = signal((B_MAIN * 20, T), 20, 5, dev) + 500 \
+        + 100 * torch.sin(2 * np.pi * 0.05 * t)
+    require(cuda_iir.launch_shape(B_MAIN * 20, T, 11)[0]
+            == cuda_iir.MIN_CHUNK, "B=4 does not pick the shortest chunk")
+    zi5 = torch.as_tensor(iir._sos_zi(bp5), dtype=torch.float32, device=dev)
+    for what, got, want in (
+            ("sosfilt K=5 steady-state init",
+             cuda_iir.sosfilt(bp5, x, steady_state_init=True),
+             iir._sos_scan(x, bp5.sos, zi5 * x[..., :1, None])),
+            ("rolldec K=11", cuda_iir.sosfilt_rolldec(casc, x),
+             iir._sos_scan(x, casc.sos).reshape(-1, T // 4, 4).mean(-1))):
+        r = rel(got, want)
+        require(r < 2e-4, f"DC offset, {what}: rel err {r}")
+        print(f"[kernels] DC offset 500 µV + drift, {what} ({B_MAIN * 20}, "
+              f"{T}), chunks of {cuda_iir.MIN_CHUNK}: rel {r:.2e} (bound "
+              f"2e-4)")
+    del x, got, want
 
     # --- #1 with zi: filtfilt (#1') of the spectrogram notch, 400-sample
-    # lanes, held at B_MAIN and timed there and at B_TIME.  Bound: both
-    # passes read and write the odd-extended lanes, against their f32
-    # operations (9 per biquad step)
+    # lanes, held at B_MAIN and timed there and at B_TIME, beside the same
+    # two passes on the block-Toeplitz route (z0 = the steady state).
+    # Bound: both passes read and write the odd-extended lanes, against
+    # their f32 operations (9 per biquad step)
     pad = 3 * max(len(notch.a), len(notch.b))          # scipy's default
     zi = torch.as_tensor(iir._sos_zi(notch), dtype=torch.float32, device=dev)
 
-    def plain_filtfilt(xs):
+    def two_pass_filtfilt(xs, block):
         ext = torch.cat([2 * xs[..., :1] - xs[..., 1:pad + 1].flip(-1), xs,
                          2 * xs[..., -1:] - xs[..., -pad - 1:-1].flip(-1)],
                         -1)
-        yp = iir._sos_scan(ext, notch.sos, zi * ext[..., :1, None]).flip(-1)
-        yp = iir._sos_scan(yp, notch.sos, zi * yp[..., :1, None]).flip(-1)
-        return yp[..., pad:pad + xs.shape[-1]]
+        for _ in range(2):
+            if block:
+                ext = iir._cascade_block_matmul(
+                    ext, notch.sos, 128, z0=zi.reshape(-1) * ext[..., :1])
+            else:
+                ext = iir._sos_scan(ext, notch.sos, zi * ext[..., :1, None])
+            ext = ext.flip(-1)
+        return ext[..., pad:pad + xs.shape[-1]]
 
     for lanes in (B_MAIN * 300, B_TIME * 300):
         xs = signal((lanes, 400), 5, 2, dev)
         got = cuda_iir.filtfilt(notch, xs)
         n_plain = cuda_iir.sosfilt.launches
         t0 = time.perf_counter()
-        want = plain_filtfilt(xs)
+        want = two_pass_filtfilt(xs, block=False)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         require(cuda_iir.sosfilt.launches == n_plain, "plain filtfilt launched")
         r = rel(got, want)
         require(r < 1e-3, f"filtfilt (zi mode) rel err {r}")
         ms = cuda_ms(lambda: cuda_iir.filtfilt(notch, xs), 10)
+        lib_ms = cuda_ms(lambda: two_pass_filtfilt(xs, block=True), 5)
         t_ext = 400 + 2 * pad
         b, b_by = bound_ms(2 * 2 * lanes * t_ext * 4,
                            2 * 9 * len(notch.sos) * lanes * t_ext)
         print(f"[kernels] filtfilt notch (sosfilt zi mode) ({lanes}, 400): "
-              f"rel {r:.2e}, {ms:.4f} ms (two sosfilt launches; plain "
-              f"two-pass scan {plain_ms:.1f} ms, host clock), bound "
-              f"{b:.5f} ms by {b_by} [{card}]")
+              f"rel {r:.2e}, {ms:.4f} ms (two sosfilt launches; "
+              f"block-matmul route {lib_ms:.4f} ms; plain two-pass scan "
+              f"{plain_ms:.1f} ms, host clock), bound {b:.5f} ms by {b_by} "
+              f"[{card}]")
     del xs, got, want
-
-    # --- #2 rolldec: K=11 (finite route) and K=6 (NaN route bp2) ---------
-    for coeffs, k, lanes in ((casc, 11, B_TIME * 20), (bp6, 6, B_TIME * 38)):
-        x = signal((lanes, T), 20, 3, dev)
-        y = cuda_iir.sosfilt_rolldec(coeffs, x)
-        t0 = time.perf_counter()
-        y_scan = iir._sos_scan(x, coeffs.sos)
-        y_plain = y_scan.reshape(lanes, T // 4, 4).mean(-1)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        del y_scan
-        r = rel(y, y_plain)
-        require(r < 2e-4, f"sosfilt_rolldec K={k} rel err {r}")
-        ms = cuda_ms(lambda: cuda_iir.sosfilt_rolldec(coeffs, x), 5)
-        b, b_by = bound_ms(lanes * T * 4 + lanes * T // 4 * 4,
-                           9 * k * lanes * T + lanes * T)
-        print(f"[kernels] iir_sosfilt_rolldec K={k} ({lanes}, {T}): rel "
-              f"{r:.2e}, {ms:.4f} ms (plain scan {plain_ms:.1f} ms, host "
-              f"clock), bound {b:.4f} ms by {b_by} [{card}]")
-        if k == 11:
-            rec["iir_sosfilt_rolldec"] = dict(
-                err=max_abs(y, y_plain), ms=ms, plain_ms=plain_ms,
-                bound_ms=b, bound_by=b_by, library_ms=None)
-        del x, y, y_plain
 
     # --- #3 fused spec block: block 1 (max) and block 2 (avg) ------------
     tot = dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
@@ -420,24 +491,25 @@ def phase_main(card: str) -> dict:
 
 
 def phase_timing(card: str) -> float:
-    """Serving forward at B_TIME, both routes; returns the finite route's
-    ms/batch."""
+    """Serving forward at B_TIME (throughput) and B_MAIN (on-demand
+    latency), both routes; returns the finite route's ms/batch at B_TIME."""
     from multimodal_brain_pattern_identification_xai_tpu_torch.entry import (
         entry)
     times = {}
-    for route in ("finite", "nan"):
-        fwd, (eeg, spec) = entry(device="cuda", batch=B_TIME,
-                                 assume_finite=route == "finite")
-        torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(lambda: fwd(eeg, spec), 10, warmup=2)
-        print(f"[timing] serving forward, {route} route, B={B_TIME}: "
-              f"{ms:.3f} ms/batch, {B_TIME / ms * 1e3:.1f} windows/s; peak "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-              f"[{card}]")
-        times[route] = ms
-        del fwd, eeg, spec
-        torch.cuda.empty_cache()
-    return times["finite"]
+    for batch, reps in ((B_TIME, 10), (B_MAIN, 50)):
+        for route in ("finite", "nan"):
+            fwd, (eeg, spec) = entry(device="cuda", batch=batch,
+                                     assume_finite=route == "finite")
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: fwd(eeg, spec), reps, warmup=2)
+            print(f"[timing] serving forward, {route} route, B={batch}: "
+                  f"{ms:.3f} ms/batch, {batch / ms * 1e3:.1f} windows/s; "
+                  f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                  f"[{card}]")
+            times[route, batch] = ms
+            del fwd, eeg, spec
+            torch.cuda.empty_cache()
+    return times["finite", B_TIME]
 
 
 def _held(what: str, got, want, kink: bool = False) -> None:
@@ -747,7 +819,9 @@ def main() -> int:
                 "launches": launches[name],
                 "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                **{key: r[key] for key in ("ms_b4", "library_ms_b4")
+                   if key in r}}
                for name, r in rec.items()]
     for k in kernels:
         if k["name"] == "specblock_convpool":

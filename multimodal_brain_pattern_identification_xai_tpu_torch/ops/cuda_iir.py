@@ -1,6 +1,10 @@
 """CUDA SOS-cascade kernels (counterpart of the JAX package's
 ``ops/pallas_iir.py``) with their plain PyTorch versions.
 
+Both kernels run the chunked scan of ``csrc/iir.cu`` on x in its own
+(lanes, T) layout; :func:`.iir._chunked_sos_scan` is the same algorithm in
+plain PyTorch (for the tests).
+
 * :func:`sosfilt` — kernel ``iir_sosfilt_f32`` (``csrc/iir.cu``):
   ``scipy.signal.sosfilt`` along the last axis from zero state, or from
   the steady state ``zi_k · x[0]`` (``lfilter_zi``) with
@@ -20,31 +24,63 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from .. import _build
-from .iir import FilterCoeffs, _sos_scan, _sos_zi, section_coefs
+from .iir import FilterCoeffs, _chunk_ops, _sos_scan, _sos_zi
 from .resample import rolling_mean4_decimate_flat
 
 MAX_SECTIONS = 12
+MAX_THREADS = 512          # csrc/iir.cu kMaxThreads
+STAGE = 32                 # csrc/iir.cu kStage
+MIN_CHUNK = 64
+#: longer chunks ran no faster at B=256 (scripts/torch_iir_sweep.py, H100)
+MAX_CHUNK = 320
+#: (lane, chunk) threads a launch aims at: 32 chunks a lane at B=256
+TARGET_THREADS = 5120 * 32
+CTA_THREADS = 256
+SMS = 132                  # H100 SXM
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _FP = ctypes.POINTER(ctypes.c_float)
+_DP = ctypes.POINTER(ctypes.c_double)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/iir.cu``."""
     lib = _build.load("iir")
-    lib.iir_sosfilt_f32.argtypes = [_P, _P, _I, _I, _I, _FP, _FP, _P]
+    lib.iir_sosfilt_f32.argtypes = [_P, _P, _I, _I, _I, _I, _I, _FP, _FP, _I,
+                                    _DP, _P]
     lib.iir_sosfilt_f32.restype = _I
-    lib.iir_sosfilt_rolldec_f32.argtypes = [_P, _P, _I, _I, _I, _FP, _P]
+    lib.iir_sosfilt_rolldec_f32.argtypes = [_P, _P, _I, _I, _I, _I, _I, _FP,
+                                            _FP, _DP, _P]
     lib.iir_sosfilt_rolldec_f32.restype = _I
     return lib
+
+
+def launch_shape(lanes: int, T: int, K: int,
+                 chunk: Optional[int] = None) -> Tuple[int, int, int]:
+    """(chunk length L, chunks per lane C, lanes per CTA G) of a launch.
+
+    ``chunk=None`` picks the shortest multiple of STAGE (the kernel's
+    staging unit) in [MIN_CHUNK, MAX_CHUNK] that keeps lanes × C near
+    TARGET_THREADS; an explicit chunk is rounded up to a multiple of 4.
+    A CTA holds every chunk of its G lanes (at most MAX_THREADS threads,
+    ~CTA_THREADS aimed at, G small enough for SMS CTAs), and, from three
+    chunks on, one thread per state row (2K) of each lane."""
+    unit = 4
+    if chunk is None:
+        chunk = min(MAX_CHUNK, -(-T * lanes // TARGET_THREADS))
+        chunk, unit = max(MIN_CHUNK, chunk), STAGE
+    chunk = max(chunk, -(-T // MAX_THREADS))
+    chunk = unit * -(-chunk // unit)
+    n_chunks = -(-T // chunk)
+    width = max(n_chunks, 2 * K) if n_chunks > 2 else n_chunks
+    return chunk, n_chunks, max(1, min(CTA_THREADS // width, -(-lanes // SMS)))
 
 
 def _check_cuda_input(x: torch.Tensor, coeffs: FilterCoeffs) -> None:
@@ -57,33 +93,46 @@ def _check_cuda_input(x: torch.Tensor, coeffs: FilterCoeffs) -> None:
                          f"got {len(coeffs.sos)}")
 
 
-def _f32_ptr(a: np.ndarray):
-    return a.ctypes.data_as(_FP)
+@functools.lru_cache(maxsize=64)
+def _chunk_args(sos, chunk: int):
+    """ctypes pointers to ``_chunk_ops(sos, chunk)``'s constants (each
+    pointer keeps its array alive), built once rather than per launch."""
+    coef, zi, a_pow = _chunk_ops(sos, chunk)
+    return (coef.ctypes.data_as(_FP), zi.ctypes.data_as(_FP),
+            a_pow.ctypes.data_as(_DP))
+
+
+def _launch(name: str, coeffs: FilterCoeffs, x: torch.Tensor, y: torch.Tensor,
+            chunk: Optional[int], *zi_init: int) -> None:
+    """Launch ``name`` on x (lanes, T) → y, with the chunked scan's
+    constants for the chunk length :func:`launch_shape` picks (or for
+    ``chunk``, which only the chunk-length sweep sets)."""
+    lanes, T = x.shape
+    K = len(coeffs.sos)
+    L, _, G = launch_shape(lanes, T, K, chunk)
+    coef, zi, a_pow = _chunk_args(coeffs.sos, L)
+    with torch.cuda.device(x.device):
+        rc = getattr(_lib(), name)(
+            x.data_ptr(), y.data_ptr(), T, lanes, K, L, G, coef, zi, *zi_init,
+            a_pow, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, name)
 
 
 def sosfilt(coeffs: FilterCoeffs, x: torch.Tensor,
             steady_state_init: bool = False) -> torch.Tensor:
     """SOS cascade along the last axis of ``x`` (..., T); every other axis
     is an independent lane."""
-    zi = _sos_zi(coeffs) if steady_state_init else None
     if x.device.type == "cpu":
-        z = (None if zi is None else
-             torch.as_tensor(zi, dtype=x.dtype) * x[..., :1, None])
+        z = (None if not steady_state_init else
+             torch.as_tensor(_sos_zi(coeffs), dtype=x.dtype)
+             * x[..., :1, None])
         return _sos_scan(x, coeffs.sos, z)
     _check_cuda_input(x, coeffs)
-    shape, T = x.shape, x.shape[-1]
-    xt = x.reshape(-1, T).t().contiguous()              # (T, lanes)
-    y = torch.empty_like(xt)
-    coef = np.ascontiguousarray(section_coefs(coeffs.sos))
-    zi32 = None if zi is None else np.ascontiguousarray(zi, np.float32)
-    with torch.cuda.device(x.device):
-        rc = _lib().iir_sosfilt_f32(
-            xt.data_ptr(), y.data_ptr(), T, xt.shape[1], len(coeffs.sos),
-            _f32_ptr(coef), None if zi32 is None else _f32_ptr(zi32),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, "iir_sosfilt_f32")
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    y = torch.empty_like(x2)
+    _launch("iir_sosfilt_f32", coeffs, x2, y, None, int(steady_state_init))
     sosfilt.launches += 1
-    return y.t().reshape(shape)
+    return y.reshape(x.shape)
 
 
 sosfilt.launches = 0
@@ -99,16 +148,13 @@ def sosfilt_rolldec(coeffs: FilterCoeffs, x: torch.Tensor) -> torch.Tensor:
         y = _sos_scan(x.reshape(-1, T), coeffs.sos)
         return rolling_mean4_decimate_flat(y, 4).reshape(shape[:-1] + (T // 4,))
     _check_cuda_input(x, coeffs)
-    xt = x.reshape(-1, T).t().contiguous()              # (T, lanes)
-    y = torch.empty((T // 4, xt.shape[1]), dtype=x.dtype, device=x.device)
-    coef = np.ascontiguousarray(section_coefs(coeffs.sos))
-    with torch.cuda.device(x.device):
-        rc = _lib().iir_sosfilt_rolldec_f32(
-            xt.data_ptr(), y.data_ptr(), T, xt.shape[1], len(coeffs.sos),
-            _f32_ptr(coef), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, "iir_sosfilt_rolldec_f32")
+    x2 = x.reshape(-1, T).contiguous()
+    if x2.data_ptr() % 16:                  # the kernel reads float4
+        x2 = x2.clone()
+    y = torch.empty((x2.shape[0], T // 4), dtype=x.dtype, device=x.device)
+    _launch("iir_sosfilt_rolldec_f32", coeffs, x2, y, None)
     sosfilt_rolldec.launches += 1
-    return y.t().reshape(shape[:-1] + (T // 4,))
+    return y.reshape(shape[:-1] + (T // 4,))
 
 
 sosfilt_rolldec.launches = 0

@@ -108,14 +108,18 @@ def section_coefs(sos: Tuple[Tuple[float, ...], ...]) -> np.ndarray:
     return np.asarray(rows, np.float32)
 
 
-@functools.lru_cache(maxsize=64)
 def _sos_zi(coeffs: FilterCoeffs) -> np.ndarray:
     """Per-section steady-state unit-step DF2T state, (K, 2) — the SOS
     analogue of ``scipy.signal.lfilter_zi`` (``sosfilt_zi``)."""
+    return _steady_state(coeffs.sos)
+
+
+@functools.lru_cache(maxsize=64)
+def _steady_state(sos: Tuple[Tuple[float, ...], ...]) -> np.ndarray:
     from scipy.signal import lfilter_zi
     zis = []
     gain = 1.0
-    for sec in coeffs.sos:
+    for sec in sos:
         b, a = _norm_section(sec)
         zis.append(lfilter_zi(b, a) * gain)
         gain *= b.sum() / a.sum()   # section DC gain scales the next input
@@ -183,6 +187,31 @@ def _cascade_block_matmul_ops(sos: Tuple[Tuple[float, ...], ...],
     return L, S, Ak, obs
 
 
+def _float32_sections(sos: Tuple[Tuple[float, ...], ...]
+                      ) -> Tuple[Tuple[float, ...], ...]:
+    """The cascade the float32 scans run: each section's normalised
+    coefficients rounded to float32, as SOS rows."""
+    return tuple((b0, b1, b2, 1.0, a1, a2) for b0, b1, b2, a1, a2
+                 in section_coefs(sos).astype(np.float64).tolist())
+
+
+@functools.lru_cache(maxsize=64)
+def _chunk_ops(sos: Tuple[Tuple[float, ...], ...], chunk: int):
+    """Constants of the chunked scan (``_chunked_sos_scan`` and the CUDA
+    kernels): ``coef`` (K, 5) float32 as :func:`section_coefs`, the unit
+    steady state ``zi`` (K, 2) float32, and ``A^chunk`` (2K, 2K) float64 in
+    the same state order (``zi.reshape(-1)``).  ``A`` is that of the
+    float32-rounded sections the scans run, not of the float64 design: with
+    poles this close to z = 1 the two differ enough to cost the chain its
+    accuracy.  The power is built by the products of
+    :func:`_cascade_block_matmul_ops`."""
+    A = _compose_state_space(_float32_sections(sos))[0]
+    A_pow = np.eye(A.shape[0])
+    for _ in range(chunk):
+        A_pow = A_pow @ A
+    return section_coefs(sos), _steady_state(sos).astype(np.float32), A_pow
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch application
 # ---------------------------------------------------------------------------
@@ -193,6 +222,12 @@ def _sos_scan(x: torch.Tensor, sos: Tuple[Tuple[float, ...], ...],
 
     ``x``: (..., T); ``zi``: DF2T state per section broadcastable to
     (..., K, 2), or None for zeros."""
+    return _df2t_scan(x, sos, zi)[0]
+
+
+def _df2t_scan(x: torch.Tensor, sos: Tuple[Tuple[float, ...], ...],
+               zi: Optional[torch.Tensor] = None):
+    """:func:`_sos_scan` that also returns the final state (..., K, 2)."""
     coef = section_coefs(sos).tolist()
     K = len(coef)
     batch = x.shape[:-1]
@@ -213,7 +248,50 @@ def _sos_scan(x: torch.Tensor, sos: Tuple[Tuple[float, ...], ...],
             z1[k] = torch.mul(v, b2).sub_(y, alpha=a2)
             v = y
         ys[t] = v
-    return ys.movedim(0, -1)
+    return ys.movedim(0, -1), torch.stack([torch.stack(z0, -1),
+                                           torch.stack(z1, -1)], -1)
+
+
+def _chunked_sos_scan(x: torch.Tensor, sos: Tuple[Tuple[float, ...], ...],
+                      chunk: int, zi: Optional[torch.Tensor] = None,
+                      rolldec: bool = False) -> torch.Tensor:
+    """The CUDA kernels' chunked scan, vectorised over (lanes × chunks);
+    equal to :func:`_sos_scan` up to float32 rounding.  Only the tests use
+    it: a wrapper's CPU path is the sequential scan.
+
+    Time is cut into chunks of ``chunk`` samples (the last one ragged).
+    Pass A scans every chunk j from a seed — chunk 0 from the initial state
+    ``zi`` (as in :func:`_sos_scan`), chunk j ≥ 1 from the steady state of
+    its own first sample ``w_j = zi_unit · x[j·chunk]``, so that a DC
+    offset leaves no large transient to cancel — and keeps its exit state.
+    The chain, serial over chunks and in float64, gives every entry state:
+    ``e_1 = exit_0``, ``e_{j+1} = A^chunk (e_j − w_j) + exit_j``; nothing
+    is truncated, so a NaN reaches every later chunk.  Pass C rescans each
+    chunk from ``e_j``.  ``rolldec``: then the mean of y[4u..4u+3] (T % 4
+    == 0, chunk % 4 == 0)."""
+    T = x.shape[-1]
+    batch = x.shape[:-1]
+    n_chunks = -(-T // chunk)
+    _, zi_unit, a_pow = _chunk_ops(tuple(sos), chunk)
+    K = zi_unit.shape[0]
+    xc = F.pad(x, (0, n_chunks * chunk - T)).reshape(
+        batch + (n_chunks, chunk))
+    seed = torch.as_tensor(zi_unit, dtype=x.dtype) * xc[..., :1, None]
+    seed[..., 0, :, :] = 0.0 if zi is None else zi.to(x.dtype)
+    _, exits = _df2t_scan(xc, sos, seed)
+    a_pow = torch.as_tensor(a_pow)
+    seed, exits = seed.flatten(-2).double(), exits.flatten(-2).double()
+    entry = [seed[..., 0, :]]                              # (..., 2K) each
+    for j in range(1, n_chunks):
+        entry.append(exits[..., 0, :] if j == 1 else
+                     (entry[-1] - seed[..., j - 1, :]) @ a_pow.T
+                     + exits[..., j - 1, :])
+    entry = torch.stack(entry, -2).to(x.dtype).unflatten(-1, (K, 2))
+    y = _df2t_scan(xc, sos, entry)[0].reshape(batch + (-1,))[..., :T]
+    if not rolldec:
+        return y
+    y = y.reshape(batch + (T // 4, 4))
+    return (y[..., 0] + y[..., 1] + y[..., 2] + y[..., 3]) * 0.25
 
 
 def _chain_entry_states(z_zs: torch.Tensor, A_blk: np.ndarray) -> torch.Tensor:

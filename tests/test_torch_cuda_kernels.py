@@ -78,6 +78,105 @@ def test_sosfilt_rolldec(dev, k):
     assert _rel(got[::19], cuda_iir.sosfilt_rolldec(coeffs, x[::19])) < 2e-4
 
 
+def _dc_drift(shape, seed=0):
+    """×20 noise on a 500 µV offset and a slow drift (200 Hz)."""
+    t = np.arange(shape[-1]) / 200.0
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.standard_normal(shape) * 20 + 500
+                           + 100 * np.sin(2 * np.pi * 0.05 * t),
+                           dtype=torch.float32)
+
+
+def _held(coeffs, x, got, rolldec=False, zi=False, step=1):
+    """The kernel's lanes x[::step] against the sequential scan and against
+    the chunked scan's plain emulation at the kernel's chunk length, both
+    on the CPU."""
+    lanes, T = x.shape
+    xs = x[::step]
+    L = cuda_iir.launch_shape(lanes, T, len(coeffs.sos))[0]
+    z = (torch.as_tensor(iir._sos_zi(coeffs), dtype=torch.float32)
+         * xs[..., :1, None]) if zi else None
+    seq = iir._sos_scan(xs, coeffs.sos, z)
+    if rolldec:
+        seq = seq.reshape(xs.shape[0], T // 4, 4).mean(-1)
+    emu = iir._chunked_sos_scan(xs, coeffs.sos, L, z, rolldec)
+    got = got[::step].cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(seq))
+    ok = ~torch.isnan(seq)
+    assert _rel(got[ok], seq[ok]) < 2e-4
+    assert _rel(got[ok], emu[ok]) < 2e-4
+
+
+# B=4 and B=256 lane counts of the serving path: its first bandpass (K=5,
+# B·20 lanes), the finite route's cascade (K=11, B·20) and the NaN route's
+# second bandpass (K=6, B·38)
+@pytest.mark.parametrize("lanes,zi", [(80, False), (5120, False), (80, True)])
+def test_sosfilt_serving_lanes(dev, lanes, zi):
+    x = _signal((lanes, 10_000), 40, seed=1)
+    got = cuda_iir.sosfilt(BP5, x.to(dev), steady_state_init=zi)
+    _held(BP5, x, got, zi=zi, step=max(1, lanes // 16))
+
+
+@pytest.mark.parametrize("k,lanes", [(11, 80), (11, 5120), (6, 152),
+                                     (6, 9728)])
+def test_sosfilt_rolldec_serving_lanes(dev, k, lanes):
+    coeffs = BP6 if k == 6 else iir.cascade(BP5, BP6)
+    x = _signal((lanes, 10_000), 20, seed=2)
+    got = cuda_iir.sosfilt_rolldec(coeffs, x.to(dev))
+    assert got.shape == (lanes, 2500)
+    _held(coeffs, x, got, rolldec=True, step=max(1, lanes // 16))
+
+
+@pytest.mark.parametrize("kind", ["sosfilt_zi", "rolldec"])
+def test_dc_offset_at_shortest_chunk(dev, kind):
+    """80 lanes (B=4) pick the shortest chunk; a 500 µV offset plus drift
+    stays within the bound (a zero seed would miss it, see
+    tests/test_torch_iir_chunked.py)."""
+    x = _dc_drift((80, 10_000), seed=3)
+    assert cuda_iir.launch_shape(80, 10_000, 11)[0] == cuda_iir.MIN_CHUNK
+    if kind == "rolldec":
+        coeffs = iir.cascade(BP5, BP6)
+        got = cuda_iir.sosfilt_rolldec(coeffs, x.to(dev))
+    else:
+        coeffs = BP5
+        got = cuda_iir.sosfilt(coeffs, x.to(dev), steady_state_init=True)
+    _held(coeffs, x, got, rolldec=kind == "rolldec", zi=kind != "rolldec",
+          step=5)
+
+
+@pytest.mark.parametrize("T", [10_001, 9_998, 999, 37])
+def test_sosfilt_ragged_length(dev, T):
+    """T % 4 != 0 (scalar loads), a ragged last chunk, and T below one
+    chunk."""
+    x = _signal((96, T), 40, seed=4)
+    got = cuda_iir.sosfilt(BP5, x.to(dev))
+    _held(BP5, x, got, step=6)
+
+
+def test_sosfilt_nan_at_chunk_boundary(dev):
+    x = _signal((80, 10_000), 40, seed=5)
+    L = cuda_iir.launch_shape(80, 10_000, 5)[0]
+    x[3, 3 * L] = float("nan")          # a chunk's first sample
+    x[7, 3 * L - 1] = float("nan")      # the chunk before's last sample
+    x[11, 9_999] = float("nan")         # the last sample
+    x[12, 0] = float("nan")
+    got = cuda_iir.sosfilt(BP5, x.to(dev))
+    _held(BP5, x, got)
+
+
+def test_misaligned_input(dev):
+    """A view 4 bytes off a 16-byte boundary: sosfilt reads it with scalar
+    loads, sosfilt_rolldec copies it first."""
+    base = _signal((40, 10_004), 40, seed=6).to(dev)
+    flat = base.reshape(-1)[1:1 + 40 * 10_000].reshape(40, 10_000)
+    assert flat.data_ptr() % 16 == 4
+    got = cuda_iir.sosfilt(BP5, flat)
+    _held(BP5, flat.cpu(), got, step=4)
+    coeffs = iir.cascade(BP5, BP6)
+    got = cuda_iir.sosfilt_rolldec(coeffs, flat)
+    _held(coeffs, flat.cpu(), got, rolldec=True, step=4)
+
+
 def _block_args(cin, cout, h, w, b=2, seed=0):
     rng = np.random.default_rng(seed)
     f = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32)
