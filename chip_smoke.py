@@ -21,21 +21,35 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
               and on a DC-offset input at B=4's shortest chunk;
               ``filtfilt`` timed at its shapes; the spectrogram block's f32
               time beside the cuDNN chain's, its useful TFLOP/s, and its
-              3xTF32 tensor-core bound beside the f32 CUDA-core one;
+              3xTF32 tensor-core bound beside the f32 CUDA-core one; its
+              bf16 kernel at blocks 1-2 of the serving size; the wide
+              kernel (Cout 64/128/256) in both types on the planes of a
+              64x48 input and on a 100x76 plane, each beside its bound and
+              the cuDNN chain;
 4. main     — the serving entry at B=4 on cuda, NaN route (a NaN run in one
               channel of one window) and finite route, with every kernel's
               launch counter read around that run; log-probs held against
-              the same forward on the CPU's plain versions;
-5. timing   — the serving forward at B=256 (windows/s) and at B=4 (ms per
-              batch), both routes (CUDA events);
-6. xai      — input-gradient attribution through the fused serving model
+              the same forward on the CPU's plain versions; then the bf16
+              program (``serving_dtype=torch.bfloat16``) the same way, its
+              probabilities held against the float32 program's;
+5. wide     — SpectrogramCNN with fused blocks 3, 4 (64x48 input) and 5
+              (64x64) against the unfused model, float32 and bf16, with the
+              wide kernel's launches read around that run;
+6. timing   — the serving forward at B=256 (windows/s) and at B=4 (ms per
+              batch), both routes, float32 and bf16, eager and captured as
+              one CUDA graph (``capture_forward``, held equal to eager on
+              two inputs); kernels launched per forward (profiler);
+7. stem     — the EEGNet stem reassociated (as served) against canonical,
+              log-probs held, with cuDNN's FFT-convolution share of device
+              time for each (profiler), B=256 and B=4;
+8. xai      — input-gradient attribution through the fused serving model
               (``explain_entry``): saliency, Grad-CAM, IG and expected
               gradients at B=4 (B=2 for the spectrogram sweeps) held
               against the CPU and against the unfused model, with the fused
               block's launches and backward calls read around them; then
               their times at B=256 (IG on the spectrogram branch at B=32)
               and the fused block's VJP beside the cuDNN chain's backward;
-7. convprobe — the conv probe's duty kernel against its plain version at
+9. convprobe — the conv probe's duty kernel against its plain version at
               the probe's four GEMM shapes, then its rate at R=512.
 
 Output: a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, then the
@@ -79,8 +93,15 @@ XAI_REL = 1e-3
 # saliency at B=4 differed by 2.6e-2 (max) and 3.8e-3 (normwise).  The
 # normwise bound is the guard: a wrong gradient differs by O(1).
 XAI_KINK_REL, XAI_KINK_NORM = 1e-1, 1e-2
+# bf16 program: probabilities within 2e-2 of the float32 program's, the JAX
+# package's bf16-versus-f32 bound (tests/test_models.py:176-186)
+BF16_PROB_ATOL = 2e-2
+# a captured forward replays the eager forward's kernels on the same inputs
+GRAPH_ATOL = 1e-6
 DUTY_REL = 1e-4                  # duty kernel vs plain (exact bf16 products)
 PKG = "multimodal_brain_pattern_identification_xai_tpu_torch"
+#: (Cin, Cout) of the wide kernel's instantiations: blocks 3-5
+WIDE_SHAPES = ((32, 64), (64, 128), (128, 256))
 
 
 def require(cond: bool, msg: str) -> None:
@@ -103,9 +124,9 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, flop_per_s: float = F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -212,6 +233,10 @@ def phase_build(card: str) -> None:
               f"(tensor cores) {lib.specblock_smem_bytes(cin, co, 0)} bytes, "
               f"bf16 (CUDA cores) {lib.specblock_smem_bytes(cin, co, 1)} "
               f"bytes")
+    for cin, co in WIDE_SHAPES:
+        print(f"[build] specblock wide kernel dynamic smem (cin={cin}, "
+              f"cout={co}): {lib.specblock_smem_bytes(cin, co, 0)} bytes, "
+              f"both types")
     cuobjdump = shutil.which("cuobjdump") or str(
         Path(_build._nvcc()).parent / "cuobjdump")
     if Path(cuobjdump).exists():
@@ -237,12 +262,109 @@ def phase_build(card: str) -> None:
               f"{cuda_duty._lib().duty_smem_bytes(co, k)} bytes")
 
 
+def _cudnn_chain(x, ks, bs, pool, dtype):
+    """The library yardstick of the fused block: cuDNN conv×3 + pool on
+    NCHW in ``dtype`` (never used by the port)."""
+    import torch.nn.functional as F
+    xn = x.permute(0, 3, 1, 2).contiguous().to(dtype)
+    wn = [k.permute(3, 2, 0, 1).contiguous().to(dtype) for k in ks]
+    bn = [b.to(dtype) for b in bs]
+
+    def run():
+        h = xn
+        for wk, bk in zip(wn, bn):
+            h = F.relu(F.conv2d(h, wk, bk, padding=1))
+        return F.max_pool2d(h, 2) if pool == "max" else F.avg_pool2d(h, 2)
+    return run
+
+
+def specblock_case(card, dev, what, b, h, w, cin, co, pool, dtype, reps,
+                   wscale=None) -> dict:
+    """The fused block at one shape and storage type on the card: held
+    against its plain version (float32: rtol = atol = 1e-5; bf16: the
+    JAX package's tensor-scale bound against the float32 chain, max 0.03,
+    mean 0.003), then timed beside the plain chain and the cuDNN chain in
+    the same type.  Weights ~ N(0, wscale²), by default at the He scale so
+    that activations stay O(1).  Bound: x, weights and the output moved
+    once against the useful operations at the rate of the kernel's
+    datapath: 3xTF32 (three tensor-core products per useful one at 495
+    TFLOP/s; the pool on the CUDA cores) for the float32 kernel of Cout
+    <= 32, 67 TFLOP/s for float32 on the CUDA cores, 989 TFLOP/s for
+    bf16."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
+        cuda_specblock)
+    name = cuda_specblock.kernel_name(co, dtype)
+    rng = np.random.default_rng(4)
+    mk = lambda *sh: torch.as_tensor(rng.standard_normal(sh),
+                                     dtype=torch.float32, device=dev)
+    if wscale is None:
+        wscale = float(np.sqrt(2 / (9 * cin)))
+    ks = [mk(3, 3, ci, co) * wscale for ci in (cin, co, co)]
+    bs = [mk(co) * 0.1 for _ in range(3)]
+    x = mk(b, h, w, cin)
+    fused = lambda: cuda_specblock.fused_specblock_convpool(
+        x, ks, bs, pool=pool, dtype=dtype)
+    plain = lambda: cuda_specblock._plain_convpool(x, ks, bs, pool, dtype)
+    y, y_plain = fused(), plain()
+    truth = cuda_specblock._plain_convpool(x, ks, bs, pool, torch.float32)
+    err = max_abs(y.float(), y_plain.float())
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, truth, rtol=1e-5, atol=1e-5)
+        held = f"max abs {err:.2e} (bound rtol = atol = 1e-5)"
+    else:
+        e = (y.float() - truth).abs() / truth.abs().max()
+        require(float(e.max()) < 0.03 and float(e.mean()) < 0.003,
+                f"specblock {what} bf16 err max {float(e.max())} mean "
+                f"{float(e.mean())}")
+        held = (f"vs the float32 chain max {float(e.max()):.2e} mean "
+                f"{float(e.mean()):.2e} (tensor scale, bounds 0.03 / 0.003)"
+                f"; vs the plain bf16 chain max abs {err:.2e}")
+    del y, y_plain, truth
+    ms = cuda_ms(fused, reps)
+    plain_ms = cuda_ms(plain, reps)
+    lib_ms = cuda_ms(_cudnn_chain(x, ks, bs, pool, dtype), reps)
+    es = 4 if dtype == torch.float32 else 2
+    nbytes = (x.numel() + b * (h // 2) * (w // 2) * co) * es + (
+        sum(k.numel() for k in ks) + 3 * co) * 4
+    conv_flops = 2 * 9 * (cin * co + 2 * co * co) * b * h * w
+    pool_flops = (3 if pool == "max" else 4) * b * (h // 2) * (w // 2) * co
+    flops = conv_flops + pool_flops
+    if name == "specblock_convpool":
+        t_ops = max(3 * conv_flops / TF32_FLOP_PER_S,
+                    pool_flops / F32_FLOP_PER_S) * 1e3
+    else:
+        t_ops = flops / (BF16_FLOP_PER_S if dtype == torch.bfloat16
+                         else F32_FLOP_PER_S) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bnd = max(t_bytes, t_ops)
+    print(f"[kernels] {name} "
+          f"{what} ({b},{h},{w},{cin})->{co} {pool}: {held}; {ms:.4f} ms = "
+          f"{flops / ms / 1e9:.2f} useful TFLOP/s; plain chain {plain_ms:.4f}"
+          f" ms; cuDNN chain {lib_ms:.4f} ms; bound {bnd:.4f} ms by "
+          f"{'bytes' if t_bytes >= t_ops else 'operations'} [{card}]")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                t_bytes=t_bytes, t_ops=t_ops)
+
+
+def sum_cases(cases) -> dict:
+    """One kernel record over several shapes: times and bounds summed
+    (the bound of the sum is the larger of the summed byte and operation
+    times), the largest error."""
+    t_bytes = sum(c["t_bytes"] for c in cases)
+    t_ops = sum(c["t_ops"] for c in cases)
+    return dict(err=max(c["err"] for c in cases),
+                ms=sum(c["ms"] for c in cases),
+                plain_ms=sum(c["plain_ms"] for c in cases),
+                library_ms=sum(c["library_ms"] for c in cases),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 def phase_kernels(card: str, dev) -> dict:
     """Kernel vs plain version on the card; returns per-kernel records
     with the error and the timings at B_TIME main-path shapes."""
     from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
-        cuda_iir, cuda_specblock, iir, preprocess)
-    import torch.nn.functional as F
+        cuda_iir, iir, preprocess)
 
     bp5 = iir.butter_bandpass(0.5, 20.0, 200.0, 5)
     bp6 = iir.butter_bandpass(0.5, 20.0, 200.0, 6)
@@ -364,152 +486,268 @@ def phase_kernels(card: str, dev) -> dict:
               f"[{card}]")
     del xs, got, want
 
-    # --- #3 fused spec block: block 1 (max) and block 2 (avg) ------------
-    tot = dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-               t_bytes=0.0, t_ops=0.0)
-    for name, cin, co, h, w, pool in (("block1", 3, 16, 400, 300, "max"),
-                                      ("block2", 16, 32, 200, 150, "avg")):
-        rng = np.random.default_rng(4)
-        mk = lambda *s: torch.as_tensor(rng.standard_normal(s),
-                                        dtype=torch.float32, device=dev)
-        ks = [mk(3, 3, ci, co) * 0.2 for ci in (cin, co, co)]
-        bs = [mk(co) * 0.1 for _ in range(3)]
-        x = mk(B_TIME, h, w, cin)
-        fused = lambda dt=torch.float32, xx=x: \
-            cuda_specblock.fused_specblock_convpool(xx, ks, bs, pool=pool,
-                                                    dtype=dt)
-        plain = lambda: cuda_specblock._plain_convpool(x, ks, bs, pool,
-                                                       torch.float32)
-        y, y_plain = fused(), plain()
-        torch.testing.assert_close(y, y_plain, rtol=1e-5, atol=1e-5)
-        err = max_abs(y, y_plain)
-        margin = float(((y - y_plain).abs() - 1e-5 * y_plain.abs()).max())
-        xs_ = x[:16]
-        yb = fused(torch.bfloat16, xs_).float()
-        tb = cuda_specblock._plain_convpool(xs_, ks, bs, pool, torch.float32)
-        eb = (yb - tb).abs() / tb.abs().max()
-        require(float(eb.max()) < 0.03 and float(eb.mean()) < 0.003,
-                f"specblock {name} bf16 err max {float(eb.max())} "
-                f"mean {float(eb.mean())}")
-        del y, y_plain, yb, tb
-        # library yardstick: cuDNN convs + pool on NCHW (never used by the port)
-        xn = x.permute(0, 3, 1, 2).contiguous()
-        wn = [k.permute(3, 2, 0, 1).contiguous() for k in ks]
+    # --- #3 fused spec block: block 1 (max) and block 2 (avg), float32
+    # (the tensor-core kernel) and bf16 (the CUDA-core kernel, the bf16
+    # program's fused blocks), at the serving size
+    for dt, name in ((torch.float32, "specblock_convpool"),
+                     (torch.bfloat16, "specblock_convpool_bf16")):
+        rec[name] = sum_cases([
+            specblock_case(card, dev, "block1", B_TIME, 400, 300, 3, 16,
+                           "max", dt, 3, wscale=0.2),
+            specblock_case(card, dev, "block2", B_TIME, 200, 150, 16, 32,
+                           "avg", dt, 3, wscale=0.2)])
+        torch.cuda.empty_cache()
 
-        def library():
-            hh = xn
-            for wk, bk in zip(wn, bs):
-                hh = F.relu(F.conv2d(hh, wk, bk, padding=1))
-            return F.max_pool2d(hh, 2) if pool == "max" else F.avg_pool2d(hh, 2)
-        ms = cuda_ms(fused, 5)
-        plain_ms = cuda_ms(plain, 3)
-        lib_ms = cuda_ms(library, 3)
-        nbytes = (x.numel() + sum(k.numel() for k in ks) + 3 * co
-                  + B_TIME * (h // 2) * (w // 2) * co) * 4
-        conv_flops = 2 * 9 * (cin * co + 2 * co * co) * B_TIME * h * w
-        pool_flops = (3 if pool == "max" else 4) * B_TIME * (h // 2) \
-            * (w // 2) * co
-        # 3xTF32: three tensor-core products per useful one (the pool's few
-        # f32 operations run beside them on the CUDA cores)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_tc = max(3 * conv_flops / TF32_FLOP_PER_S,
-                   pool_flops / F32_FLOP_PER_S) * 1e3
-        t_f32 = (conv_flops + pool_flops) / F32_FLOP_PER_S * 1e3
-        b, b_by = max(t_bytes, t_tc), "bytes" if t_bytes >= t_tc \
-            else "operations"
-        print(f"[kernels] specblock_convpool {name} ({B_TIME},{h},{w},{cin})"
-              f"->{co} {pool}: f32 max abs {err:.2e} (max |d| - 1e-5 |ref| "
-              f"{margin:.2e}, bound 1e-5), bf16 max {float(eb.max()):.2e} "
-              f"mean {float(eb.mean()):.2e} (tensor scale); f32 {ms:.3f} ms "
-              f"= {(conv_flops + pool_flops) / ms / 1e9:.1f} useful TFLOP/s; "
-              f"cuDNN chain (TF32 off) {lib_ms:.3f} ms; plain {plain_ms:.3f} "
-              f"ms; bound {b:.3f} ms by {b_by} (3xTF32 on the tensor cores "
-              f"at 495 TFLOP/s; f32 on the CUDA cores {t_f32:.3f} ms) "
-              f"[{card}]")
-        tot["err"] = max(tot["err"], err)
-        tot["ms"] += ms
-        tot["plain_ms"] += plain_ms
-        tot["library_ms"] += lib_ms
-        tot["t_bytes"] += t_bytes
-        tot["t_ops"] += t_tc
-        del x, xn
-    tot["bound_ms"] = max(tot.pop("t_bytes"), tot["t_ops"])
-    tot["bound_by"] = "operations" if tot.pop("t_ops") >= tot["bound_ms"] \
-        else "bytes"
-    rec["specblock_convpool"] = tot
-    torch.cuda.empty_cache()
+    # --- the wide kernel (Cout 64/128/256, CUDA cores, both types) on the
+    # planes of a 64x48 input (blocks 3 and 4) and Cout 256 on 8x6; then
+    # on a 100x76 plane (kept beside the record as *_large)
+    for dt, name in ((torch.float32, "specblock_convpool_wide"),
+                     (torch.bfloat16, "specblock_convpool_wide_bf16")):
+        rec[name] = sum_cases([
+            specblock_case(card, dev, "block3 of 64x48", B_TIME, 16, 12, 32,
+                           64, "max", dt, 5),
+            specblock_case(card, dev, "block4 of 64x48", B_TIME, 8, 6, 64,
+                           128, "avg", dt, 5),
+            specblock_case(card, dev, "Cout 256 on 8x6", B_TIME, 8, 6, 128,
+                           256, "max", dt, 5)])
+        large = sum_cases([specblock_case(card, dev, "100x76 plane", B_TIME,
+                                          100, 76, 32, 64, "max", dt, 2)])
+        rec[name].update(ms_large=large["ms"], bound_ms_large=large["bound_ms"],
+                         library_ms_large=large["library_ms"])
+        torch.cuda.empty_cache()
     return rec
 
 
-def phase_main(card: str) -> dict:
-    """The serving entry at B_MAIN on cuda, both routes; launch counts
-    read around exactly that run; log-probs against the CPU run."""
-    from multimodal_brain_pattern_identification_xai_tpu_torch.entry import (
-        entry)
+def _counters():
+    """Every kernel's launch counter, by the kernels line's names."""
     from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
         cuda_iir, cuda_specblock)
-    counters = {"iir_sosfilt": cuda_iir.sosfilt,
-                "iir_sosfilt_rolldec": cuda_iir.sosfilt_rolldec,
-                "specblock_convpool": cuda_specblock.fused_specblock_convpool}
+    fused = cuda_specblock.fused_specblock_convpool
 
-    runs = {}
+    def reset():
+        cuda_iir.sosfilt.launches = cuda_iir.sosfilt_rolldec.launches = 0
+        fused.kernel_launches.update(dict.fromkeys(fused.kernel_launches, 0))
+
+    def read():
+        return {"iir_sosfilt": cuda_iir.sosfilt.launches,
+                "iir_sosfilt_rolldec": cuda_iir.sosfilt_rolldec.launches,
+                **fused.kernel_launches}
+    return reset, read
+
+
+def phase_main(card: str) -> dict:
+    """The serving entry at B_MAIN on cuda, both routes, float32 then the
+    bf16 program; launch counts read around exactly each run; log-probs
+    against the CPU run, bf16 probabilities against the float32
+    program's."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch.entry import (
+        entry)
+    reset, read = _counters()
+    bf16 = torch.bfloat16
+
+    def runs(dtype, device):
+        out = {}
+        for route in ("nan", "finite"):
+            fwd, (eeg, spec) = entry(device=device, batch=B_MAIN,
+                                     assume_finite=route == "finite",
+                                     serving_dtype=dtype)
+            if route == "nan":
+                eeg[1, 5, 2000:2300] = float("nan")  # one channel, one window
+            out[route] = (fwd, eeg, spec)
+        return out
+
+    outs, launches = {}, {}
+    for dtype, kernels in ((None, ("iir_sosfilt", "iir_sosfilt_rolldec",
+                                   "specblock_convpool")),
+                           (bf16, ("specblock_convpool_bf16",))):
+        prog = "float32" if dtype is None else "bf16"
+        cuda_runs = runs(dtype, "cuda")
+        reset()
+        outs[prog] = {route: fwd(eeg, spec)
+                      for route, (fwd, eeg, spec) in cuda_runs.items()}
+        torch.cuda.synchronize()
+        counts = read()
+        print(f"[main] launches on the main path, {prog} program (B={B_MAIN},"
+              f" both routes): {counts}")
+        for name in ("iir_sosfilt", "iir_sosfilt_rolldec") + kernels:
+            require(counts[name] > 0,
+                    f"kernel {name} was not launched by the {prog} program")
+        launches.update({k: counts[k] for k in kernels})
+
+        # the same forward on the CPU: plain PyTorch versions throughout.
+        # float32 bound: sums in other orders (cuDNN vs CPU convolutions;
+        # the kernels vs the sequential scan) through a random-weight
+        # network — 1e-3 on log-probs, as tests/test_torch_slice.py.  bf16:
+        # the two sides round in other places, so probabilities within
+        # BF16_PROB_ATOL
+        for route, (cfwd, ceeg, cspec) in runs(dtype, "cpu").items():
+            want = cfwd(ceeg, cspec)
+            got = outs[prog][route].cpu()
+            require(got.shape == (B_MAIN, 6), f"{route}: shape {got.shape}")
+            require(bool(torch.isfinite(got).all()), f"{route}: non-finite")
+            if dtype is None:
+                err, bound = float((got - want).abs().max()), LOGP_ATOL
+                what = "log-probs"
+            else:
+                err = float((got.exp() - want.exp()).abs().max())
+                bound, what = BF16_PROB_ATOL, "probabilities"
+            require(err < bound, f"{prog} {route} route: GPU vs CPU {what} "
+                    f"{err}")
+            print(f"[main] {prog} program, {route} route: log-probs "
+                  f"{tuple(got.shape)} finite; GPU vs CPU {what} max abs "
+                  f"{err:.2e} (bound {bound})")
     for route in ("nan", "finite"):
-        fwd, (eeg, spec) = entry(device="cuda", batch=B_MAIN,
-                                 assume_finite=route == "finite")
-        if route == "nan":
-            eeg[1, 5, 2000:2300] = float("nan")   # one channel of one window
-        runs[route] = (fwd, eeg, spec)
-
-    for c in counters.values():
-        c.launches = 0
-    outs = {route: fwd(eeg, spec) for route, (fwd, eeg, spec) in runs.items()}
-    torch.cuda.synchronize()
-    launches = {name: c.launches for name, c in counters.items()}
-    print(f"[main] launches on the main path (B={B_MAIN}, both routes): "
-          f"{launches}")
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched on the main path")
-
-    # the same forward on the CPU: plain PyTorch versions throughout.
-    # Bound: float32 on both sides, sums in other orders (cuDNN vs CPU
-    # convolutions; the kernels vs the sequential scan), through a
-    # random-weight network — 1e-3 on log-probs, as tests/test_torch_slice.py
-    for route, (fwd, eeg, spec) in runs.items():
-        cfwd, (ceeg, cspec) = entry(device="cpu", batch=B_MAIN,
-                                    assume_finite=route == "finite")
-        if route == "nan":
-            ceeg[1, 5, 2000:2300] = float("nan")
-        want = cfwd(ceeg, cspec)
-        got = outs[route].cpu()
-        require(got.shape == (B_MAIN, 6), f"{route}: shape {got.shape}")
-        require(bool(torch.isfinite(got).all()), f"{route}: non-finite")
-        err = float((got - want).abs().max())
-        require(err < LOGP_ATOL, f"{route} route: GPU vs CPU log-probs {err}")
-        print(f"[main] {route} route: log-probs {tuple(got.shape)} finite; "
-              f"GPU vs CPU max abs {err:.2e} (bound {LOGP_ATOL})")
+        err = float((outs["bf16"][route].exp()
+                     - outs["float32"][route].exp()).abs().max())
+        require(err < BF16_PROB_ATOL, f"bf16 vs float32 program, {route} "
+                f"route: probabilities {err}")
+        print(f"[main] bf16 vs float32 program, {route} route: probabilities "
+              f"max abs {err:.2e} (bound {BF16_PROB_ATOL}) [{card}]")
     return launches
+
+
+def phase_wide(card: str, dev) -> dict:
+    """The fused block at Cout 64/128/256 inside SpectrogramCNN: fused
+    blocks 3 and 4 on a 64x48 input (planes 16x12, 8x6; block 5's 4x3 is
+    odd and stays unfused, as in the JAX package) and 5 on 64x64 (4x4),
+    float32 and bf16, against the unfused model in the same type: float32
+    log-probs within LOGP_ATOL, bf16 probabilities within BF16_PROB_ATOL.
+    The wide kernel's launches are read around the fused models' run."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch.models import (
+        SpectrogramCNN, seeded_state_dict)
+    reset, read = _counters()
+    cases = []
+    for dtype in (None, torch.bfloat16):
+        for fb, hw in ((3, (64, 48)), (4, (64, 48)), (5, (64, 64))):
+            fused = SpectrogramCNN(fused_blocks=fb, dtype=dtype)
+            fused.load_state_dict(seeded_state_dict(fused, 4))
+            plain = SpectrogramCNN(dtype=dtype)
+            plain.load_state_dict(fused.state_dict())
+            x = signal((B_MAIN, 3) + hw, 1.0, 7, dev)
+            cases.append((dtype, fb, hw, fused.to(dev).eval(),
+                          plain.to(dev).eval(), x))
+    reset()
+    with torch.no_grad():
+        got = [fused(x) for _, _, _, fused, _, x in cases]
+    torch.cuda.synchronize()
+    counts = read()
+    names = ("specblock_convpool_wide", "specblock_convpool_wide_bf16")
+    print(f"[wide] launches in the fused models' run: "
+          f"{ {k: counts[k] for k in names} }")
+    for name in names:
+        require(counts[name] > 0, f"kernel {name} was not launched")
+    for (dtype, fb, hw, _, plain, x), y in zip(cases, got):
+        with torch.no_grad():
+            want = plain(x)
+        require(bool(torch.isfinite(y).all()), "wide: non-finite")
+        if dtype is None:
+            err, bound, what = max_abs(y, want), LOGP_ATOL, "log-probs"
+        else:
+            err = max_abs(y.exp(), want.exp())
+            bound, what = BF16_PROB_ATOL, "probabilities"
+        require(err < bound, f"fused_blocks={fb} {hw} {dtype}: {err}")
+        print(f"[wide] SpectrogramCNN(fused_blocks={fb}, dtype={dtype}) on "
+              f"{(B_MAIN, 3) + hw} vs unfused: {what} max abs {err:.2e} "
+              f"(bound {bound}) [{card}]")
+    return {k: counts[k] for k in names}
 
 
 def phase_timing(card: str) -> float:
     """Serving forward at B_TIME (throughput) and B_MAIN (on-demand
-    latency), both routes; returns the finite route's ms/batch at B_TIME."""
+    latency), both routes, float32 and bf16, eager and captured as one
+    CUDA graph (held equal to eager on two inputs; a failed capture
+    raises), with the kernels launched per forward on the finite route
+    (profiler).  Returns the float32 finite route's eager ms at B_TIME."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        profiling)
     from multimodal_brain_pattern_identification_xai_tpu_torch.entry import (
-        entry)
+        capture_forward, entry)
     times = {}
-    for batch, reps in ((B_TIME, 10), (B_MAIN, 50)):
-        for route in ("finite", "nan"):
-            fwd, (eeg, spec) = entry(device="cuda", batch=batch,
-                                     assume_finite=route == "finite")
-            torch.cuda.reset_peak_memory_stats()
-            ms = cuda_ms(lambda: fwd(eeg, spec), reps, warmup=2)
-            print(f"[timing] serving forward, {route} route, B={batch}: "
-                  f"{ms:.3f} ms/batch, {batch / ms * 1e3:.1f} windows/s; "
-                  f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-                  f"[{card}]")
-            times[route, batch] = ms
-            del fwd, eeg, spec
-            torch.cuda.empty_cache()
-    return times["finite", B_TIME]
+    for route in ("finite", "nan"):
+        for dtype in (None, torch.bfloat16):
+            prog = "float32" if dtype is None else "bf16"
+            for batch, reps in ((B_TIME, 10), (B_MAIN, 50)):
+                fwd, (eeg, spec) = entry(device="cuda", batch=batch,
+                                         assume_finite=route == "finite",
+                                         serving_dtype=dtype)
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(lambda: fwd(eeg, spec), reps, warmup=2)
+                peak = peak_gib()
+                graph = capture_forward(fwd, (eeg, spec))
+                diff = max(max_abs(graph(e, s), fwd(e, s)) for e, s in (
+                    (eeg, spec), (eeg * 0.5 + 1.0, spec.flip(0))))
+                require(diff <= GRAPH_ATOL, f"captured vs eager {prog} "
+                        f"{route} B={batch}: {diff}")
+                gms = cuda_ms(lambda: graph(eeg, spec), reps, warmup=2)
+                count = ""
+                if route == "finite":
+                    pe = profiling.profile_kernels(lambda: fwd(eeg, spec),
+                                                   reps=2, warmup=0)
+                    pg = profiling.profile_kernels(lambda: graph(eeg, spec),
+                                                   reps=2, warmup=0)
+                    count = (f"; kernels a forward: eager {pe.kernels:.0f} "
+                             f"(+{pe.copies:.0f} copies), graph "
+                             f"{pg.kernels:.0f} (+{pg.copies:.0f})")
+                print(f"[timing] serving forward, {prog} program, {route} "
+                      f"route, B={batch}: eager {ms:.3f} ms/batch = "
+                      f"{batch / ms * 1e3:.1f} windows/s (peak {peak:.2f} "
+                      f"GiB); captured {gms:.3f} ms/batch = "
+                      f"{batch / gms * 1e3:.1f} windows/s; captured vs eager "
+                      f"max abs {diff:.1e} (bound {GRAPH_ATOL}){count} "
+                      f"[{card}]")
+                times[prog, route, batch] = ms
+                del fwd, graph, eeg, spec
+                torch.cuda.empty_cache()
+    return times["float32", "finite", B_TIME]
+
+
+def phase_stem(card: str) -> None:
+    """The EEGNet stem reassociated (as served) against canonical on the
+    float32 finite route: log-probs within LOGP_ATOL, the EEG branch's
+    time alone (CUDA events) and cuDNN's FFT-convolution share of the
+    forward's device time (profiler), at B_TIME and B_MAIN; then the FFT
+    convolution's time in each branch alone, to say which layer runs it."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        profiling)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.entry import (
+        make_forward, seeded)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
+        preprocess_multimodal)
+    for batch in (B_TIME, B_MAIN):
+        model, eeg, spec = seeded("cuda", batch)
+        fwd = make_forward(model, assume_finite=True)
+        with torch.inference_mode():
+            eeg_in, spec_in = preprocess_multimodal(eeg, spec,
+                                                    assume_finite=True)
+            for name, branch, x in (("EEG", model.eeg_model, eeg_in),
+                                    ("spectrogram", model.spectrogram_model,
+                                     spec_in)):
+                prof = profiling.profile_kernels(lambda: branch(x), reps=3)
+                print(f"[stem] {name} branch alone, B={batch}: device busy "
+                      f"{prof.busy_ms:.3f} ms, cuDNN FFT conv "
+                      f"{profiling.fft_conv_ms(prof):.3f} ms [{card}]")
+        outs = {}
+        for stem in ("reassociated", "canonical"):
+            model.eeg_model.fused_inference = stem == "reassociated"
+            outs[stem] = fwd(eeg, spec)
+            with torch.inference_mode():
+                eeg_ms = cuda_ms(lambda: model.eeg_model(eeg_in), 10, warmup=2)
+            prof = profiling.profile_kernels(lambda: fwd(eeg, spec), reps=3)
+            fft = profiling.fft_conv_ms(prof)
+            top = sorted(((ms, n) for n, ms in prof.kernel_ms.items()
+                          if profiling.FFT_CONV.search(n)), reverse=True)[:4]
+            print(f"[stem] {stem} stem, B={batch}: EEG branch {eeg_ms:.3f} "
+                  f"ms; forward device busy {prof.busy_ms:.3f} ms of "
+                  f"{prof.wall_ms:.3f} ms wall (profiler on), cuDNN FFT conv "
+                  f"{fft:.3f} ms = {100 * fft / prof.busy_ms:.1f}% of busy; "
+                  f"top FFT kernels {[(n[:40], round(ms, 3)) for ms, n in top]}"
+                  f" [{card}]")
+        err = max_abs(outs["reassociated"], outs["canonical"])
+        require(err < LOGP_ATOL, f"stems differ by {err} at B={batch}")
+        print(f"[stem] reassociated vs canonical, B={batch}: log-probs max "
+              f"abs {err:.2e} (bound {LOGP_ATOL})")
+        del model, fwd, eeg, spec, eeg_in, spec_in
+        torch.cuda.empty_cache()
 
 
 def _held(what: str, got, want, kink: bool = False) -> None:
@@ -796,8 +1034,12 @@ def main() -> int:
     done("kernels")
     launches = phase_main(card)
     done("main")
+    launches.update(phase_wide(card, dev))
+    done("wide")
     serving_ms = phase_timing(card)
     done("timing")
+    phase_stem(card)
+    done("stem")
     xai_counts = phase_xai(card, dev, serving_ms)
     done("xai")
     rec["duty"] = phase_convprobe(card, dev)
@@ -812,6 +1054,16 @@ def main() -> int:
            "specblock_convpool": (f"{PKG}/csrc/specblock.cu",
                                   f"{xai_tpu}/ops/pallas_specblock.py:242",
                                   "serving+xai"),
+           "specblock_convpool_bf16": (f"{PKG}/csrc/specblock.cu",
+                                       f"{xai_tpu}/ops/pallas_specblock.py:242",
+                                       "serving (bf16 program)"),
+           "specblock_convpool_wide": (f"{PKG}/csrc/specblock.cu",
+                                       f"{xai_tpu}/ops/pallas_specblock.py:242",
+                                       "fused blocks 3-5 (64x48, 64x64)"),
+           "specblock_convpool_wide_bf16": (
+               f"{PKG}/csrc/specblock.cu",
+               f"{xai_tpu}/ops/pallas_specblock.py:242",
+               "fused blocks 3-5 (64x48, 64x64), bf16"),
            "duty": (f"{PKG}/csrc/duty.cu", "bench.py:1123", "convprobe")}
     launches["duty"] = rec["duty"].pop("launches")
     kernels = [{"name": name, "route": "cuda", "source": src[name][0],
@@ -820,8 +1072,9 @@ def main() -> int:
                 "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                **{key: r[key] for key in ("ms_b4", "library_ms_b4")
-                   if key in r}}
+                **{key: v for key, v in r.items() if key not in (
+                    "err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}}
                for name, r in rec.items()]
     for k in kernels:
         if k["name"] == "specblock_convpool":

@@ -56,6 +56,20 @@
 // stage's f32 bias+ReLU result is rounded to bf16, and the avg pool sums in
 // f32 and divides by 4, as _xla_chain_convpool and the TPU kernel do.
 //
+// Widths 64, 128 and 256 (blocks 3-5; both storage types):
+// specblock_wide_kernel<C, T>, a direct convolution on the CUDA cores.
+// The 16x16 layouts above cannot hold them (at C = 64 the tf32 hi/lo
+// weights alone are 331,776 B), so the conv3 tile shrinks as C grows
+// (wide_tile: 8x8 for C = 64 and 128, 4x4 for C = 256) until one tile's
+// stage planes plus halo fit, and the weights are not staged: each conv
+// reads them, [tap][ci][co], through the read-only cache.  A thread owns
+// one output position and kGroup = 16 output channels; consecutive threads
+// take consecutive positions of one channel group, so a warp's weight
+// loads are one broadcast address and its plane reads are contiguous.
+// Rounding as in specblock_kernel (bf16: every stage rounded, avg pool
+// summed in f32).  Halo recompute: conv1 (T+4)^2 / T^2 = 2.25x at T = 8,
+// 4x at T = 4; bound on an H100 by f32 operations at 67 TFLOP/s.
+//
 // Shared memory per CTA (specblock_smem_bytes), f32 words:
 //   f32:  2 * 9*max(Cin,C)*wpitch(C) (weights hi + lo) + 3C (bias)
 //         + max(Cin*488, C*328) + max(C*424, C*257)
@@ -63,6 +77,9 @@
 //         C=16): 75,968 B.
 //   bf16: 9*max(Cin,C)*C + 3C + max(Cin*484, C*324) + max(C*400, C*257)
 //         block 2: 129,920 B; block 1: 55,744 B.
+//   wide: 3C + max(Cin*(T+6)^2, C*(T+2)^2) + max(C*(T+4)^2, C*(T^2+1)),
+//         T = wide_tile(C): (32 -> 64) 63,232 B, (64 -> 128) 126,464 B,
+//         (128 -> 256) 119,808 B.
 // Above 48 KB, so cudaFuncSetAttribute raises the limit per launch.
 //
 // What bounds it on an H100: at the main path's B=256 block 1 moves
@@ -147,16 +164,16 @@ inline size_t tc_smem_bytes(int cin, int c) {
                              tc_buf0_words(cin, c) + tc_bufa_words(c));
 }
 
-// Input tile with a 3-pixel halo into channel-planar shared memory (plane
-// pitch `pitch`); zero outside the image.
-template <typename T>
+// Input tile (edge R0 - 6) with a 3-pixel halo into channel-planar shared
+// memory (plane pitch `pitch`); zero outside the image.
+template <int R0 = kR0, typename T>
 __device__ __forceinline__ void stage_input(const T* __restrict__ x,
                                             float* __restrict__ buf,
                                             int pitch, int b, int y0, int x0,
                                             int H, int W, int cin) {
-  for (int i = threadIdx.x; i < kR0 * kR0 * cin; i += blockDim.x) {
+  for (int i = threadIdx.x; i < R0 * R0 * cin; i += blockDim.x) {
     const int c = i % cin, p = i / cin;
-    const int gy = y0 - 3 + p / kR0, gx = x0 - 3 + p % kR0;
+    const int gy = y0 - 3 + p / R0, gx = x0 - 3 + p % R0;
     float v = 0.f;
     if (gy >= 0 && gy < H && gx >= 0 && gx < W)
       v = load_f(x[((static_cast<size_t>(b) * H + gy) * W + gx) * cin + c]);
@@ -212,21 +229,21 @@ __device__ __forceinline__ void conv_stage(const float* __restrict__ src,
   }
 }
 
-// 2x2 pool of the conv3 tile (plane pitch kP3); NHWC store, channel
-// fastest (coalesced), ragged edges masked.
-template <int C, typename T>
+// 2x2 pool of the TL x TL conv3 tile (plane pitch P3); NHWC store,
+// channel fastest (coalesced), ragged edges masked.
+template <int C, typename T, int TL = kTile, int P3 = kP3>
 __device__ __forceinline__ void pool_store(const float* __restrict__ src,
                                            T* __restrict__ out, int b,
                                            int y0, int x0, int H, int W,
                                            int pool_max) {
-  const int ho = H / 2, wo = W / 2, half = kTile / 2;
+  const int ho = H / 2, wo = W / 2, half = TL / 2;
   for (int i = threadIdx.x; i < half * half * C; i += blockDim.x) {
     const int co = i % C, q = i / C;
     const int qy = q / half, qx = q % half;
     const int oy = y0 / 2 + qy, ox = x0 / 2 + qx;
     if (oy >= ho || ox >= wo) continue;
-    const float* s = src + co * kP3 + 2 * qy * kTile + 2 * qx;
-    const float a = s[0], bb = s[1], c = s[kTile], d = s[kTile + 1];
+    const float* s = src + co * P3 + 2 * qy * TL + 2 * qx;
+    const float a = s[0], bb = s[1], c = s[TL], d = s[TL + 1];
     const float r = pool_max ? fmaxf(fmaxf(a, bb), fmaxf(c, d))
                              : (a + bb + c + d) * 0.25f;
     out[((static_cast<size_t>(b) * ho + oy) * wo + ox) * C + co] =
@@ -269,6 +286,102 @@ specblock_kernel(const T* __restrict__ x, const float* __restrict__ w1,
                    y0, x0, H, W);
   __syncthreads();
   pool_store<C, T>(bufa, out, b, y0, x0, H, W, pool_max);
+}
+
+// --- wide path (C >= 64, CUDA cores) -------------------------------------
+
+// conv3 tile edge of the wide kernel
+__host__ __device__ constexpr int wide_tile(int c) { return c >= 256 ? 4 : 8; }
+constexpr int kGroup = 16;   // output channels a thread accumulates
+
+__host__ __device__ inline int wide_buf0_words(int cin, int c) {
+  const int t = wide_tile(c);
+  return imax(cin * (t + 6) * (t + 6), c * (t + 2) * (t + 2));
+}
+__host__ __device__ inline int wide_bufa_words(int c) {
+  const int t = wide_tile(c);
+  return imax(c * (t + 4) * (t + 4), c * (t * t + 1));
+}
+inline size_t wide_smem_bytes(int cin, int c) {
+  return sizeof(float) * static_cast<size_t>(3 * c + wide_buf0_words(cin, c) +
+                                             wide_bufa_words(c));
+}
+
+// One conv stage: src (cin planes of rin x rin, pitch rin^2) -> dst (C
+// planes of rout x rout, pitch `dpitch`), rout = rin - 2; weights w
+// [tap][ci][co] in device memory (16-byte aligned), read through the
+// read-only cache; `halo` as in conv_stage.
+template <int C, typename T>
+__device__ __forceinline__ void wide_stage(const float* __restrict__ src,
+                                           int rin, int cin,
+                                           const float* __restrict__ w,
+                                           const float* __restrict__ sb,
+                                           float* __restrict__ dst,
+                                           int dpitch, int halo, int y0,
+                                           int x0, int H, int W) {
+  const int rout = rin - 2, npos = rout * rout, spitch = rin * rin;
+  for (int i = threadIdx.x; i < npos * (C / kGroup); i += blockDim.x) {
+    const int grp = i / npos, p = i - grp * npos;
+    const int py = p / rout, px = p - py * rout;
+    const float4* wg = reinterpret_cast<const float4*>(w) + grp * (kGroup / 4);
+    float acc[kGroup];
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) acc[j] = 0.f;
+    for (int ci = 0; ci < cin; ++ci) {
+      const float* s = src + ci * spitch + py * rin + px;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const float v = s[(tap / 3) * rin + tap % 3];
+        const float4* w4 = wg + (tap * cin + ci) * (C / 4);
+#pragma unroll
+        for (int q = 0; q < kGroup / 4; ++q) {
+          const float4 wv = __ldg(w4 + q);
+          acc[4 * q + 0] += v * wv.x;
+          acc[4 * q + 1] += v * wv.y;
+          acc[4 * q + 2] += v * wv.z;
+          acc[4 * q + 3] += v * wv.w;
+        }
+      }
+    }
+    const int gy = y0 - halo + py, gx = x0 - halo + px;
+    const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      const int co = grp * kGroup + j;
+      const float r = inside ? fmaxf(acc[j] + sb[co], 0.f) : 0.f;
+      dst[co * dpitch + p] = round_to<T>(r);
+    }
+  }
+}
+
+template <int C, typename T>
+__global__ void __launch_bounds__(kThreads)
+specblock_wide_kernel(const T* __restrict__ x, const float* __restrict__ w1,
+                      const float* __restrict__ w2,
+                      const float* __restrict__ w3,
+                      const float* __restrict__ bias, T* __restrict__ out,
+                      int H, int W, int cin, int tiles_x, int pool_max) {
+  constexpr int TL = wide_tile(C);
+  constexpr int R0 = TL + 6, R1 = TL + 4, R2 = TL + 2, P3 = TL * TL + 1;
+  extern __shared__ float4 smem4[];
+  float* sb = reinterpret_cast<float*>(smem4);
+  float* buf0 = sb + 3 * C;
+  float* bufa = buf0 + wide_buf0_words(cin, C);
+
+  const int b = blockIdx.y;
+  const int y0 = (blockIdx.x / tiles_x) * TL;
+  const int x0 = (blockIdx.x % tiles_x) * TL;
+
+  stage_input<R0>(x, buf0, R0 * R0, b, y0, x0, H, W, cin);
+  for (int i = threadIdx.x; i < 3 * C; i += blockDim.x) sb[i] = bias[i];
+  __syncthreads();
+  wide_stage<C, T>(buf0, R0, cin, w1, sb, bufa, R1 * R1, 2, y0, x0, H, W);
+  __syncthreads();
+  wide_stage<C, T>(bufa, R1, C, w2, sb + C, buf0, R2 * R2, 1, y0, x0, H, W);
+  __syncthreads();
+  wide_stage<C, T>(buf0, R2, C, w3, sb + 2 * C, bufa, P3, 0, y0, x0, H, W);
+  __syncthreads();
+  pool_store<C, T, TL, P3>(bufa, out, b, y0, x0, H, W, pool_max);
 }
 
 // --- tensor-core (3xTF32) path -------------------------------------------
@@ -531,16 +644,17 @@ using Kernel = void (*)(const T*, const float*, const float*, const float*,
                         const float*, T*, int, int, int, int, int);
 
 template <typename T>
-int launch(Kernel<T> kern, size_t smem, const void* x, const float* w1,
-           const float* w2, const float* w3, const float* bias, void* out,
-           int B, int H, int W, int cin, int pool_max, cudaStream_t st) {
+int launch(Kernel<T> kern, size_t smem, int tile, const void* x,
+           const float* w1, const float* w2, const float* w3,
+           const float* bias, void* out, int B, int H, int W, int cin,
+           int pool_max, cudaStream_t st) {
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const int tiles_y = (H + kTile - 1) / kTile;
-  const int tiles_x = (W + kTile - 1) / kTile;
+  const int tiles_y = (H + tile - 1) / tile;
+  const int tiles_x = (W + tile - 1) / tile;
   const dim3 grid(tiles_y * tiles_x, B);
   kern<<<grid, kThreads, smem, st>>>(static_cast<const T*>(x), w1, w2, w3,
                                      bias, static_cast<T*>(out), H, W, cin,
@@ -548,22 +662,42 @@ int launch(Kernel<T> kern, size_t smem, const void* x, const float* w1,
   return cudaGetLastError();
 }
 
-// f32 storage: the tensor-core kernel; bf16: the CUDA-core kernel
+bool aligned16(std::initializer_list<const void*> ps) {
+  for (const void* p : ps)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
+// C <= 32, f32 storage: the tensor-core kernel; bf16: the CUDA-core kernel
 template <int C>
 int dispatch(const void* x, const float* w1, const float* w2,
              const float* w3, const float* bias, void* out, int B, int H,
              int W, int cin, int pool_max, int bf16, cudaStream_t st) {
   if (bf16)
     return launch<__nv_bfloat16>(specblock_kernel<C, __nv_bfloat16>,
-                                 smem_bytes(cin, C), x, w1, w2, w3, bias,
+                                 smem_bytes(cin, C), kTile, x, w1, w2, w3,
+                                 bias, out, B, H, W, cin, pool_max, st);
+  if (!aligned16({x, w1, w2, w3}))   // float4 loads
+    return cudaErrorInvalidValue;
+  return launch<float>(specblock_tc_kernel<C>, tc_smem_bytes(cin, C), kTile,
+                       x, w1, w2, w3, bias, out, B, H, W, cin, pool_max, st);
+}
+
+// C >= 64, both storage types: the wide kernel
+template <int C>
+int dispatch_wide(const void* x, const float* w1, const float* w2,
+                  const float* w3, const float* bias, void* out, int B,
+                  int H, int W, int cin, int pool_max, int bf16,
+                  cudaStream_t st) {
+  if (!aligned16({w1, w2, w3}))       // float4 weight loads
+    return cudaErrorInvalidValue;
+  const size_t smem = wide_smem_bytes(cin, C);
+  if (bf16)
+    return launch<__nv_bfloat16>(specblock_wide_kernel<C, __nv_bfloat16>,
+                                 smem, wide_tile(C), x, w1, w2, w3, bias,
                                  out, B, H, W, cin, pool_max, st);
-  for (const void* p : {x, static_cast<const void*>(w1),
-                        static_cast<const void*>(w2),
-                        static_cast<const void*>(w3)})
-    if (reinterpret_cast<uintptr_t>(p) % 16)   // float4 loads
-      return cudaErrorInvalidValue;
-  return launch<float>(specblock_tc_kernel<C>, tc_smem_bytes(cin, C), x, w1,
-                       w2, w3, bias, out, B, H, W, cin, pool_max, st);
+  return launch<float>(specblock_wide_kernel<C, float>, smem, wide_tile(C), x,
+                       w1, w2, w3, bias, out, B, H, W, cin, pool_max, st);
 }
 
 }  // namespace
@@ -571,8 +705,10 @@ int dispatch(const void* x, const float* w1, const float* w2,
 extern "C" {
 
 // Shared-memory bytes one CTA needs for (cin, cout) and the storage type
-// (bf16 != 0: the CUDA-core kernel, else the tensor-core kernel).
+// (cout >= 64: the wide kernel; else bf16 != 0: the CUDA-core kernel, and
+// the tensor-core kernel for f32).
 long long specblock_smem_bytes(int cin, int cout, int bf16) {
+  if (cout >= 64) return static_cast<long long>(wide_smem_bytes(cin, cout));
   return static_cast<long long>(bf16 ? smem_bytes(cin, cout)
                                      : tc_smem_bytes(cin, cout));
 }
@@ -581,7 +717,7 @@ long long specblock_smem_bytes(int cin, int cout, int bf16) {
 // else float); w1: (3, 3, cin, cout), w2, w3: (3, 3, cout, cout) HWIO f32
 // (already rounded to the storage type); bias: (3, cout) f32; out:
 // (B, H/2, W/2, cout) NHWC of the storage type.  H, W even; cout in
-// {8, 16, 32}; B <= 65535.  Returns cudaGetLastError() (or
+// {8, 16, 32, 64, 128, 256}; B <= 65535.  Returns cudaGetLastError() (or
 // cudaErrorInvalidValue for shapes it does not take).
 int specblock_convpool(const void* x, const float* w1, const float* w2,
                        const float* w3, const float* bias, void* out, int B,
@@ -600,6 +736,15 @@ int specblock_convpool(const void* x, const float* w1, const float* w2,
     case 32:
       return dispatch<32>(x, w1, w2, w3, bias, out, B, H, W, cin, pool_max,
                           bf16, st);
+    case 64:
+      return dispatch_wide<64>(x, w1, w2, w3, bias, out, B, H, W, cin,
+                               pool_max, bf16, st);
+    case 128:
+      return dispatch_wide<128>(x, w1, w2, w3, bias, out, B, H, W, cin,
+                                pool_max, bf16, st);
+    case 256:
+      return dispatch_wide<256>(x, w1, w2, w3, bias, out, B, H, W, cin,
+                                pool_max, bf16, st);
     default:
       return cudaErrorInvalidValue;
   }

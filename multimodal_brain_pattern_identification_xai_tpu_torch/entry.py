@@ -2,15 +2,19 @@
 
 Counterpart of ``__graft_entry__.entry()``: preprocessing of both branches
 then the late-fusion ``MultimodalModel(EEGNetAttentionRegularized,
-SpectrogramCNN)``, with the first two spectrogram blocks served through the
-fused conv×3+pool kernel.  :func:`explain_entry` gives the same model and
-preprocessed inputs ready for attribution (``xai``).  Runs on CUDA unless
-the caller passes ``device="cpu"``.
+SpectrogramCNN)``, with the EEGNet stem reassociated for inference and the
+first two spectrogram blocks served through the fused conv×3+pool kernel.
+``serving_dtype=torch.bfloat16`` selects the bf16 program of the JAX
+bench's ``--multimodal`` mode.  :func:`capture_forward` turns a forward
+into one captured CUDA graph (the counterpart of ``jax.jit``).
+:func:`explain_entry` gives the same model and preprocessed inputs ready
+for attribution (``xai``), float32 and eager.  Runs on CUDA unless the
+caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -23,38 +27,98 @@ from .ops import preprocess_multimodal
 
 #: spectrogram blocks served by the fused kernel on the serving path
 FUSED_BLOCKS = 2
+#: eager calls before a capture: the first builds the kernels and sets
+#: their shared-memory attributes, the second runs as the graph will
+CAPTURE_WARMUP = 2
 
 
-def build_model(samples: int = 3000, kern_length: int = 64
-                ) -> MultimodalModel:
+def build_model(samples: int = 3000, kern_length: int = 64,
+                dtype: Optional[torch.dtype] = None) -> MultimodalModel:
     """The serving model in eval mode, on the CPU, default-initialised
-    (load weights with ``load_state_dict``)."""
+    (load weights with ``load_state_dict``): the EEGNet stem reassociated
+    for inference, spectrogram blocks 1-2 fused, and the spectrogram branch
+    in ``dtype`` (None: float32; the parameters are float32 either way)."""
     model = MultimodalModel(
-        EEGNetAttentionRegularized(samples=samples, kern_length=kern_length),
-        SpectrogramCNN(fused_blocks=FUSED_BLOCKS))
+        EEGNetAttentionRegularized(samples=samples, kern_length=kern_length,
+                                   fused_inference=True),
+        SpectrogramCNN(fused_blocks=FUSED_BLOCKS, dtype=dtype))
     return model.eval()
 
 
 def make_forward(model: MultimodalModel,
                  signal: C.SignalConfig = C.SignalConfig(),
-                 assume_finite: bool = False
+                 assume_finite: bool = False,
+                 serving_dtype: Optional[torch.dtype] = None
                  ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """``forward(raw_eeg (B, 20, T), raw_spec (B, H, W)) → (B, 6)``
-    log-probs, on the device of the model and inputs."""
+    log-probs (float32), on the device of the model and inputs.
+
+    ``serving_dtype=torch.bfloat16`` is the bf16 program: the spectrogram
+    chain and CNN in bf16 (the model must be built with that ``dtype``),
+    and the EEG chain's finite route on bf16-rounded input when
+    ``assume_finite``."""
+    if model.spectrogram_model.dtype != serving_dtype:
+        raise ValueError(
+            f"serving_dtype {serving_dtype} needs a spectrogram model built "
+            f"with that dtype, got {model.spectrogram_model.dtype}")
+
     def forward(raw_eeg: torch.Tensor, raw_spec: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
             eeg_in, spec_in = preprocess_multimodal(
-                raw_eeg, raw_spec, signal=signal, assume_finite=assume_finite)
+                raw_eeg, raw_spec, signal=signal, assume_finite=assume_finite,
+                serving_dtype=serving_dtype)
             return model(eeg_in, spec_in)
     return forward
 
 
-def _seeded(device, batch: int, seed: int):
-    """The serving model with weights drawn from ``seed`` on ``device``,
-    and seeded raw inputs: EEG (batch, 20, 10000) µV and spectrograms
-    (batch, 400, 300)."""
+def capture_forward(forward: Callable[..., torch.Tensor],
+                    example_args: Sequence[torch.Tensor]
+                    ) -> Callable[..., torch.Tensor]:
+    """The counterpart of ``jax.jit(forward)``: ``forward`` as one captured
+    CUDA graph.
+
+    On CUDA it runs ``CAPTURE_WARMUP`` calls on ``example_args`` outside
+    the capture (the first builds the kernels with nvcc and sets their
+    shared-memory attributes), captures one call in a
+    ``torch.cuda.CUDAGraph`` over static copies of the arguments, and
+    returns ``replay(*args)``: it copies ``args`` (the example shapes and
+    dtypes) into the static buffers, replays the graph and returns a copy
+    of the static output.  A failed capture raises; nothing falls back to
+    eager.  On the CPU it returns ``forward`` unchanged."""
+    dev = example_args[0].device
+    if dev.type != "cuda":
+        return forward
+    static_in = [a.clone() for a in example_args]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(CAPTURE_WARMUP):
+            forward(*static_in)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = forward(*static_in)
+
+    def replay(*args: torch.Tensor) -> torch.Tensor:
+        for buf, a in zip(static_in, args, strict=True):
+            if a.shape != buf.shape or a.dtype != buf.dtype:
+                raise ValueError(f"captured for {tuple(buf.shape)} "
+                                 f"{buf.dtype}, got {tuple(a.shape)} {a.dtype}")
+            buf.copy_(a)
+        graph.replay()
+        with torch.inference_mode():
+            return static_out.clone()
+    return replay
+
+
+def seeded(device: Optional[Union[str, torch.device]] = None, batch: int = 4,
+           seed: int = 0, dtype: Optional[torch.dtype] = None
+           ) -> Tuple[MultimodalModel, torch.Tensor, torch.Tensor]:
+    """The serving model (spectrogram branch in ``dtype``) with weights
+    drawn from ``seed`` on ``device``, and seeded raw inputs: EEG
+    (batch, 20, 10000) µV and spectrograms (batch, 400, 300)."""
     dev = resolve_device(device)
-    model = build_model()
+    model = build_model(dtype=dtype)
     model.load_state_dict(seeded_state_dict(model, seed))
     model.to(dev)
     rng = np.random.default_rng(seed)
@@ -66,15 +130,19 @@ def _seeded(device, batch: int, seed: int):
 
 
 def entry(device: Optional[Union[str, torch.device]] = None, batch: int = 4,
-          assume_finite: bool = False, seed: int = 0
+          assume_finite: bool = False, seed: int = 0,
+          serving_dtype: Optional[torch.dtype] = None
           ) -> Tuple[Callable, Tuple[torch.Tensor, torch.Tensor]]:
     """Return ``(forward, (raw_eeg, raw_spec))``: the full-size serving
     forward with weights drawn from ``seed``, and seeded raw inputs —
     EEG (batch, 20, 10000) µV and spectrograms (batch, 400, 300).
     ``assume_finite=False`` (the default, as the JAX entry) runs the
-    NaN-bearing EEG route."""
-    model, raw_eeg, raw_spec = _seeded(device, batch, seed)
-    return make_forward(model, assume_finite=assume_finite), (raw_eeg, raw_spec)
+    NaN-bearing EEG route; ``serving_dtype=torch.bfloat16`` the bf16
+    program (:func:`make_forward`).  The forward is eager: pass it to
+    :func:`capture_forward` for one CUDA graph."""
+    model, raw_eeg, raw_spec = seeded(device, batch, seed, serving_dtype)
+    return make_forward(model, assume_finite=assume_finite,
+                        serving_dtype=serving_dtype), (raw_eeg, raw_spec)
 
 
 def explain_entry(device: Optional[Union[str, torch.device]] = None,
@@ -87,7 +155,7 @@ def explain_entry(device: Optional[Union[str, torch.device]] = None,
     ``no_grad``, NaN-safe EEG route): EEG (batch, 1, 37, 3000) and
     spectrograms (batch, 3, 400, 300).  ``make_forward``'s inference mode
     makes tensors that autograd cannot use, so this entry has its own."""
-    model, raw_eeg, raw_spec = _seeded(device, batch, seed)
+    model, raw_eeg, raw_spec = seeded(device, batch, seed)
     model.requires_grad_(False)
     with torch.no_grad():
         eeg_in, spec_in = preprocess_multimodal(raw_eeg, raw_spec)

@@ -4,6 +4,8 @@ reference checkpoint loads with ``load_state_dict``."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -15,7 +17,11 @@ class BatchNorm(nn.Module):
     """Inference BatchNorm over dim 1 with running statistics, eps 1e-5
     (torch's default, which the JAX package matches).  Holds exactly the
     reference's keys (``weight``, ``bias``, ``running_mean``,
-    ``running_var``); serving never updates them."""
+    ``running_var``); serving never updates them.
+
+    A bf16 input is normalised in float32 against the float32 statistics
+    and affine, then stored in bf16: flax's ``BatchNorm(dtype=bf16)``
+    promotes x to the parameters' float32 and casts the result."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -25,9 +31,9 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
+        return F.batch_norm(x.float(), self.running_mean, self.running_var,
                             self.weight, self.bias, training=False,
-                            eps=1e-5)
+                            eps=1e-5).to(x.dtype)
 
 
 class Attention(nn.Module):
@@ -48,6 +54,16 @@ class Attention(nn.Module):
         return weights @ v, weights
 
 
+def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` on ``x``'s type: a bf16 ``x`` meets bf16-rounded weights
+    and bias (float32 accumulation in cuDNN and oneDNN), stored in bf16;
+    the float32 parameters stay as they are."""
+    if x.dtype == conv.weight.dtype:
+        return conv(x)
+    return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                    conv.stride, conv.padding)
+
+
 class SpectrogramBlock(nn.Module):
     """3× conv3x3+ReLU → 2×2 pool → BN → dropout, plus a bilinear-resized
     1×1-conv skip connection.
@@ -56,13 +72,20 @@ class SpectrogramBlock(nn.Module):
     :mod:`..ops.cuda_specblock` when the module is in eval mode and the
     plane's sides are even (the JAX package's conditions); parameters are
     the same either way.  Gradients flow through the fused path by the
-    fused block's VJP (the unfused chain's autograd)."""
+    fused block's VJP (the unfused chain's autograd).
+
+    ``dtype=torch.bfloat16`` is the JAX block's bf16 mode: x is cast on
+    entry, the convs (the skip's 1×1 too) take bf16 operands with float32
+    accumulation and store bf16, the fused block runs its bf16 kernel and
+    BatchNorm stores bf16; the parameters stay float32."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 pool_type: str = "max", fused: bool = False):
+                 pool_type: str = "max", fused: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.pool_type = pool_type
         self.fused = fused
+        self.dtype = dtype
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         self.conv3 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
@@ -71,6 +94,8 @@ class SpectrogramBlock(nn.Module):
         self.conv1x1 = nn.Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         identity = x
         convs = (self.conv1, self.conv2, self.conv3)
         if (self.fused and not self.training
@@ -82,12 +107,12 @@ class SpectrogramBlock(nn.Module):
             x = y.permute(0, 3, 1, 2)
         else:
             for conv in convs:
-                x = F.relu(conv(x))
+                x = F.relu(_conv(conv, x))
             pool = F.max_pool2d if self.pool_type == "max" else F.avg_pool2d
             x = pool(x, 2)
         x = self.dropout(self.bn(x))
         if identity.shape != x.shape:
             identity = F.interpolate(identity, size=x.shape[2:],
                                      mode="bilinear", align_corners=False)
-            identity = self.conv1x1(identity)
+            identity = _conv(self.conv1x1, identity)
         return x + identity

@@ -4,6 +4,8 @@ global average pool → FC → log-softmax."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -20,27 +22,36 @@ class SpectrogramCNN(nn.Module):
 
     ``fused_blocks=N`` serves the first N blocks through the fused
     conv×3+pool kernel in eval mode; the parameters are those of the
-    unfused model."""
+    unfused model.
 
-    def __init__(self, fused_blocks: int = 0):
+    ``dtype=torch.bfloat16`` is the JAX model's bf16 serving mode: the
+    input is cast to bf16 and every block runs in bf16 (fused blocks on the
+    bf16 kernel); the global average pool is cast to float32, and the FC
+    and log-softmax run in float32.  The parameters and the state dict are
+    those of the float32 model."""
+
+    def __init__(self, fused_blocks: int = 0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         cin = 3
         for i, (w, p) in enumerate(zip(WIDTHS, POOLS)):
             self.add_module(f"block{i+1}", SpectrogramBlock(
-                cin, w, pool_type=p, fused=i < fused_blocks))
+                cin, w, pool_type=p, fused=i < fused_blocks, dtype=dtype))
             cin = w
         self.fc = nn.Linear(cin, N_CLASSES)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """Blocks 1-5: the feature map (B, 256, H', W') that Grad-CAM
-        reads (the JAX model's ``sow("feature_map")``)."""
+        reads (the JAX model's ``sow("feature_map")``), in ``dtype``."""
         for i in range(len(WIDTHS)):
             x = getattr(self, f"block{i+1}")(x)
         return x
 
     def head(self, a: torch.Tensor) -> torch.Tensor:
-        """Feature map → global average pool → FC → log-probs (B, 6)."""
-        return F.log_softmax(self.fc(a.mean(dim=(2, 3))), dim=-1)
+        """Feature map → global average pool (float32 accumulation, cast
+        to float32) → FC → log-probs (B, 6)."""
+        return F.log_softmax(self.fc(a.mean(dim=(2, 3)).float()), dim=-1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.features(x))

@@ -6,9 +6,12 @@ convs with bias and ReLU (Cin→C, C→C, C→C) and then a 2×2 stride-2 VALID
 max or avg pool, each stage stored in ``dtype`` (float32, or bf16 with
 float32 accumulation).  A CUDA tensor launches ``specblock_convpool``
 (``csrc/specblock.cu``), whose intermediates never leave shared memory; a
-CPU tensor takes :func:`_plain_convpool` (``F.conv2d`` ×3 + pool).  float32
-runs the tensor-core kernel (3xTF32 implicit GEMM) and bf16 the CUDA-core
-one.  Launches are counted in ``fused_specblock_convpool.launches``.
+CPU tensor takes :func:`_plain_convpool` (``F.conv2d`` ×3 + pool).  For
+Cout 8/16/32, float32 runs the tensor-core kernel (3xTF32 implicit GEMM)
+and bf16 the CUDA-core one; Cout 64/128/256 run the wide CUDA-core kernel
+in either type.  Launches are counted in
+``fused_specblock_convpool.launches``, and by kernel (:func:`kernel_name`)
+in ``fused_specblock_convpool.kernel_launches``.
 
 The function is differentiable, with the JAX package's custom VJP
 (``_fused_vjp_bwd``): the forward saves its primals, and the backward
@@ -29,8 +32,10 @@ import torch.nn.functional as F
 
 from .. import _build
 
-#: output widths the kernel is instantiated for
-KERNEL_COUTS = (8, 16, 32)
+#: output widths with a kernel instantiation: 8/16/32 on the 16×16-tile
+#: kernels, :data:`WIDE_COUTS` on the wide kernel
+KERNEL_COUTS = (8, 16, 32, 64, 128, 256)
+WIDE_COUTS = (64, 128, 256)
 MAX_BATCH = 65535
 
 _P = ctypes.c_void_p
@@ -53,6 +58,20 @@ def fused_applies(h: int, w: int) -> bool:
     rule of the JAX package's ``choose_fused_config`` (2×2 pool windows
     must tile the plane: h and w even)."""
     return h >= 2 and h % 2 == 0 and w % 2 == 0
+
+
+def kernel_name(cout: int, dtype: torch.dtype) -> str:
+    """The kernel a (Cout, storage type) launches: ``specblock_convpool``
+    (float32, the tensor-core kernel), ``specblock_convpool_bf16`` (bf16,
+    the CUDA-core kernel), ``specblock_convpool_wide`` and
+    ``specblock_convpool_wide_bf16`` (Cout in :data:`WIDE_COUTS`)."""
+    name = "specblock_convpool_wide" if cout in WIDE_COUTS \
+        else "specblock_convpool"
+    return name + ("_bf16" if dtype == torch.bfloat16 else "")
+
+
+KERNEL_NAMES = tuple(kernel_name(c, dt) for c in (32, 64)
+                     for dt in (torch.float32, torch.bfloat16))
 
 
 def _chain_convpool(x: torch.Tensor, kernels: Sequence[torch.Tensor],
@@ -124,6 +143,7 @@ def _launch(x, kernels, biases, pool, dtype) -> torch.Tensor:
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "specblock_convpool")
     fused_specblock_convpool.launches += 1
+    fused_specblock_convpool.kernel_launches[kernel_name(co, dtype)] += 1
     return out
 
 
@@ -164,4 +184,5 @@ def fused_specblock_convpool(x: torch.Tensor,
 
 
 fused_specblock_convpool.launches = 0
+fused_specblock_convpool.kernel_launches = dict.fromkeys(KERNEL_NAMES, 0)
 fused_specblock_convpool.backward_calls = 0

@@ -1,8 +1,13 @@
 """Bipolar-montage differencing as one (C_out, C_in) matrix product over the
-channel axis (counterpart of the JAX package's ``ops/montage.py``)."""
+channel axis (counterpart of the JAX package's ``ops/montage.py``).
+
+The montage matrices and the channel index are made on a device once per
+(device, dtype) and kept: a forward copies nothing from the host, which a
+captured CUDA graph requires (a pageable copy cannot be captured)."""
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,23 +36,37 @@ def montage_matrix(pairs: Sequence[Tuple[str, str]],
     return np.stack(rows)
 
 
-def apply_montage(x: torch.Tensor, matrix: np.ndarray) -> torch.Tensor:
-    """``x``: (..., C_in, T) → (..., C_out, T)."""
-    m = torch.as_tensor(matrix, dtype=x.dtype, device=x.device)
-    return torch.matmul(m, x)
+@functools.lru_cache(maxsize=None)
+def _matrix_on(keep_channels: Optional[Tuple[str, ...]], device: torch.device,
+               dtype: torch.dtype) -> torch.Tensor:
+    return torch.as_tensor(montage_matrix(C.MAP_FEATURES, keep_channels),
+                           dtype=dtype, device=device)
+
+
+def apply_montage(x: torch.Tensor,
+                  keep_channels: Optional[Tuple[str, ...]] = None
+                  ) -> torch.Tensor:
+    """``x``: (..., 20, T) → (..., C_out, T), the double-banana
+    :func:`montage_matrix` keeping ``keep_channels`` (all 20 if None)."""
+    return torch.matmul(_matrix_on(keep_channels, x.device, x.dtype), x)
 
 
 def bipolar_differential(x: torch.Tensor) -> torch.Tensor:
     """Append the 18 double-banana differentials to the 20 raw rows:
     (..., 20, T) → (..., 38, T)."""
-    return apply_montage(x, montage_matrix(C.MAP_FEATURES))
+    return apply_montage(x)
+
+
+@functools.lru_cache(maxsize=None)
+def _channel_index_on(device: torch.device) -> torch.Tensor:
+    n_cols = len(C.EEG_COLUMNS)
+    f2i = {name: i for i, name in enumerate(C.EEG_COLUMNS)}
+    idx = [f2i[ch] for ch in C.EEG_FEATURES] + list(
+        range(n_cols, n_cols + len(C.MAP_FEATURES)))
+    return torch.as_tensor(idx, device=device)
 
 
 def select_and_map_channels(x: torch.Tensor) -> torch.Tensor:
     """Keep the 19 scalp channels + the 18 trailing differential rows:
     (..., 38, T) → (..., 37, T)."""
-    n_cols = len(C.EEG_COLUMNS)
-    f2i = {name: i for i, name in enumerate(C.EEG_COLUMNS)}
-    idx = [f2i[ch] for ch in C.EEG_FEATURES] + list(
-        range(n_cols, n_cols + len(C.MAP_FEATURES)))
-    return x[..., torch.as_tensor(idx, device=x.device), :]
+    return x[..., _channel_index_on(x.device), :]

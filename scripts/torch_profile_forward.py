@@ -1,15 +1,19 @@
 """Where the time goes in the PyTorch port's serving forward on one card.
 
     python3 scripts/torch_profile_forward.py [--batch 256] [--route finite]
-                                             [--trace trace.json]
+        [--dtype float32|bfloat16] [--stem reassociated|canonical]
+        [--graph] [--trace trace.json]
 
-Runs the serving entry (``entry(device="cuda")``) with seeded weights,
-warms it up, then traces three forwards with ``torch.profiler``.  Prints
-the wall time per forward (host clock around a synchronised run), the
-device-busy share (summed kernel time over wall time), and the kernels
-grouped by name with their share of device time; ``--trace`` writes the
-Chrome trace.  float32 with TF32 off, as
-``chip_smoke.py`` runs it.
+Runs the serving forward (``entry.seeded`` + ``make_forward``, weights
+from seed 0) with the chosen program — float32 or the bf16 program, the
+EEGNet stem reassociated (as served) or canonical, eager or captured as
+one CUDA graph (``capture_forward``) — warms it up, then traces three
+forwards with ``torch.profiler``.  Prints the wall time per forward (host
+clock around a synchronised run), the device-busy share (summed kernel
+time over wall time), the kernels launched per forward, the share of
+cuDNN's FFT convolution, and the kernels grouped by name with their share
+of device time; ``--trace`` writes the Chrome trace.  float32 with TF32
+off, as ``chip_smoke.py`` runs it.
 """
 
 from __future__ import annotations
@@ -18,7 +22,6 @@ import argparse
 import os
 import subprocess
 import sys
-import time
 
 import torch
 
@@ -31,14 +34,22 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--route", choices=("finite", "nan"), default="finite")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32")
+    ap.add_argument("--stem", choices=("reassociated", "canonical"),
+                    default="reassociated")
+    ap.add_argument("--graph", action="store_true",
+                    help="profile the forward captured as one CUDA graph")
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--trace", help="write the Chrome trace to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_forward: no CUDA device", file=sys.stderr)
         return 1
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        profiling)
     from multimodal_brain_pattern_identification_xai_tpu_torch.entry import (
-        entry)
+        capture_forward, make_forward, seeded)
     from torch.profiler import ProfilerActivity, profile
 
     torch.backends.cudnn.allow_tf32 = False
@@ -47,35 +58,33 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    fwd, (eeg, spec) = entry(device="cuda", batch=args.batch,
-                             assume_finite=args.route == "finite")
-    for _ in range(2):
-        fwd(eeg, spec)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(REPS):
-            fwd(eeg, spec)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / REPS
-
-    by_name = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[ev.name] = (by_name.get(ev.name, 0.0)
-                                + ev.time_range.elapsed_us() / 1e3)
-    busy_ms = sum(by_name.values()) / REPS
-    print(f"[profile] {args.route} route B={args.batch}: wall "
-          f"{wall_ms:.3f} ms/forward (profiler on), device busy "
-          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
-          f"{100 * (1 - busy_ms / wall_ms):.1f}% [{card}]")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:args.top]:
-        per = ms / REPS
-        print(f"[profile] {per:9.3f} ms/forward {100 * per / busy_ms:5.1f}%  "
+    dtype = None if args.dtype == "float32" else torch.bfloat16
+    model, eeg, spec = seeded("cuda", args.batch, dtype=dtype)
+    model.eeg_model.fused_inference = args.stem == "reassociated"
+    fwd = make_forward(model, assume_finite=args.route == "finite",
+                       serving_dtype=dtype)
+    if args.graph:
+        fwd = capture_forward(fwd, (eeg, spec))
+    prof = profiling.profile_kernels(lambda: fwd(eeg, spec), reps=REPS)
+    busy = prof.busy_ms
+    fft = profiling.fft_conv_ms(prof)
+    print(f"[profile] {args.route} route, {args.dtype}, {args.stem} stem, "
+          f"{'graph' if args.graph else 'eager'}, B={args.batch}: wall "
+          f"{prof.wall_ms:.3f} ms/forward (profiler on), device busy "
+          f"{busy:.3f} ms ({100 * busy / prof.wall_ms:.1f}%), idle "
+          f"{100 * (1 - busy / prof.wall_ms):.1f}%; {prof.kernels:.0f} "
+          f"kernels + {prof.copies:.0f} copies a forward; cuDNN FFT conv "
+          f"{fft:.3f} ms ({100 * fft / busy:.1f}% of busy) [{card}]")
+    for name, ms in sorted(prof.kernel_ms.items(),
+                           key=lambda kv: -kv[1])[:args.top]:
+        print(f"[profile] {ms:9.3f} ms/forward {100 * ms / busy:5.1f}%  "
               f"{name[:110]}")
     if args.trace:
-        prof.export_chrome_trace(args.trace)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            fwd(eeg, spec)
+            torch.cuda.synchronize()
+        p.export_chrome_trace(args.trace)
     return 0
 
 

@@ -5,7 +5,9 @@ the card with ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 
 Bounds: tests/test_pallas_iir.py (rel 2e-4, filtfilt 1e-3),
 tests/test_pallas_specblock.py (f32 1e-5; bf16 max 0.03 / mean 0.003 at
-tensor scale; gradients 2e-4) and the duty probe's 1e-4 relative (bf16
+tensor scale; gradients 2e-4; the same for every width), 1e-3 on
+log-probs for whole models (chip_smoke.py's GPU-vs-CPU bound), 1e-6 for a
+captured forward against eager (the same kernels on the same inputs) and the duty probe's 1e-4 relative (bf16
 products are exact in float32; only the summation order differs).  The sequential plain scan runs on the CPU over a subset of
 lanes (it is a Python loop over time)."""
 
@@ -13,6 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+from multimodal_brain_pattern_identification_xai_tpu_torch.entry import (
+    capture_forward, entry)
+from multimodal_brain_pattern_identification_xai_tpu_torch.models import (
+    SpectrogramCNN, seeded_state_dict)
 from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
     cuda_duty, cuda_iir, cuda_specblock, iir)
 
@@ -177,18 +183,19 @@ def test_misaligned_input(dev):
     _held(coeffs, flat.cpu(), got, rolldec=True, step=4)
 
 
-def _block_args(cin, cout, h, w, b=2, seed=0):
+def _block_args(cin, cout, h, w, b=2, seed=0, wscale=0.2):
     rng = np.random.default_rng(seed)
     f = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32)
     x = f(b, h, w, cin)
-    ks = [f(3, 3, ci, cout) * 0.2 for ci in (cin, cout, cout)]
+    ks = [f(3, 3, ci, cout) * wscale for ci in (cin, cout, cout)]
     bs = [f(cout) * 0.1 for _ in range(3)]
     return x, ks, bs
 
 
-def _case(dtype, cin, cout, h, w, pool, batch=2, scale=1.0, id=None):
+def _case(dtype, cin, cout, h, w, pool, batch=2, scale=1.0, id=None,
+          wscale=0.2):
     dt = "dtype0" if dtype == torch.float32 else "dtype1"
-    return pytest.param(dtype, cin, cout, h, w, pool, batch, scale,
+    return pytest.param(dtype, cin, cout, h, w, pool, batch, scale, wscale,
                         id=f"{id or f'{cin}-{cout}-{h}-{w}-{pool}'}-{dt}")
 
 
@@ -208,21 +215,32 @@ _SPECBLOCK_CASES = [
     # large inputs: a missing lo term of the 3xTF32 split shows at once
     _case(torch.float32, 16, 32, 200, 150, "avg", scale=100.0,
           id="block2-x100"),
+] + [
+    # the wide kernel (blocks 3-5's widths), on the planes of a 64x48 input
+    # and on one plane wider than its tile (8x8; 4x4 at Cout 256); weights
+    # at the He scale, so activations stay O(1) through fan-ins up to 2304
+    _case(dt, cin, cout, h, w, pool, wscale=float(np.sqrt(2 / (9 * cin))))
+    for cin, cout in ((32, 64), (64, 128), (128, 256))
+    for h, w in ((16, 12), (8, 6), (20, 18))
+    for pool in ("max", "avg")
+    for dt in (torch.float32, torch.bfloat16)
 ]
 
 
-@pytest.mark.parametrize("dtype,cin,cout,h,w,pool,batch,scale",
+@pytest.mark.parametrize("dtype,cin,cout,h,w,pool,batch,scale,wscale",
                          _SPECBLOCK_CASES)
 def test_specblock_matches_plain(dev, dtype, cin, cout, h, w, pool, batch,
-                                 scale):
-    x, ks, bs = _block_args(cin, cout, h, w, b=batch)
+                                 scale, wscale):
+    x, ks, bs = _block_args(cin, cout, h, w, b=batch, wscale=wscale)
     xd, kd, bd = (x * scale).to(dev), [k.to(dev) for k in ks], [
         b.to(dev) for b in bs]
-    n0 = cuda_specblock.fused_specblock_convpool.launches
-    got = cuda_specblock.fused_specblock_convpool(xd, kd, bd, pool=pool,
-                                                  dtype=dtype).float()
+    fused = cuda_specblock.fused_specblock_convpool
+    name = cuda_specblock.kernel_name(cout, dtype)
+    n0, k0 = fused.launches, fused.kernel_launches[name]
+    got = fused(xd, kd, bd, pool=pool, dtype=dtype).float()
     torch.cuda.synchronize()
-    assert cuda_specblock.fused_specblock_convpool.launches == n0 + 1
+    assert fused.launches == n0 + 1
+    assert fused.kernel_launches[name] == k0 + 1
     truth = cuda_specblock._plain_convpool(xd, kd, bd, pool,
                                            torch.float32).float()
     assert got.shape == truth.shape == (batch, h // 2, w // 2, cout)
@@ -257,6 +275,52 @@ def test_specblock_vjp_matches_unfused_chain(dev, pool):
     for a, b in zip(got, want):
         assert a.shape == b.shape
         assert _rel(a, b) < 2e-4
+
+
+def test_specblock_other_width_raises(dev):
+    """A width with no instantiation raises and names the widths taken."""
+    x, ks, bs = _block_args(8, 48, 8, 8)
+    with pytest.raises(ValueError, match="64, 128, 256"):
+        cuda_specblock.fused_specblock_convpool(
+            x.to(dev), [k.to(dev) for k in ks], [b.to(dev) for b in bs])
+
+
+@pytest.mark.parametrize("fused_blocks", [3, 4])
+def test_speccnn_fused_wide_blocks_match_unfused(dev, fused_blocks):
+    """SpectrogramCNN with blocks 3-4 fused (Cout 64 on 16x12, 128 on 8x6)
+    against the unfused model on a 64x48 input: log-probs within 1e-3, the
+    GPU-vs-CPU bound of chip_smoke.py (float32, sums in other orders)."""
+    fused_m = SpectrogramCNN(fused_blocks=fused_blocks)
+    fused_m.load_state_dict(seeded_state_dict(fused_m, 4))
+    plain_m = SpectrogramCNN()
+    plain_m.load_state_dict(fused_m.state_dict())
+    fused_m.to(dev).eval()
+    plain_m.to(dev).eval()
+    x = _signal((2, 3, 64, 48), 1.0).to(dev)
+    fused = cuda_specblock.fused_specblock_convpool
+    n0 = fused.kernel_launches["specblock_convpool_wide"]
+    with torch.no_grad():
+        got, want = fused_m(x), plain_m(x)
+    torch.cuda.synchronize()
+    assert fused.kernel_launches["specblock_convpool_wide"] == \
+        n0 + fused_blocks - 2
+    assert float((got - want).abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_captured_forward_equals_eager(dev, dtype):
+    """The serving forward captured as one CUDA graph gives the eager
+    forward's log-probs (max abs 1e-6) on two different inputs replayed
+    through the same graph."""
+    fwd, (eeg, spec) = entry(device="cuda", batch=2, assume_finite=True,
+                             serving_dtype=None if dtype == torch.float32
+                             else dtype)
+    graph = capture_forward(fwd, (eeg, spec))
+    for shift in (0.0, 3.0):
+        e, s = eeg + shift, spec * (1 + shift)
+        got, want = graph(e, s), fwd(e, s)
+        assert got.shape == (2, 6) and bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= 1e-6
 
 
 @pytest.mark.parametrize("co,k", cuda_duty.SHAPES)

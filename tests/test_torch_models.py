@@ -5,8 +5,9 @@ tests/torch_ref.py (non-trivial BatchNorm statistics), are imported into
 flax with the JAX package's ``torch_import`` and carried back to the port
 with ``jax_variables_to_state_dict``.  Bound: rtol = atol = 2e-4, the JAX
 package's own flax-vs-torch logit bound (tests/test_aux_components.py);
-it also covers the port's canonical-order EEGNet stem against flax's
-reassociated inference stem (those agree to 1e-5, tests/test_models.py).
+it holds both of the port's EEGNet stems (reassociated and canonical)
+against flax's reassociated inference stem (flax's two orders agree to
+1e-5, tests/test_models.py).
 """
 
 import jax
@@ -38,18 +39,63 @@ def _close(got, want):
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
 
 
-def test_eegnet_attention_matches_flax(rng):
+@pytest.mark.parametrize("fused_inference", [True, False])
+def test_eegnet_attention_matches_flax(rng, fused_inference):
     sd, _ = make_torch_eegnet_attention(seed=3, samples=SAMPLES)
     flax_m = jm.EEGNetAttentionRegularized(samples=SAMPLES)
     x = rng.standard_normal((3, 1, 37, SAMPLES)).astype(np.float32)
     v = _flax_vars(flax_m, sd, jm.load_torch_eegnet_attention_state_dict, x)
-    port = _port(tm.EEGNetAttentionRegularized(samples=SAMPLES), v)
+    port = _port(tm.EEGNetAttentionRegularized(
+        samples=SAMPLES, fused_inference=fused_inference), v)
     with torch.no_grad():
         got = port(torch.from_numpy(x)).numpy()
     _close(got, np.asarray(flax_m.apply(v, jnp.asarray(x))))
 
 
-@pytest.mark.parametrize("fused_blocks", [0, 2])
+def _stem_pair(seed=3):
+    """The port's EEGNet with the reference weights of ``seed`` and
+    BatchNorm 1 moved off identity, plus an input (2, 1, 37, SAMPLES)."""
+    sd, _ = make_torch_eegnet_attention(seed=seed, samples=SAMPLES)
+    m = tm.EEGNetAttentionRegularized(samples=SAMPLES)
+    m.load_state_dict(sd)
+    x = np.random.default_rng(seed).standard_normal(
+        (2, 1, 37, SAMPLES)).astype(np.float32)
+    return m.eval(), torch.from_numpy(x)
+
+
+def test_eegnet_stem_reassociated_matches_canonical():
+    """The port's two stem orders agree on the feature map and the
+    log-probs (flax's own two orders: 1e-5, tests/test_models.py)."""
+    m, x = _stem_pair()
+    with torch.no_grad():
+        feats, logp = m.features(x), m(x)
+        m.fused_inference = False
+        np.testing.assert_allclose(feats.numpy(), m.features(x).numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(logp.numpy(), m(x).numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_eegnet_training_keeps_canonical_stem():
+    """In training mode the stem runs in canonical order: with dropout off
+    (BatchNorm always reads its running statistics here) the training
+    forward is bit-equal to the canonical eval forward, and the
+    reassociated path is never entered."""
+    m, x = _stem_pair()
+    m.dropout.p = 0.0
+    calls = []
+    reassociated = m._stem_reassociated
+    m._stem_reassociated = lambda t: calls.append(1) or reassociated(t)
+    with torch.no_grad():
+        train_out = m.train()(x)
+        assert not calls
+        m.eval()(x)
+        assert calls
+        m.fused_inference = False
+        assert torch.equal(train_out, m(x))
+
+
+@pytest.mark.parametrize("fused_blocks", [0, 2, 3, 4, 5])
 def test_speccnn_matches_flax(rng, fused_blocks):
     sd, _ = make_torch_speccnn(seed=4)
     x = rng.standard_normal((2, 3, 64, 48)).astype(np.float32)

@@ -16,7 +16,7 @@ from multimodal_brain_pattern_identification_xai_tpu import ops as jops
 from multimodal_brain_pattern_identification_xai_tpu_torch import config as TC
 from multimodal_brain_pattern_identification_xai_tpu_torch import models as tm
 from multimodal_brain_pattern_identification_xai_tpu_torch.entry import (
-    build_model, make_forward)
+    build_model, capture_forward, make_forward)
 
 SAMPLES, KERN = 512, 16
 
@@ -75,3 +75,13 @@ def test_slice_matches_jax(assume_finite):
     got = forward(torch.from_numpy(raw_eeg), torch.from_numpy(raw_spec))
     assert got.shape == (2, 6) and torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+
+
+def test_capture_forward_returns_forward_on_cpu():
+    """``capture_forward`` captures CUDA graphs only: on the CPU it hands
+    back the eager forward itself."""
+    forward = make_forward(build_model(samples=SAMPLES, kern_length=KERN),
+                           signal=TC.SignalConfig(fixed_length=SAMPLES,
+                                                  image_size=(64, 48)))
+    args = (torch.zeros(1, 20, 2000), torch.zeros(1, 64, 48))
+    assert capture_forward(forward, args) is forward
