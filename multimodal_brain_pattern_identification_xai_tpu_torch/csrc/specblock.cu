@@ -50,11 +50,39 @@
 // conv3 plane keeps an odd pitch (257) for the pool pass, which reads it
 // channel-fastest.  x and the weights are read as float4 (16-byte aligned).
 //
-// bf16 storage: specblock_kernel<C, bf16>, a direct convolution on the
-// CUDA cores.  A thread owns one output pixel and all C output channels in
-// registers and reads the weights as warp-uniform float4 broadcasts.  Every
-// stage's f32 bias+ReLU result is rounded to bf16, and the avg pool sums in
-// f32 and divides by 4, as _xla_chain_convpool and the TPU kernel do.
+// bf16 storage: specblock_bf16_tc_kernel<C>, an implicit GEMM per conv
+// stage on the tensor cores (mma.sync m16n8k16 bf16, f32 accumulators),
+// with the tiling above.  Activations live in shared memory as planes of
+// channel pairs: word (p, pos) holds channels 2p (low half) and 2p+1 of a
+// position as bf16x2, the odd channel of an odd Cin zero.  K runs tap-major
+// over the channel pairs of a tap, j = tap*ceil(Cin/2) + p, padded with
+// zero weights to a multiple of 4 pairs.  A k16 step covers 8 pairs:
+// lane (g, t) loads A fragment a0 = pair j0+t of row g's position plus the
+// tap offset, one 32-bit load (a2: pair j0+4+t; a1, a3: row g+8), and B
+// fragment b0 = weight word (j0+t, n0+g).  What is left over (C = 8: 36
+// pairs a stage, 4 k16 steps) takes one m16n8k8 step, so K is not padded
+// to 16.  For conv2 and conv3 (Cin = C, pairs a tap a multiple of 4) each
+// half step's 4 pairs share a tap and the offsets are compile-time; conv1
+// (any Cin) reads them from a per-CTA table.  Block 1's Cin = 3 thus runs
+// on the tensor cores too, as 2 pairs a tap (one zero channel): 20 pair
+// rows (K = 40) for 27 real products, two k16 steps and one k8 step.
+// Each stage's weights are packed once per call on the host as bf16x2
+// words [tap][ci-pair][co] (ops/cuda_specblock._pack_bf16_pairs) and
+// copied into shared memory with cp.async, row pitch wpitch(C) (the B
+// loads' banks as for f32): conv1's and conv2's are in flight
+// while the input stages, conv3's while conv2 computes, so one barrier
+// separates two stages.  A stage's accumulators c0, c1 are channels 2t,
+// 2t+1 of one position, i.e. one pair word: bias + ReLU in f32, zero
+// outside the image, rounded to bf16 and stored as that word.  conv3 is
+// stored as f32 planes (pitch kP3) for pool_store, so every stage is
+// rounded to bf16 and the avg pool sums in f32 and divides by 4, as
+// _xla_chain_convpool and the TPU kernel do.  No hi/lo split: a bf16 x
+// bf16 product is exact in f32, and the truncating accumulation of the
+// tensor cores (see above) errs by ~2^-23 of a partial sum, far below the
+// 2^-8 rounding of every stage's bf16 result.  Pair-plane pitches are the
+// f32 kernel's (488, 424, 328 = 8 mod 32 words), so a fragment's 4 pairs x
+// 8 rows hit distinct banks; __launch_bounds__(256, 2) and ~100 KB of
+// shared memory (block 2) fit two CTAs on an SM.
 //
 // Widths 64, 128 and 256 (blocks 3-5; both storage types):
 // specblock_wide_kernel<C, T>, a direct convolution on the CUDA cores.
@@ -66,17 +94,20 @@
 // one output position and kGroup = 16 output channels; consecutive threads
 // take consecutive positions of one channel group, so a warp's weight
 // loads are one broadcast address and its plane reads are contiguous.
-// Rounding as in specblock_kernel (bf16: every stage rounded, avg pool
-// summed in f32).  Halo recompute: conv1 (T+4)^2 / T^2 = 2.25x at T = 8,
+// Rounding as in the bf16 kernel (every stage rounded, avg pool summed in
+// f32).  Halo recompute: conv1 (T+4)^2 / T^2 = 2.25x at T = 8,
 // 4x at T = 4; bound on an H100 by f32 operations at 67 TFLOP/s.
 //
-// Shared memory per CTA (specblock_smem_bytes), f32 words:
+// Shared memory per CTA (specblock_smem_bytes), 32-bit words:
 //   f32:  2 * 9*max(Cin,C)*wpitch(C) (weights hi + lo) + 3C (bias)
 //         + max(Cin*488, C*328) + max(C*424, C*257)
 //         block 2 (Cin=16, C=32): 188,800 B (1 CTA per SM); block 1 (Cin=3,
 //         C=16): 75,968 B.
-//   bf16: 9*max(Cin,C)*C + 3C + max(Cin*484, C*324) + max(C*400, C*257)
-//         block 2: 129,920 B; block 1: 55,744 B.
+//   bf16: (max(R(Cin), R(C)) + R(C)) * wpitch(C) (conv1/conv3 and conv2
+//         weight words) + 3C (bias) + R(Cin) (conv1's offset table)
+//         + max(ceil(Cin/2)*488, C/2*328) + max(C/2*424, C*257), with
+//         R(n) = 9*ceil(n/2) rounded up to 4 pair rows
+//         block 2: 100,640 B (2 CTAs per SM); block 1: 41,040 B.
 //   wide: 3C + max(Cin*(T+6)^2, C*(T+2)^2) + max(C*(T+4)^2, C*(T^2+1)),
 //         T = wide_tile(C): (32 -> 64) 63,232 B, (64 -> 128) 126,464 B,
 //         (128 -> 256) 119,808 B.
@@ -89,10 +120,14 @@
 // (f32 on the CUDA cores: 4.6 and 5.3 ms at 67 TFLOP/s).  Both are bound by
 // operations.  Halo recompute (~1.56x on conv1, ~1.27x on conv2) and M
 // padding add ~1.24x on block 2; one CTA per SM at block 2's budget leaves
-// the staging loads and the __syncthreads between stages unhidden.
+// the staging loads and the __syncthreads between stages unhidden.  In
+// bf16 the same useful work is 0.31 and 0.36 ms at 989 TFLOP/s; there the
+// A fragments bound it first: every k16 step loads 4 words per m-tile for
+// C/8 MMAs, ~2 shared-memory loads per MMA at C = 16 and 32.
 
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,21 +167,6 @@ __device__ __forceinline__ float round_to(float v) {
 
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
-// --- CUDA-core kernel's shared-memory layout (bf16) ----------------------
-__host__ __device__ inline int weight_words(int cin, int c) {
-  return 9 * imax(cin, c) * c;
-}
-__host__ __device__ inline int buf0_words(int cin, int c) {
-  return imax(cin * kR0 * kR0, c * kR2 * kR2);
-}
-__host__ __device__ inline int bufa_words(int c) {
-  return imax(c * kR1 * kR1, c * kP3);
-}
-inline size_t smem_bytes(int cin, int c) {
-  return sizeof(float) * static_cast<size_t>(weight_words(cin, c) + 3 * c +
-                                             buf0_words(cin, c) + bufa_words(c));
-}
-
 // --- tensor-core kernel's shared-memory layout (f32) ---------------------
 __host__ __device__ constexpr int wpitch(int c) { return c == 8 ? 8 : c + 8; }
 __host__ __device__ inline int tc_weight_words(int cin, int c) {  // hi or lo
@@ -162,6 +182,29 @@ inline size_t tc_smem_bytes(int cin, int c) {
   return sizeof(float) *
          static_cast<size_t>(2 * tc_weight_words(cin, c) + 3 * c +
                              tc_buf0_words(cin, c) + tc_bufa_words(c));
+}
+
+// --- bf16 tensor-core kernel's shared-memory layout (32-bit words) -------
+// pair rows of a stage's packed weights: 9 taps x ceil(cin/2) channel
+// pairs, padded to a multiple of 4 (one m16n8k8 step); the same rule as
+// ops/cuda_specblock._pack_bf16_pairs
+__host__ __device__ constexpr int bf16_rows(int cin) {
+  return (9 * ((cin + 1) / 2) + 3) / 4 * 4;
+}
+__host__ __device__ inline int bf16_wa_words(int cin, int c) {  // conv1, conv3
+  return imax(bf16_rows(cin), bf16_rows(c)) * wpitch(c);
+}
+__host__ __device__ inline int bf16_buf0_words(int cin, int c) {
+  return imax((cin + 1) / 2 * kP0, c / 2 * kP2);
+}
+__host__ __device__ inline int bf16_bufa_words(int c) {
+  return imax(c / 2 * kP1, c * kP3);
+}
+inline size_t bf16_smem_bytes(int cin, int c) {
+  return sizeof(uint32_t) *
+         static_cast<size_t>(bf16_wa_words(cin, c) + bf16_rows(c) * wpitch(c) +
+                             3 * c + bf16_rows(cin) + bf16_buf0_words(cin, c) +
+                             bf16_bufa_words(c));
 }
 
 // Input tile (edge R0 - 6) with a 3-pixel halo into channel-planar shared
@@ -249,43 +292,6 @@ __device__ __forceinline__ void pool_store(const float* __restrict__ src,
     out[((static_cast<size_t>(b) * ho + oy) * wo + ox) * C + co] =
         store_t<T>(r);
   }
-}
-
-template <int C, typename T>
-__global__ void __launch_bounds__(kThreads)
-specblock_kernel(const T* __restrict__ x, const float* __restrict__ w1,
-                 const float* __restrict__ w2, const float* __restrict__ w3,
-                 const float* __restrict__ bias, T* __restrict__ out, int H,
-                 int W, int cin, int tiles_x, int pool_max) {
-  extern __shared__ float4 smem4[];
-  float* sw = reinterpret_cast<float*>(smem4);
-  float* sb = sw + weight_words(cin, C);
-  float* buf0 = sb + 3 * C;
-  float* bufa = buf0 + buf0_words(cin, C);
-
-  const int b = blockIdx.y;
-  const int y0 = (blockIdx.x / tiles_x) * kTile;
-  const int x0 = (blockIdx.x % tiles_x) * kTile;
-  const int tid = threadIdx.x;
-
-  stage_input(x, buf0, kR0 * kR0, b, y0, x0, H, W, cin);
-  for (int i = tid; i < 3 * C; i += blockDim.x) sb[i] = bias[i];
-  for (int i = tid; i < 9 * cin * C; i += blockDim.x) sw[i] = w1[i];
-  __syncthreads();
-  conv_stage<C, T>(buf0, kR0, kR0 * kR0, cin, sw, sb, bufa, kR1 * kR1, 2,
-                   y0, x0, H, W);
-  __syncthreads();
-  for (int i = tid; i < 9 * C * C; i += blockDim.x) sw[i] = w2[i];
-  __syncthreads();
-  conv_stage<C, T>(bufa, kR1, kR1 * kR1, C, sw, sb + C, buf0, kR2 * kR2, 1,
-                   y0, x0, H, W);
-  __syncthreads();
-  for (int i = tid; i < 9 * C * C; i += blockDim.x) sw[i] = w3[i];
-  __syncthreads();
-  conv_stage<C, T>(buf0, kR2, kR2 * kR2, C, sw, sb + 2 * C, bufa, kP3, 0,
-                   y0, x0, H, W);
-  __syncthreads();
-  pool_store<C, T>(bufa, out, b, y0, x0, H, W, pool_max);
 }
 
 // --- wide path (C >= 64, CUDA cores) -------------------------------------
@@ -639,13 +645,289 @@ specblock_tc_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   pool_store<C, float>(bufa, out, b, y0, x0, H, W, pool_max);
 }
 
-template <typename T>
-using Kernel = void (*)(const T*, const float*, const float*, const float*,
+// --- bf16 tensor-core path -----------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// d += a * b, m16n8k16 (8 channel pairs), bf16 inputs, f32 accumulators
+__device__ __forceinline__ void mma_bf16_k16(float (&d)[4], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint32_t b0,
+                                             uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// d += a * b, m16n8k8 (4 channel pairs)
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], uint32_t a0,
+                                            uint32_t a1, uint32_t b0) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Word offset of pair row j (tap-major, CP pairs a tap) from a position's
+// (0, 0) tap, over planes of pitch SP and edge RIN
+template <int CP, int RIN, int SP>
+__host__ __device__ constexpr int pair_off(int j) {
+  return (j % CP) * SP + (j / CP / 3) * RIN + (j / CP) % 3;
+}
+
+// x tile (edge kR0, with the 3-pixel halo) into planes of channel pairs,
+// pitch kP0: zero outside the image and in the pad channel of an odd cin;
+// 16-byte loads (4 pairs) when cin % 8 == 0 (x 16-byte aligned).
+__device__ __forceinline__ void stage_input_pairs(
+    const __nv_bfloat16* __restrict__ x, uint32_t* __restrict__ buf, int b,
+    int y0, int x0, int H, int W, int cin) {
+  if (cin % 8 == 0) {
+    const int c8 = cin / 8;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < kR0 * kR0 * c8; i += blockDim.x) {
+      const int q = i % c8, p = i / c8;
+      const int gy = y0 - 3 + p / kR0, gx = x0 - 3 + p % kR0;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+        v = *reinterpret_cast<const uint4*>(
+            x + ((static_cast<size_t>(b) * H + gy) * W + gx) * cin + 8 * q);
+      uint32_t* d = buf + 4 * q * kP0 + p;
+      d[0] = v.x;
+      d[kP0] = v.y;
+      d[2 * kP0] = v.z;
+      d[3 * kP0] = v.w;
+    }
+    return;
+  }
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+  const int cp = (cin + 1) / 2;
+  for (int i = threadIdx.x; i < kR0 * kR0 * cp; i += blockDim.x) {
+    const int pr = i % cp, p = i / cp;
+    const int gy = y0 - 3 + p / kR0, gx = x0 - 3 + p % kR0;
+    uint32_t v = 0u;
+    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+      const unsigned short* s =
+          xs + ((static_cast<size_t>(b) * H + gy) * W + gx) * cin + 2 * pr;
+      v = s[0];
+      if (2 * pr + 1 < cin) v |= static_cast<uint32_t>(s[1]) << 16;
+    }
+    buf[pr * kP0 + p] = v;
+  }
+}
+
+// Packed weight words [rows][C] (16-byte aligned) into shared memory at row
+// pitch wpitch(C), with cp.async as one committed group.
+template <int C>
+__device__ __forceinline__ void stage_pairs_async(
+    const uint32_t* __restrict__ w, int rows, uint32_t* __restrict__ sw) {
+  constexpr int Q = C / 4;   // 16-byte chunks a row
+  for (int i = threadIdx.x; i < rows * Q; i += blockDim.x)
+    cp_async16(sw + (i / Q) * wpitch(C) + 4 * (i % Q), w + 4 * i);
+  cp_async_commit();
+}
+
+// NM (1 or 2) m-tiles of 16 output positions from `mt`, all C/8 n-tiles,
+// over `rows` pair rows of K (a multiple of 4): k16 steps, then one k8 step
+// for a remainder of 4.  CP > 0: CP pairs a tap (CP % 4 == 0), offsets at
+// compile time, lane t's pair plane folded into its row pointers; CP == 0:
+// offsets from the table `tbl` (one int a pair row).  Fragment maps
+// (g = lane/4, t = lane%4): a0..a3 = pairs (row g, j0+t), (g+8, j0+t),
+// (g, j0+4+t), (g+8, j0+4+t); b0, b1 = pairs (j0+t, n=g), (j0+4+t, g);
+// c0..c3 = (g, co 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1).  Out = uint32_t:
+// dst is pair planes (pitch DP), one word per (position, pair 4n+t);
+// Out = float: C planes of f32 holding the bf16-rounded values.
+template <int C, int NM, int RIN, int SP, int DP, int CP, typename Out>
+__device__ __forceinline__ void bf16_tiles(
+    int mt, const uint32_t* __restrict__ src, int rows,
+    const int* __restrict__ tbl, const uint32_t* __restrict__ sw,
+    const float* __restrict__ sb, Out* __restrict__ dst, int halo, int y0,
+    int x0, int H, int W) {
+  constexpr int ROUT = RIN - 2, M = ROUT * ROUT, NT = C / 8;
+  constexpr int WP = wpitch(C);
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+
+  const uint32_t* pa[NM][2];   // row g / g+8 of each m-tile
+#pragma unroll
+  for (int i = 0; i < NM; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = min((mt + i) * 16 + g + 8 * h, M - 1);   // clamp pad rows
+      pa[i][h] = src + (CP > 0 ? t * SP : 0) + (m / ROUT) * RIN + m % ROUT;
+    }
+  const uint32_t* wb = sw + t * WP + g;
+
+  float acc[NM][NT][4];
+#pragma unroll
+  for (int i = 0; i < NM; ++i)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][n][j] = 0.f;
+
+  // one k16 step at pair row j0; o0, o1 = this lane's offsets of pairs
+  // j0+t and j0+4+t
+  auto step16 = [&](int j0, int o0, int o1) {
+    uint32_t b0[NT], b1[NT];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      b0[n] = wb[j0 * WP + n * 8];
+      b1[n] = wb[(j0 + 4) * WP + n * 8];
+    }
+#pragma unroll
+    for (int i = 0; i < NM; ++i) {
+      const uint32_t a0 = pa[i][0][o0], a1 = pa[i][1][o0];
+      const uint32_t a2 = pa[i][0][o1], a3 = pa[i][1][o1];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        mma_bf16_k16(acc[i][n], a0, a1, a2, a3, b0[n], b1[n]);
+    }
+  };
+  auto step8 = [&](int j0, int o0) {
+#pragma unroll
+    for (int i = 0; i < NM; ++i) {
+      const uint32_t a0 = pa[i][0][o0], a1 = pa[i][1][o0];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        mma_bf16_k8(acc[i][n], a0, a1, wb[j0 * WP + n * 8]);
+    }
+  };
+  if constexpr (CP > 0) {
+    constexpr int R = 9 * CP;
+#pragma unroll
+    for (int j0 = 0; j0 + 8 <= R; j0 += 8)
+      step16(j0, pair_off<CP, RIN, SP>(j0), pair_off<CP, RIN, SP>(j0 + 4));
+    if constexpr (R % 8 != 0) step8(R - 4, pair_off<CP, RIN, SP>(R - 4));
+  } else {
+#pragma unroll 2
+    for (int j0 = 0; j0 + 8 <= rows; j0 += 8)
+      step16(j0, tbl[j0 + t], tbl[j0 + 4 + t]);
+    if (rows % 8) step8(rows - 4, tbl[rows - 4 + t]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < NM; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = (mt + i) * 16 + g + 8 * h;
+      if (m >= M) continue;
+      const int py = m / ROUT, px = m % ROUT;
+      const int gy = y0 - halo + py, gx = x0 - halo + px;
+      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int co = n * 8 + 2 * t;
+        const float r0 = inside ? fmaxf(acc[i][n][2 * h] + sb[co], 0.f) : 0.f;
+        const float r1 =
+            inside ? fmaxf(acc[i][n][2 * h + 1] + sb[co + 1], 0.f) : 0.f;
+        if constexpr (std::is_same<Out, uint32_t>::value) {
+          dst[(n * 4 + t) * DP + m] = pack_bf16(r0, r1);
+        } else {
+          dst[co * DP + m] = round_to<__nv_bfloat16>(r0);
+          dst[(co + 1) * DP + m] = round_to<__nv_bfloat16>(r1);
+        }
+      }
+    }
+}
+
+// One conv stage on the tensor cores, bf16: src pair planes (edge RIN,
+// pitch SP) -> dst (pair planes of pitch DP, or f32 planes); warp w owns
+// m-tiles [w*MT/8, (w+1)*MT/8), taken in pairs so a B fragment serves two.
+template <int C, int RIN, int SP, int DP, int CP, typename Out>
+__device__ __forceinline__ void bf16_stage(const uint32_t* __restrict__ src,
+                                           int rows,
+                                           const int* __restrict__ tbl,
+                                           const uint32_t* __restrict__ sw,
+                                           const float* __restrict__ sb,
+                                           Out* __restrict__ dst, int halo,
+                                           int y0, int x0, int H, int W) {
+  constexpr int MT = ((RIN - 2) * (RIN - 2) + 15) / 16;
+  const int warp = threadIdx.x / 32;
+  const int end = (warp + 1) * MT / kWarps;
+  int mt = warp * MT / kWarps;
+  for (; mt + 1 < end; mt += 2)
+    bf16_tiles<C, 2, RIN, SP, DP, CP>(mt, src, rows, tbl, sw, sb, dst, halo,
+                                      y0, x0, H, W);
+  if (mt < end)
+    bf16_tiles<C, 1, RIN, SP, DP, CP>(mt, src, rows, tbl, sw, sb, dst, halo,
+                                      y0, x0, H, W);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, 2)
+specblock_bf16_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                         const uint32_t* __restrict__ w1,
+                         const uint32_t* __restrict__ w2,
+                         const uint32_t* __restrict__ w3,
+                         const float* __restrict__ bias,
+                         __nv_bfloat16* __restrict__ out, int H, int W,
+                         int cin, int tiles_x, int pool_max) {
+  constexpr int CP = C / 2, RC = bf16_rows(C);   // conv2/conv3: 9*C/2 rows
+  const int rows1 = bf16_rows(cin);
+  extern __shared__ uint4 smem_u4[];
+  uint32_t* swa = reinterpret_cast<uint32_t*>(smem_u4);   // conv1, conv3
+  uint32_t* swb = swa + bf16_wa_words(cin, C);             // conv2
+  float* sb = reinterpret_cast<float*>(swb + RC * wpitch(C));
+  int* tbl = reinterpret_cast<int*>(sb + 3 * C);
+  uint32_t* buf0 = reinterpret_cast<uint32_t*>(tbl + rows1);
+  uint32_t* bufa = buf0 + bf16_buf0_words(cin, C);
+
+  const int b = blockIdx.y;
+  const int y0 = (blockIdx.x / tiles_x) * kTile;
+  const int x0 = (blockIdx.x % tiles_x) * kTile;
+  const int tid = threadIdx.x;
+
+  stage_pairs_async<C>(w1, rows1, swa);
+  stage_pairs_async<C>(w2, RC, swb);
+  stage_input_pairs(x, buf0, b, y0, x0, H, W, cin);
+  for (int i = tid; i < 3 * C; i += blockDim.x) sb[i] = bias[i];
+  const int cp = (cin + 1) / 2;
+  for (int j = tid; j < rows1; j += blockDim.x) {   // pad rows: weights 0
+    const int tap = j / cp;
+    tbl[j] = j < 9 * cp ? (j % cp) * kP0 + (tap / 3) * kR0 + tap % 3 : 0;
+  }
+  cp_async_wait<1>();             // conv1's weights (conv2's may still fly)
+  __syncthreads();
+  bf16_stage<C, kR0, kP0, kP1, 0>(buf0, rows1, tbl, swa, sb, bufa, 2, y0, x0,
+                                  H, W);
+  cp_async_wait<0>();
+  __syncthreads();
+  stage_pairs_async<C>(w3, RC, swa);   // lands while conv2 computes
+  bf16_stage<C, kR1, kP1, kP2, CP>(bufa, RC, nullptr, swb, sb + C, buf0, 1,
+                                   y0, x0, H, W);
+  cp_async_wait<0>();
+  __syncthreads();
+  float* c3 = reinterpret_cast<float*>(bufa);
+  bf16_stage<C, kR2, kP2, kP3, CP>(buf0, RC, nullptr, swa, sb + 2 * C, c3, 0,
+                                   y0, x0, H, W);
+  __syncthreads();
+  pool_store<C, __nv_bfloat16>(c3, out, b, y0, x0, H, W, pool_max);
+}
+
+template <typename T, typename Wt>
+using Kernel = void (*)(const T*, const Wt*, const Wt*, const Wt*,
                         const float*, T*, int, int, int, int, int);
 
-template <typename T>
-int launch(Kernel<T> kern, size_t smem, int tile, const void* x,
-           const float* w1, const float* w2, const float* w3,
+template <typename T, typename Wt>
+int launch(Kernel<T, Wt> kern, size_t smem, int tile, const void* x,
+           const void* w1, const void* w2, const void* w3,
            const float* bias, void* out, int B, int H, int W, int cin,
            int pool_max, cudaStream_t st) {
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
@@ -656,9 +938,10 @@ int launch(Kernel<T> kern, size_t smem, int tile, const void* x,
   const int tiles_y = (H + tile - 1) / tile;
   const int tiles_x = (W + tile - 1) / tile;
   const dim3 grid(tiles_y * tiles_x, B);
-  kern<<<grid, kThreads, smem, st>>>(static_cast<const T*>(x), w1, w2, w3,
-                                     bias, static_cast<T*>(out), H, W, cin,
-                                     tiles_x, pool_max);
+  kern<<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const Wt*>(w1),
+      static_cast<const Wt*>(w2), static_cast<const Wt*>(w3), bias,
+      static_cast<T*>(out), H, W, cin, tiles_x, pool_max);
   return cudaGetLastError();
 }
 
@@ -668,36 +951,37 @@ bool aligned16(std::initializer_list<const void*> ps) {
   return true;
 }
 
-// C <= 32, f32 storage: the tensor-core kernel; bf16: the CUDA-core kernel
+// C <= 32: the tensor-core kernels, f32 (3xTF32) or bf16
 template <int C>
-int dispatch(const void* x, const float* w1, const float* w2,
-             const float* w3, const float* bias, void* out, int B, int H,
-             int W, int cin, int pool_max, int bf16, cudaStream_t st) {
-  if (bf16)
-    return launch<__nv_bfloat16>(specblock_kernel<C, __nv_bfloat16>,
-                                 smem_bytes(cin, C), kTile, x, w1, w2, w3,
-                                 bias, out, B, H, W, cin, pool_max, st);
-  if (!aligned16({x, w1, w2, w3}))   // float4 loads
+int dispatch(const void* x, const void* w1, const void* w2, const void* w3,
+             const float* bias, void* out, int B, int H, int W, int cin,
+             int pool_max, int bf16, cudaStream_t st) {
+  if (!aligned16({x, w1, w2, w3}))   // 16-byte loads, cp.async
     return cudaErrorInvalidValue;
-  return launch<float>(specblock_tc_kernel<C>, tc_smem_bytes(cin, C), kTile,
-                       x, w1, w2, w3, bias, out, B, H, W, cin, pool_max, st);
+  if (bf16)
+    return launch<__nv_bfloat16, uint32_t>(
+        specblock_bf16_tc_kernel<C>, bf16_smem_bytes(cin, C), kTile, x, w1,
+        w2, w3, bias, out, B, H, W, cin, pool_max, st);
+  return launch<float, float>(specblock_tc_kernel<C>, tc_smem_bytes(cin, C),
+                              kTile, x, w1, w2, w3, bias, out, B, H, W, cin,
+                              pool_max, st);
 }
 
 // C >= 64, both storage types: the wide kernel
 template <int C>
-int dispatch_wide(const void* x, const float* w1, const float* w2,
-                  const float* w3, const float* bias, void* out, int B,
-                  int H, int W, int cin, int pool_max, int bf16,
-                  cudaStream_t st) {
+int dispatch_wide(const void* x, const void* w1, const void* w2,
+                  const void* w3, const float* bias, void* out, int B, int H,
+                  int W, int cin, int pool_max, int bf16, cudaStream_t st) {
   if (!aligned16({w1, w2, w3}))       // float4 weight loads
     return cudaErrorInvalidValue;
   const size_t smem = wide_smem_bytes(cin, C);
   if (bf16)
-    return launch<__nv_bfloat16>(specblock_wide_kernel<C, __nv_bfloat16>,
-                                 smem, wide_tile(C), x, w1, w2, w3, bias,
-                                 out, B, H, W, cin, pool_max, st);
-  return launch<float>(specblock_wide_kernel<C, float>, smem, wide_tile(C), x,
-                       w1, w2, w3, bias, out, B, H, W, cin, pool_max, st);
+    return launch<__nv_bfloat16, float>(
+        specblock_wide_kernel<C, __nv_bfloat16>, smem, wide_tile(C), x, w1,
+        w2, w3, bias, out, B, H, W, cin, pool_max, st);
+  return launch<float, float>(specblock_wide_kernel<C, float>, smem,
+                              wide_tile(C), x, w1, w2, w3, bias, out, B, H, W,
+                              cin, pool_max, st);
 }
 
 }  // namespace
@@ -705,22 +989,25 @@ int dispatch_wide(const void* x, const float* w1, const float* w2,
 extern "C" {
 
 // Shared-memory bytes one CTA needs for (cin, cout) and the storage type
-// (cout >= 64: the wide kernel; else bf16 != 0: the CUDA-core kernel, and
-// the tensor-core kernel for f32).
+// (cout >= 64: the wide kernel; else the tensor-core kernel of the type,
+// bf16 != 0: specblock_bf16_tc_kernel).
 long long specblock_smem_bytes(int cin, int cout, int bf16) {
   if (cout >= 64) return static_cast<long long>(wide_smem_bytes(cin, cout));
-  return static_cast<long long>(bf16 ? smem_bytes(cin, cout)
+  return static_cast<long long>(bf16 ? bf16_smem_bytes(cin, cout)
                                      : tc_smem_bytes(cin, cout));
 }
 
 // x: (B, H, W, cin) NHWC of the storage type (bf16 != 0: __nv_bfloat16,
 // else float); w1: (3, 3, cin, cout), w2, w3: (3, 3, cout, cout) HWIO f32
-// (already rounded to the storage type); bias: (3, cout) f32; out:
-// (B, H/2, W/2, cout) NHWC of the storage type.  H, W even; cout in
-// {8, 16, 32, 64, 128, 256}; B <= 65535.  Returns cudaGetLastError() (or
-// cudaErrorInvalidValue for shapes it does not take).
-int specblock_convpool(const void* x, const float* w1, const float* w2,
-                       const float* w3, const float* bias, void* out, int B,
+// (already rounded to the storage type), except for bf16 with cout <= 32:
+// each the int32 words (bf16_rows(cin or cout), cout) of
+// ops/cuda_specblock._pack_bf16_pairs; bias: (3, cout) f32; out:
+// (B, H/2, W/2, cout) NHWC of the storage type.  x and the weights 16-byte
+// aligned; H, W even; cout in {8, 16, 32, 64, 128, 256}; B <= 65535.
+// Returns cudaGetLastError() (or cudaErrorInvalidValue for shapes it does
+// not take).
+int specblock_convpool(const void* x, const void* w1, const void* w2,
+                       const void* w3, const float* bias, void* out, int B,
                        int H, int W, int cin, int cout, int pool_max,
                        int bf16, void* stream) {
   if (B < 1 || B > 65535 || H < 2 || W < 2 || H % 2 || W % 2 || cin < 1)

@@ -7,9 +7,10 @@ max or avg pool, each stage stored in ``dtype`` (float32, or bf16 with
 float32 accumulation).  A CUDA tensor launches ``specblock_convpool``
 (``csrc/specblock.cu``), whose intermediates never leave shared memory; a
 CPU tensor takes :func:`_plain_convpool` (``F.conv2d`` ×3 + pool).  For
-Cout 8/16/32, float32 runs the tensor-core kernel (3xTF32 implicit GEMM)
-and bf16 the CUDA-core one; Cout 64/128/256 run the wide CUDA-core kernel
-in either type.  Launches are counted in
+Cout 8/16/32 both types run on the tensor cores: float32 as a 3xTF32
+implicit GEMM, bf16 as a bf16 implicit GEMM whose weights
+:func:`_pack_bf16_pairs` packs into channel-pair words; Cout 64/128/256 run
+the wide CUDA-core kernel in either type.  Launches are counted in
 ``fused_specblock_convpool.launches``, and by kernel (:func:`kernel_name`)
 in ``fused_specblock_convpool.kernel_launches``.
 
@@ -62,8 +63,8 @@ def fused_applies(h: int, w: int) -> bool:
 
 def kernel_name(cout: int, dtype: torch.dtype) -> str:
     """The kernel a (Cout, storage type) launches: ``specblock_convpool``
-    (float32, the tensor-core kernel), ``specblock_convpool_bf16`` (bf16,
-    the CUDA-core kernel), ``specblock_convpool_wide`` and
+    (float32, the 3xTF32 tensor-core kernel), ``specblock_convpool_bf16``
+    (bf16, the bf16 tensor-core kernel), ``specblock_convpool_wide`` and
     ``specblock_convpool_wide_bf16`` (Cout in :data:`WIDE_COUTS`)."""
     name = "specblock_convpool_wide" if cout in WIDE_COUTS \
         else "specblock_convpool"
@@ -123,8 +124,27 @@ def _check_cuda_args(x, kernels, biases, pool, dtype) -> None:
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it where its data does not start on 16 bytes
-    (the f32 kernel reads x and the weights as float4)."""
+    (the Cout <= 32 kernels read x and the weights 16 bytes at a time)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _pack_bf16_pairs(k: torch.Tensor) -> torch.Tensor:
+    """An HWIO kernel (3, 3, Cin, C) as the bf16 kernel's weight words:
+    int32 (rows, C).  Row j = tap·cp + p (tap = 3·ky + kx, channel pair
+    p < cp = ⌈Cin/2⌉) holds, for each output channel, bf16(k[ky, kx, 2p])
+    in its low half and bf16(k[ky, kx, 2p + 1]) in its high half, zero for
+    the pad channel of an odd Cin; zero rows pad 9·cp to a multiple of 4
+    (``bf16_rows`` in ``csrc/specblock.cu``).  K of the kernel's implicit
+    GEMM runs over these rows in order, two channels a word."""
+    kh, kw, cin, c = k.shape
+    cp = (cin + 1) // 2
+    kb = k.to(torch.bfloat16).reshape(kh * kw, cin, c)
+    if cin % 2:
+        kb = F.pad(kb, (0, 0, 0, 1))
+    words = (kb.reshape(kh * kw, cp, 2, c).transpose(2, 3).contiguous()
+             .view(torch.int32).reshape(kh * kw * cp, c))
+    rows = (kh * kw * cp + 3) // 4 * 4
+    return F.pad(words, (0, 0, 0, rows - kh * kw * cp))
 
 
 def _launch(x, kernels, biases, pool, dtype) -> torch.Tensor:
@@ -132,7 +152,10 @@ def _launch(x, kernels, biases, pool, dtype) -> torch.Tensor:
     x = _aligned(x.to(dtype))
     b, h, w, cin = x.shape
     co = kernels[0].shape[-1]
-    ws = [_aligned(k.to(dtype).float().contiguous()) for k in kernels]
+    if dtype == torch.bfloat16 and co not in WIDE_COUTS:
+        ws = [_aligned(_pack_bf16_pairs(k)) for k in kernels]
+    else:
+        ws = [_aligned(k.to(dtype).float().contiguous()) for k in kernels]
     bias = torch.stack([bi.float() for bi in biases]).contiguous()
     out = torch.empty((b, h // 2, w // 2, co), dtype=dtype, device=x.device)
     with torch.cuda.device(x.device):

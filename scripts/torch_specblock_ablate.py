@@ -1,20 +1,23 @@
-"""Where the f32 fused spectrogram block's time and error go, on one card.
+"""Where the fused spectrogram block's time (and, in f32, error) go, on
+one card.
 
-    python3 scripts/torch_specblock_ablate.py [--batch 256]
+    python3 scripts/torch_specblock_ablate.py [--batch 256] [--dtype bfloat16]
 
 Builds ``csrc/specblock.cu`` as it is and in variants, each with one part
-of the tensor-core kernel (``specblock_tc_kernel``) changed by a textual
-patch of the source (a patch that no longer matches raises):
+of the tensor-core kernel of the storage type (``specblock_tc_kernel``,
+f32; ``specblock_bf16_tc_kernel``, bf16) changed by a textual patch of the
+source (a patch that no longer matches raises):
 
 - ``one_accumulator``: the three 3xTF32 products chained in one tensor-core
   accumulator, instead of the small products in their own and each k-step's
   hi*hi added on the CUDA cores;
 - ``no_weight_restage``: conv2's and conv3's weights not staged (conv1's
-  stay in place), ``no_input_stage``: the input tile not staged,
-  ``no_pool``: no pool pass or output store, ``no_mma_loop``: the
-  implicit-GEMM loops of the tensor-core stages removed (their epilogues
-  stay).  These compute wrong results: they are timed only, and the
-  kernel's time minus theirs is what the removed part costs.
+  stay in place; bf16: their cp.async copies left out),
+  ``no_input_stage``: the input tile not staged, ``no_pool``: no pool pass
+  or output store, ``no_mma_loop``: the implicit-GEMM loops of the
+  tensor-core stages removed (their epilogues stay).  These compute wrong
+  results: they are timed only, and the kernel's time minus theirs is what
+  the removed part costs.  bf16 has no ``one_accumulator`` variant.
 
 For blocks 1 and 2 at the main path's shapes (inputs from the same seed as
 ``chip_smoke.py``) it prints each variant's time (CUDA events, the variants
@@ -22,8 +25,9 @@ run forward then backward, five calls each), and for the kernel, the
 one-accumulator variant and cuDNN's f32 chain (TF32 off) the error against
 a float64 chain on the first 32 samples, at the inputs and at 100x them:
 max |d|, and max(|d| - 1e-5 |ref|), which must stay under the atol of
-``rtol = atol = 1e-5``.  Ends with one JSON line and the card's nvidia-smi
-name and power limit.
+``rtol = atol = 1e-5``.  bf16 instead holds the kernel against the plain
+bf16 chain (max |d| over the chain's max) and times cuDNN's bf16 chain.
+Ends with one JSON line and the card's nvidia-smi name and power limit.
 """
 
 from __future__ import annotations
@@ -72,23 +76,39 @@ VARIANTS = {
                      "for (int k0 = 0; k0 < 0; k0 += 8) {")],
 }
 ACCURATE = ("kernel", "one_accumulator")
+VARIANTS_BF16 = {
+    "kernel": [],
+    "no_weight_restage": [
+        ("  stage_pairs_async<C>(w2, RC, swb);\n", ""),
+        ("  stage_pairs_async<C>(w3, RC, swa);   // lands while conv2 "
+         "computes\n", "")],
+    "no_input_stage": [("  stage_input_pairs(x, buf0, b, y0, x0, H, W, cin);\n",
+                        "")],
+    "no_pool": [("  pool_store<C, __nv_bfloat16>(c3, out, b, y0, x0, H, W, "
+                 "pool_max);\n", "")],
+    "no_mma_loop": [("j0 + 8 <= R;", "j0 + 8 <= 0;"),
+                    ("if constexpr (R % 8 != 0) step8",
+                     "if constexpr (false) step8"),
+                    ("j0 + 8 <= rows;", "j0 + 8 <= 0;"),
+                    ("if (rows % 8) step8", "if (false) step8")],
+}
 
 
-def build_variants() -> dict:
+def build_variants(variants: dict, tag: str) -> dict:
     from multimodal_brain_pattern_identification_xai_tpu_torch import _build
     src = (_build.CSRC / "specblock.cu").read_text()
     out_dir = _build.BUILD_DIR / "ablate"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, patches in VARIANTS.items():
+    for name, patches in variants.items():
         text = src
         for old, new in patches:
             if text.count(old) != 1:
                 raise RuntimeError(f"{name}: patch does not match once: {old!r}")
             text = text.replace(old, new)
-        cu = out_dir / f"specblock_{name}.cu"
+        cu = out_dir / f"specblock_{tag}_{name}.cu"
         cu.write_text(text)
-        so = out_dir / f"libspecblock_{name}.so"
+        so = out_dir / f"libspecblock_{tag}_{name}.so"
         procs[name] = (subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
@@ -106,13 +126,16 @@ def build_variants() -> dict:
 
 
 def run(lib, x, ks, bias, pool):
+    """One launch on x of its storage type; ``ks``: HWIO f32, or the
+    packed words of ``_pack_bf16_pairs`` for bf16."""
     b, h, w, cin = x.shape
     co = ks[0].shape[-1]
-    out = torch.empty((b, h // 2, w // 2, co), device=x.device)
+    out = torch.empty((b, h // 2, w // 2, co), dtype=x.dtype, device=x.device)
     rc = lib.specblock_convpool(
         x.data_ptr(), ks[0].data_ptr(), ks[1].data_ptr(), ks[2].data_ptr(),
         bias.data_ptr(), out.data_ptr(), b, h, w, cin, co,
-        int(pool == "max"), 0, torch.cuda.current_stream().cuda_stream)
+        int(pool == "max"), int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"specblock_convpool: CUDA error {rc}")
     return out
@@ -150,6 +173,8 @@ def errors(got, ref) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_specblock_ablate: no CUDA device", file=sys.stderr)
@@ -160,16 +185,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    libs = build_variants()
+    if args.dtype == "bfloat16":
+        return main_bf16(args.batch, card)
+    libs = build_variants(VARIANTS, "f32")
     result = {}
     for name, cin, co, h, w, pool in (("block1", 3, 16, 400, 300, "max"),
                                       ("block2", 16, 32, 200, 150, "avg")):
-        rng = np.random.default_rng(4)
-        mk = lambda *s: torch.as_tensor(rng.standard_normal(s),
-                                        dtype=torch.float32, device="cuda")
-        ks = [mk(3, 3, ci, co) * 0.2 for ci in (cin, co, co)]
-        bs = [mk(co) * 0.1 for _ in range(3)]
-        x = mk(args.batch, h, w, cin)
+        x, ks, bs = inputs(args.batch, cin, co, h, w)
         bias = torch.stack(bs).contiguous()
         times = {n: 0.0 for n in libs}
         for n in list(libs) + list(libs)[::-1]:
@@ -204,6 +226,58 @@ def main() -> int:
         del x
         torch.cuda.empty_cache()
     print(json.dumps({"specblock_ablate": result, "batch": args.batch}))
+    print(card)
+    return 0
+
+
+def inputs(batch, cin, co, h, w):
+    """x, HWIO kernels and biases from chip_smoke.py's seed."""
+    rng = np.random.default_rng(4)
+    mk = lambda *s: torch.as_tensor(rng.standard_normal(s),
+                                    dtype=torch.float32, device="cuda")
+    ks = [mk(3, 3, ci, co) * 0.2 for ci in (cin, co, co)]
+    bs = [mk(co) * 0.1 for _ in range(3)]
+    return mk(batch, h, w, cin), ks, bs
+
+
+def main_bf16(batch: int, card: str) -> int:
+    from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
+        cuda_specblock)
+    libs = build_variants(VARIANTS_BF16, "bf16")
+    result = {}
+    for name, cin, co, h, w, pool in (("block1", 3, 16, 400, 300, "max"),
+                                      ("block2", 16, 32, 200, 150, "avg")):
+        x, ks, bs = inputs(batch, cin, co, h, w)
+        x = x.to(torch.bfloat16)
+        ws = [cuda_specblock._pack_bf16_pairs(k) for k in ks]
+        bias = torch.stack(bs).contiguous()
+        times = {n: 0.0 for n in libs}
+        for n in list(libs) + list(libs)[::-1]:
+            times[n] += cuda_ms(lambda: run(libs[n], x, ws, bias, pool)) / 2
+        times["cudnn_bf16"] = cuda_ms(lambda: chain(x, ks, bs, pool,
+                                                    torch.bfloat16))
+        plain = cuda_specblock._chain_convpool(x, ks, bs, pool,
+                                               torch.bfloat16).double()
+        got = run(libs["kernel"], x, ws, bias, pool).double()
+        rec = {"ms": times, "cost_ms": {
+            part: times["kernel"] - times[f"no_{part}"]
+            for part in ("weight_restage", "input_stage", "pool",
+                         "mma_loop")},
+            "vs_plain_bf16_rel": float((got - plain).abs().max()
+                                       / plain.abs().max())}
+        result[name] = rec
+        print(f"[ablate] bf16 {name} ({batch},{h},{w},{cin})->{co} {pool}: "
+              + ", ".join(f"{n} {t:.3f} ms" for n, t in times.items())
+              + f" [{card}]")
+        print(f"[ablate] bf16 {name} cost of each part (kernel minus "
+              f"variant): " + ", ".join(f"{p} {t:.3f} ms"
+                                        for p, t in rec["cost_ms"].items())
+              + f"; kernel vs the plain bf16 chain "
+              f"{rec['vs_plain_bf16_rel']:.2e} of its max")
+        del x, plain, got
+        torch.cuda.empty_cache()
+    print(json.dumps({"specblock_ablate": result, "batch": batch,
+                      "dtype": "bfloat16"}))
     print(card)
     return 0
 

@@ -5,7 +5,8 @@ the card with ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 
 Bounds: tests/test_pallas_iir.py (rel 2e-4, filtfilt 1e-3),
 tests/test_pallas_specblock.py (f32 1e-5; bf16 max 0.03 / mean 0.003 at
-tensor scale; gradients 2e-4; the same for every width), 1e-3 on
+tensor scale; gradients 2e-4; the same for every width), bf16 against the
+plain bf16 chain 1e-2 of its max (chip_smoke.py's BF16_PLAIN_REL), 1e-3 on
 log-probs for whole models (chip_smoke.py's GPU-vs-CPU bound), 1e-6 for a
 captured forward against eager (the same kernels on the same inputs) and the duty probe's 1e-4 relative (bf16
 products are exact in float32; only the summation order differs).  The sequential plain scan runs on the CPU over a subset of
@@ -199,7 +200,8 @@ def _case(dtype, cin, cout, h, w, pool, batch=2, scale=1.0, id=None,
                         id=f"{id or f'{cin}-{cout}-{h}-{w}-{pool}'}-{dt}")
 
 
-# float32 runs the tensor-core (3xTF32) kernel, bf16 the CUDA-core one
+# Cout 8/16/32: float32 runs the 3xTF32 tensor-core kernel, bf16 the bf16
+# tensor-core one
 _SPECBLOCK_CASES = [
     _case(dt, *shape)
     for shape in ((3, 16, 400, 300, "max"),       # block 1
@@ -214,6 +216,15 @@ _SPECBLOCK_CASES = [
     _case(torch.float32, 16, 32, 200, 150, "avg", batch=1, id="block2-B1"),
     # large inputs: a missing lo term of the 3xTF32 split shows at once
     _case(torch.float32, 16, 32, 200, 150, "avg", scale=100.0,
+          id="block2-x100"),
+] + [
+    # the bf16 kernel's edges: Cout 8 (k16 steps, then one k8 step) with a
+    # 16-channel conv1, ragged; cin 8 (16-byte staging, k8 tail in conv1)
+    # on one tile narrower than the halo; B = 1; x100 inputs
+    _case(torch.bfloat16, 16, 8, 34, 38, "avg"),
+    _case(torch.bfloat16, 8, 16, 18, 2, "max"),
+    _case(torch.bfloat16, 16, 32, 200, 150, "avg", batch=1, id="block2-B1"),
+    _case(torch.bfloat16, 16, 32, 200, 150, "avg", scale=100.0,
           id="block2-x100"),
 ] + [
     # the wide kernel (blocks 3-5's widths), on the planes of a 64x48 input
@@ -254,6 +265,9 @@ def test_specblock_matches_plain(dev, dtype, cin, cout, h, w, pool, batch,
     else:
         err = (got - truth).abs() / truth.abs().max()
         assert float(err.max()) < 0.03 and float(err.mean()) < 0.003
+        plain = cuda_specblock._plain_convpool(xd, kd, bd, pool,
+                                               torch.bfloat16).float()
+        assert _rel(got, plain) < 1e-2
 
 
 @pytest.mark.parametrize("pool", ["max", "avg"])
