@@ -28,10 +28,13 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
               chain; the wide
               kernel (Cout 64/128/256) in both types on the planes of a
               64x48 input and on a 100x76 plane, each beside its bound and
-              the cuDNN chain;
+              the cuDNN chain; the bf16 kernel at the 200x150 preset's
+              block 1, B=256 and B=4;
 4. main     — the serving entry at B=4 on cuda, NaN route (a NaN run in one
-              channel of one window) and finite route, with every kernel's
-              launch counter read around that run; log-probs held against
+              EEG channel of one window, a NaN pixel and an all-NaN
+              spectrogram row) and finite route, with every kernel's
+              launch counter read around that run and held to one
+              forward's launches; log-probs held against
               the same forward on the CPU's plain versions; then the bf16
               program (``serving_dtype=torch.bfloat16``) the same way, its
               probabilities held against the float32 program's;
@@ -42,21 +45,38 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
               batch), both routes, float32 and bf16, eager and captured as
               one CUDA graph (``capture_forward``, held equal to eager on
               two inputs); kernels launched per forward (profiler);
-7. stem     — the EEGNet stem reassociated (as served) against canonical,
+7. routes   — the spectrogram chain's other routes and eeg_transform,
+              each path with its own launch counts: (A) the
+              reduced-resolution serving preset (``signal=
+              config.SPEC_RES_PRESET``, 200x150 ``resize_mode="resample"``,
+              the JAX bench's ``BENCH_SPEC_RES=200x150``) through phases 4
+              and 6 again: held against the CPU and float32, the fused
+              block once a forward (block 2's 100x75 plane is odd), then
+              timed beside phase 6's 400x300 programs; (B) the op-by-op
+              reference chain (``linear_ops=False``, the notch
+              ``filtfilt`` through two IIR launches; no serving program
+              takes it) on both resize modes, float32 and bf16, against
+              the CPU and the dense-operator route, and its cost beside
+              the dense route's at B=256; (C) ``eeg_transform`` (the IIR
+              kernel along axis -2) against the CPU, then timed at B=256;
+8. stem     — the EEGNet stem reassociated (as served) against canonical,
               log-probs held, with cuDNN's FFT-convolution share of device
               time for each (profiler), B=256 and B=4;
-8. xai      — input-gradient attribution through the fused serving model
+9. xai      — input-gradient attribution through the fused serving model
               (``explain_entry``): saliency, Grad-CAM, IG and expected
               gradients at B=4 (B=2 for the spectrogram sweeps) held
               against the CPU and against the unfused model, with the fused
               block's launches and backward calls read around them; then
               their times at B=256 (IG on the spectrogram branch at B=32)
               and the fused block's VJP beside the cuDNN chain's backward;
-9. convprobe — the conv probe's duty kernel against its plain version at
+10. convprobe — the conv probe's duty kernel against its plain version at
               the probe's four GEMM shapes, then its rate at R=512.
 
 Output: a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, then the
-last line ``{"ok": true, "device": {...}}``.  Needs one card; imports
+last line ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` are
+the main path's (phase 4; phase 5 for the wide kernel), and for
+``iir_sosfilt`` also paths B and C (its ``main_launches`` is phase 4's);
+``routes_launches`` holds each path of phase 7 apart.  Needs one card; imports
 nothing of JAX.
 """
 
@@ -404,6 +424,7 @@ def sum_cases(cases) -> dict:
 def phase_kernels(card: str, dev) -> dict:
     """Kernel vs plain version on the card; returns per-kernel records
     with the error and the timings at B_TIME main-path shapes."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import config
     from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
         cuda_iir, iir, preprocess)
 
@@ -525,6 +546,10 @@ def phase_kernels(card: str, dev) -> dict:
               f"block-matmul route {lib_ms:.4f} ms; plain two-pass scan "
               f"{plain_ms:.1f} ms, host clock), bound {b:.5f} ms by {b_by} "
               f"[{card}]")
+        key = "b4" if lanes == B_MAIN * 300 else "b256"
+        rec["iir_sosfilt"].update({f"filtfilt_ms_{key}": ms,
+                                   f"filtfilt_bound_ms_{key}": b,
+                                   f"filtfilt_library_ms_{key}": lib_ms})
     del xs, got, want
 
     # --- #3 fused spec block: block 1 (max) and block 2 (avg), float32
@@ -547,6 +572,16 @@ def phase_kernels(card: str, dev) -> dict:
     rec["specblock_convpool_bf16"].update(
         ms_b4=b4["ms"], bound_ms_b4=b4["bound_ms"],
         library_ms_b4=b4["library_ms"])
+    # the 200x150 preset's only fused block (kept as *_preset, *_preset_b4)
+    h, w = config.SPEC_RES_PRESET.image_size
+    for batch, reps, graph, key in ((B_TIME, 3, False, "preset"),
+                                    (B_MAIN, 20, True, "preset_b4")):
+        c = sum_cases([specblock_case(
+            card, dev, "preset block1", batch, h, w, 3, 16, "max",
+            torch.bfloat16, reps, wscale=0.2, graph=graph)])
+        rec["specblock_convpool_bf16"].update(
+            {f"ms_{key}": c["ms"], f"bound_ms_{key}": c["bound_ms"],
+             f"library_ms_{key}": c["library_ms"]})
 
     # --- the wide kernel (Cout 64/128/256, CUDA cores, both types) on the
     # planes of a 64x48 input (blocks 3 and 4) and Cout 256 on 8x6; then
@@ -585,24 +620,41 @@ def _counters():
     return reset, read
 
 
-def phase_main(card: str) -> dict:
-    """The serving entry at B_MAIN on cuda, both routes, float32 then the
-    bf16 program; launch counts read around exactly each run; log-probs
-    against the CPU run, bf16 probabilities against the float32
-    program's."""
+def _tag(sig) -> str:
+    """The print prefix of a serving path: the main path (400x300) or
+    path A (the 200x150 preset, phase 7)."""
+    return "[main]" if sig is None else (
+        f"[routes] A: preset {sig.image_size[0]}x{sig.image_size[1]},")
+
+
+def phase_main(card: str, sig=None, fused_blocks: int = 2) -> dict:
+    """The serving entry at B_MAIN on cuda with ``sig`` (None: the 400x300
+    main path; the 200x150 preset for path A), both routes, float32 then
+    the bf16 program; launch counts set to 0 just before each program's
+    run and read just after, held to one forward a route: ``sosfilt``
+    once (the NaN route's first bandpass), ``rolldec`` twice (one a
+    route) and the program's fused block ``fused_blocks`` times a
+    forward.  The NaN route carries a NaN run in one EEG channel of one
+    window, a lone NaN pixel and an all-NaN spectrogram row.  Log-probs
+    against the CPU run, bf16 probabilities against the float32 program's.
+    Returns the launches by kernel name, each kernel's from the program
+    that serves it (the IIR kernels' from the float32 program)."""
     from multimodal_brain_pattern_identification_xai_tpu_torch.entry import (
         entry)
     reset, read = _counters()
     bf16 = torch.bfloat16
+    tag = _tag(sig)
 
     def runs(dtype, device):
         out = {}
         for route in ("nan", "finite"):
             fwd, (eeg, spec) = entry(device=device, batch=B_MAIN,
                                      assume_finite=route == "finite",
-                                     serving_dtype=dtype)
+                                     serving_dtype=dtype, signal=sig)
             if route == "nan":
                 eeg[1, 5, 2000:2300] = float("nan")  # one channel, one window
+                spec[0, 37, 121] = float("nan")      # a lone pixel
+                spec[1, 200, :] = float("nan")       # an all-NaN row
             out[route] = (fwd, eeg, spec)
         return out
 
@@ -617,12 +669,14 @@ def phase_main(card: str) -> dict:
                       for route, (fwd, eeg, spec) in cuda_runs.items()}
         torch.cuda.synchronize()
         counts = read()
-        print(f"[main] launches on the main path, {prog} program (B={B_MAIN},"
-              f" both routes): {counts}")
-        for name in ("iir_sosfilt", "iir_sosfilt_rolldec") + kernels:
-            require(counts[name] > 0,
-                    f"kernel {name} was not launched by the {prog} program")
+        print(f"{tag} launches, {prog} program (B={B_MAIN}, both routes): "
+              f"{counts}")
+        want = {"iir_sosfilt": 1, "iir_sosfilt_rolldec": 2,
+                kernels[-1]: 2 * fused_blocks}
+        require(all(counts[k] == n for k, n in want.items()),
+                f"{tag} {prog} program: launches {counts}, expected {want}")
         launches.update({k: counts[k] for k in kernels})
+        del cuda_runs
 
         # the same forward on the CPU: plain PyTorch versions throughout.
         # float32 bound: sums in other orders (cuDNN vs CPU convolutions;
@@ -641,17 +695,17 @@ def phase_main(card: str) -> dict:
             else:
                 err = float((got.exp() - want.exp()).abs().max())
                 bound, what = BF16_PROB_ATOL, "probabilities"
-            require(err < bound, f"{prog} {route} route: GPU vs CPU {what} "
-                    f"{err}")
-            print(f"[main] {prog} program, {route} route: log-probs "
+            require(err < bound, f"{tag} {prog} {route} route: GPU vs CPU "
+                    f"{what} {err}")
+            print(f"{tag} {prog} program, {route} route: log-probs "
                   f"{tuple(got.shape)} finite; GPU vs CPU {what} max abs "
                   f"{err:.2e} (bound {bound})")
     for route in ("nan", "finite"):
         err = float((outs["bf16"][route].exp()
                      - outs["float32"][route].exp()).abs().max())
-        require(err < BF16_PROB_ATOL, f"bf16 vs float32 program, {route} "
-                f"route: probabilities {err}")
-        print(f"[main] bf16 vs float32 program, {route} route: probabilities "
+        require(err < BF16_PROB_ATOL, f"{tag} bf16 vs float32 program, "
+                f"{route} route: probabilities {err}")
+        print(f"{tag} bf16 vs float32 program, {route} route: probabilities "
               f"max abs {err:.2e} (bound {BF16_PROB_ATOL}) [{card}]")
     return launches
 
@@ -702,16 +756,19 @@ def phase_wide(card: str, dev) -> dict:
     return {k: counts[k] for k in names}
 
 
-def phase_timing(card: str) -> float:
-    """Serving forward at B_TIME (throughput) and B_MAIN (on-demand
-    latency), both routes, float32 and bf16, eager and captured as one
-    CUDA graph (held equal to eager on two inputs; a failed capture
+def phase_timing(card: str, sig=None, beside=None) -> dict:
+    """Serving forward with ``sig`` (None: the 400x300 main path; the
+    200x150 preset for path A) at B_TIME (throughput) and B_MAIN
+    (on-demand latency), both routes, float32 and bf16, eager and captured
+    as one CUDA graph (held equal to eager on two inputs; a failed capture
     raises), with the kernels launched per forward on the finite route
-    (profiler).  Returns the float32 finite route's eager ms at B_TIME."""
+    (profiler); ``beside``: an earlier call's times, printed alongside.
+    Returns {(program, route, batch): (eager ms, graph ms)}."""
     from multimodal_brain_pattern_identification_xai_tpu_torch import (
         profiling)
     from multimodal_brain_pattern_identification_xai_tpu_torch.entry import (
         capture_forward, entry)
+    tag = "[timing]" if sig is None else _tag(sig)
     times = {}
     for route in ("finite", "nan"):
         for dtype in (None, torch.bfloat16):
@@ -719,14 +776,14 @@ def phase_timing(card: str) -> float:
             for batch, reps in ((B_TIME, 10), (B_MAIN, 50)):
                 fwd, (eeg, spec) = entry(device="cuda", batch=batch,
                                          assume_finite=route == "finite",
-                                         serving_dtype=dtype)
+                                         serving_dtype=dtype, signal=sig)
                 torch.cuda.reset_peak_memory_stats()
                 ms = cuda_ms(lambda: fwd(eeg, spec), reps, warmup=2)
                 peak = peak_gib()
                 graph = capture_forward(fwd, (eeg, spec))
                 diff = max(max_abs(graph(e, s), fwd(e, s)) for e, s in (
                     (eeg, spec), (eeg * 0.5 + 1.0, spec.flip(0))))
-                require(diff <= GRAPH_ATOL, f"captured vs eager {prog} "
+                require(diff <= GRAPH_ATOL, f"{tag} captured vs eager {prog} "
                         f"{route} B={batch}: {diff}")
                 gms = cuda_ms(lambda: graph(eeg, spec), reps, warmup=2)
                 count = ""
@@ -738,17 +795,138 @@ def phase_timing(card: str) -> float:
                     count = (f"; kernels a forward: eager {pe.kernels:.0f} "
                              f"(+{pe.copies:.0f} copies), graph "
                              f"{pg.kernels:.0f} (+{pg.copies:.0f})")
-                print(f"[timing] serving forward, {prog} program, {route} "
+                if beside is not None:
+                    b_ms, b_gms = beside[prog, route, batch]
+                    count += (f"; the 400x300 program: eager {b_ms:.3f} ms = "
+                              f"{batch / b_ms * 1e3:.1f} windows/s, captured "
+                              f"{b_gms:.3f} ms = {batch / b_gms * 1e3:.1f} "
+                              f"windows/s")
+                print(f"{tag} serving forward, {prog} program, {route} "
                       f"route, B={batch}: eager {ms:.3f} ms/batch = "
                       f"{batch / ms * 1e3:.1f} windows/s (peak {peak:.2f} "
                       f"GiB); captured {gms:.3f} ms/batch = "
                       f"{batch / gms * 1e3:.1f} windows/s; captured vs eager "
                       f"max abs {diff:.1e} (bound {GRAPH_ATOL}){count} "
                       f"[{card}]")
-                times[prog, route, batch] = ms
+                times[prog, route, batch] = ms, gms
                 del fwd, graph, eeg, spec
                 torch.cuda.empty_cache()
-    return times["float32", "finite", B_TIME]
+    return times
+
+
+def phase_routes(card: str, dev) -> dict:
+    """Paths B and C of phase 7 (path A, the 200x150 preset, runs through
+    phase_main and phase_timing); launch counts set to 0 just before each
+    call and read just after.  Returns each path's launches by kernel
+    name, summed over its calls: {"B": {...}, "C": {...}}.
+
+    B: ``hms_spectrogram_preprocess(linear_ops=False)``, the op-by-op
+    reference that holds the dense route (no serving program takes it), on
+    raw (B_MAIN, 400, 300) planes with NaNs, both resize modes, float32
+    and bf16: two IIR launches a call; against the CPU within 1e-5
+    (float32; the tests' bound against the JAX chain) or 2e-2 (bf16, the
+    JAX package's bf16 bound on the [0, 1] output), and, float32, against
+    the dense route within 1e-5 (the JAX package's pin of the two routes);
+    then what the reference costs beside the dense route at B_TIME,
+    400x300.
+    C: ``eeg_transform`` on (B_MAIN, 10000, C) windows (C = 19, default
+    chain; C = 20, magic-8 and mu-law) with a NaN run: one IIR launch a
+    call, rel 1e-4 against the CPU (the JAX package's bound); then timed
+    at B_TIME, beside its IIR launch alone and that launch's bound."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        config as C)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
+        cuda_iir, eeg_transform, hms_spectrogram_preprocess, iir)
+    reset, read = _counters()
+    bf16 = torch.bfloat16
+    preset = C.SPEC_RES_PRESET.image_size
+    paths = {"B": {}, "C": {}}
+
+    def count(path, counts):
+        for k, n in counts.items():
+            paths[path][k] = paths[path].get(k, 0) + n
+
+    # --- B: the op-by-op reference chain ----------------------------------
+    spec = signal((B_MAIN, 400, 300), 5, 11, dev)
+    spec[0, 37, 121] = float("nan")
+    spec[1, 200, :] = float("nan")
+    cspec = spec.cpu()
+    for mode, size in (("pad", (400, 300)), ("resample", preset)):
+        sig = C.SignalConfig(image_size=size, resize_mode=mode)
+        dense = hms_spectrogram_preprocess(spec, signal=sig)
+        for dtype in (None, bf16):
+            reset()
+            got = hms_spectrogram_preprocess(spec, signal=sig,
+                                             serving_dtype=dtype,
+                                             linear_ops=False)
+            torch.cuda.synchronize()
+            counts = read()
+            count("B", counts)
+            require(counts["iir_sosfilt"] == 2, f"op-by-op {mode}: "
+                    f"{counts['iir_sosfilt']} IIR launches, expected 2")
+            want = hms_spectrogram_preprocess(cspec, signal=sig,
+                                              serving_dtype=dtype,
+                                              linear_ops=False)
+            require(got.dtype == want.dtype and got.shape == want.shape
+                    == (B_MAIN, 3) + size, f"op-by-op {mode}: {got.shape}")
+            err = max_abs(got.float().cpu(), want.float())
+            bound = 1e-5 if dtype is None else 2e-2
+            require(err < bound, f"op-by-op {mode} {dtype}: GPU vs CPU {err}")
+            line = (f"[routes] B: op-by-op reference chain, {mode} -> {size}, "
+                    f"{'float32' if dtype is None else 'bf16'}: "
+                    f"{counts['iir_sosfilt']} iir_sosfilt launches; GPU vs "
+                    f"CPU max abs {err:.2e} (bound {bound})")
+            if dtype is None:
+                e_dense = max_abs(got, dense)
+                require(e_dense < 1e-5, f"op-by-op {mode} vs dense {e_dense}")
+                line += f"; vs the dense route max abs {e_dense:.2e} (1e-5)"
+            print(line)
+    del spec, cspec, dense, got, want
+    x = signal((B_TIME, 400, 300), 5, 12, dev)
+    op_ms = cuda_ms(lambda: hms_spectrogram_preprocess(x, linear_ops=False),
+                    5)
+    dense_ms = cuda_ms(lambda: hms_spectrogram_preprocess(x), 5)
+    print(f"[routes] B: spectrogram chain ({B_TIME}, 400, 300), float32: the "
+          f"op-by-op reference {op_ms:.3f} ms, the dense route (served) "
+          f"{dense_ms:.3f} ms [{card}]")
+    del x
+    torch.cuda.empty_cache()
+
+    # --- C: eeg_transform -------------------------------------------------
+    for cfg, n_cols in ((C.EEGTransformConfig(), 19),
+                        (C.EEGTransformConfig(apply_chris_magic_ch8=True,
+                                              apply_mu_law_encoding=True),
+                         20)):
+        x = signal((B_MAIN, 10_000, n_cols), 300, 13, dev)
+        x[0, 100:140, 3] = float("nan")
+        reset()
+        got = eeg_transform(x, cfg)
+        torch.cuda.synchronize()
+        counts = read()
+        count("C", counts)
+        require(counts["iir_sosfilt"] == 1, f"eeg_transform: "
+                f"{counts['iir_sosfilt']} IIR launches, expected 1")
+        want = eeg_transform(x.cpu(), cfg)
+        require(got.shape == want.shape, f"eeg_transform: {got.shape}")
+        r = rel(got.cpu(), want)
+        require(r < 1e-4, f"eeg_transform ({n_cols} columns): rel {r}")
+        print(f"[routes] C: eeg_transform {tuple(x.shape)} -> "
+              f"{tuple(got.shape)}, magic-8 {cfg.apply_chris_magic_ch8}: 1 "
+              f"iir_sosfilt launch; GPU vs CPU rel {r:.2e} (bound 1e-4)")
+    x = signal((B_TIME, 10_000, 19), 300, 14, dev)
+    lowpass = iir.butter_lowpass(20.0, 200.0, 4)
+    lanes = x.movedim(-2, -1).contiguous()
+    ms = cuda_ms(lambda: eeg_transform(x), 10)
+    k_ms = cuda_ms(lambda: cuda_iir.sosfilt(lowpass, lanes), 10)
+    b, b_by = bound_ms(2 * lanes.numel() * 4,
+                       9 * len(lowpass.sos) * lanes.numel())
+    print(f"[routes] C: eeg_transform {tuple(x.shape)}: {ms:.3f} ms; its "
+          f"sosfilt K={len(lowpass.sos)} launch on {B_TIME * 19} lanes alone "
+          f"{k_ms:.4f} ms, bound {b:.4f} ms by {b_by} [{card}]")
+    del x, lanes
+    torch.cuda.empty_cache()
+    print(f"[routes] launches of paths B and C: {paths}")
+    return paths
 
 
 def phase_stem(card: str) -> None:
@@ -1086,27 +1264,38 @@ def main() -> int:
     done("main")
     launches.update(phase_wide(card, dev))
     done("wide")
-    serving_ms = phase_timing(card)
+    times = phase_timing(card)
     done("timing")
+    # phase 7: path A (the 200x150 preset) through the main path's and the
+    # timing's harness, then paths B and C; each path keeps its own counts
+    from multimodal_brain_pattern_identification_xai_tpu_torch import config
+    routes = {"A": phase_main(card, config.SPEC_RES_PRESET, fused_blocks=1)}
+    phase_timing(card, config.SPEC_RES_PRESET, beside=times)
+    routes.update(phase_routes(card, dev))
+    done("routes")
     phase_stem(card)
     done("stem")
-    xai_counts = phase_xai(card, dev, serving_ms)
+    xai_counts = phase_xai(card, dev, times["float32", "finite", B_TIME][0])
     done("xai")
     rec["duty"] = phase_convprobe(card, dev)
     done("convprobe")
 
     xai_tpu = "multimodal_brain_pattern_identification_xai_tpu"
     src = {"iir_sosfilt": (f"{PKG}/csrc/iir.cu",
-                           f"{xai_tpu}/ops/pallas_iir.py:165", "serving"),
+                           f"{xai_tpu}/ops/pallas_iir.py:165",
+                           "serving (NaN route); eeg_transform; notch "
+                           "filtfilt of the op-by-op reference chain"),
            "iir_sosfilt_rolldec": (f"{PKG}/csrc/iir.cu",
                                    f"{xai_tpu}/ops/pallas_iir.py:254",
                                    "serving"),
            "specblock_convpool": (f"{PKG}/csrc/specblock.cu",
                                   f"{xai_tpu}/ops/pallas_specblock.py:242",
-                                  "serving+xai"),
+                                  "serving (also the 200x150 preset's block "
+                                  "1)+xai"),
            "specblock_convpool_bf16": (f"{PKG}/csrc/specblock.cu",
                                        f"{xai_tpu}/ops/pallas_specblock.py:242",
-                                       "serving (bf16 program)"),
+                                       "serving (bf16 program; also the "
+                                       "200x150 preset's block 1)"),
            "specblock_convpool_wide": (f"{PKG}/csrc/specblock.cu",
                                        f"{xai_tpu}/ops/pallas_specblock.py:242",
                                        "fused blocks 3-5 (64x48, 64x64)"),
@@ -1116,6 +1305,11 @@ def main() -> int:
                "fused blocks 3-5 (64x48, 64x64), bf16"),
            "duty": (f"{PKG}/csrc/duty.cu", "bench.py:1123", "convprobe")}
     launches["duty"] = rec["duty"].pop("launches")
+    # iir_sosfilt's launches count its callers besides the main path: the
+    # op-by-op reference chain's notch filtfilt (B) and eeg_transform (C)
+    main_sosfilt = launches["iir_sosfilt"]
+    launches["iir_sosfilt"] += sum(routes[p].get("iir_sosfilt", 0)
+                                   for p in ("B", "C"))
     kernels = [{"name": name, "route": "cuda", "source": src[name][0],
                 "replaces": src[name][1], "path": src[name][2],
                 "launches": launches[name],
@@ -1127,6 +1321,10 @@ def main() -> int:
                     "library_ms")}}
                for name, r in rec.items()]
     for k in kernels:
+        k["routes_launches"] = {p: c.get(k["name"], 0)
+                                for p, c in routes.items()}
+        if k["name"] == "iir_sosfilt":
+            k["main_launches"] = main_sosfilt
         if k["name"] == "specblock_convpool":
             k["xai_launches"] = xai_counts["launches"]
     print(json.dumps({"kernels": kernels}))

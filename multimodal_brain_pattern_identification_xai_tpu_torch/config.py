@@ -1,4 +1,4 @@
-"""Configuration subset of the serving slice.
+"""Configuration subset of the ported slices.
 
 A copy of the channel vocabulary and the preprocessing dataclasses of the
 JAX package's ``config.py`` (the port imports nothing from that package).
@@ -8,7 +8,7 @@ Values reproduce the reference's defaults.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 #: Raw parquet column order, incl. EKG.
 EEG_COLUMNS: Tuple[str, ...] = (
@@ -27,6 +27,20 @@ MAP_FEATURES: Tuple[Tuple[str, str], ...] = (
     ("Fp2", "F4"), ("F4", "C4"), ("C4", "P4"), ("P4", "O2"),
     ("Fz", "Cz"), ("Cz", "Pz"),
 )
+
+#: Chris' magic-8 bipolar pairs.
+CHRIS_MAGIC_PAIRS: Tuple[Tuple[str, str], ...] = (
+    ("Fp1", "T3"), ("T3", "O1"),
+    ("Fp1", "C3"), ("C3", "O1"),
+    ("Fp2", "C4"), ("C4", "O2"),
+    ("Fp2", "T4"), ("T4", "O2"),
+)
+
+#: Brain-region channel groups (mirror augmentation).
+LL: Tuple[str, ...] = ("Fp1", "F7", "T3", "T5", "O1")
+LP: Tuple[str, ...] = ("Fp1", "F3", "C3", "P3", "O1")
+RL: Tuple[str, ...] = ("Fp2", "F8", "T4", "T6", "O2")
+RP: Tuple[str, ...] = ("Fp2", "F4", "C4", "P4", "O2")
 
 
 @dataclass(frozen=True)
@@ -48,8 +62,32 @@ class SignalConfig:
     in_channels: int = 19             # scalp channels (no EKG)
     n_raw_channels: int = 20          # parquet columns incl. EKG
     image_size: Tuple[int, int] = (400, 300)  # spectrogram (F, T)
-    #: only "pad" is ported: zero-pad/crop to ``image_size``
+    #: how the spectrogram chain reaches ``image_size``: "pad" zero-pads or
+    #: crops (the reference's chain); "resample" anti-alias-resizes the raw
+    #: plane (``ops.resample.resize_antialiased``, skimage ``resize(...,
+    #: anti_aliasing=True)`` semantics), the reduced-resolution preset
     resize_mode: str = "pad"
+
+
+#: The reduced-resolution serving preset: raw planes anti-alias-resized to
+#: 200x150 (the JAX bench's ``BENCH_SPEC_RES=200x150``; CLI ``--set
+#: signal.image_size=[200,150] --set signal.resize_mode=resample``).
+SPEC_RES_PRESET = SignalConfig(image_size=(200, 150), resize_mode="resample")
+
+
+@dataclass(frozen=True)
+class EEGTransformConfig:
+    """Flags of the raw-EEG transformer chain (``ops.eeg_transform``)."""
+    n_feats: int = 19
+    apply_chris_magic_ch8: bool = False
+    normalize: bool = True
+    apply_butter_lowpass_filter: bool = True
+    apply_mu_law_encoding: bool = False
+    downsample: Optional[int] = 5
+    lowpass_cutoff_hz: float = 20.0
+    lowpass_order: int = 4
+    clip_value: float = 1024.0
+    scale: float = 32.0
 
 
 @dataclass(frozen=True)
@@ -63,3 +101,8 @@ class HMSPreprocessConfig:
     notch_freq_hz: float = 60.0
     notch_quality: float = 30.0
     gaussian_sigma: float = 1.0
+
+
+def feature_to_index(columns: Sequence[str] = EEG_COLUMNS) -> Dict[str, int]:
+    """Channel-name → row-index map."""
+    return {name: i for i, name in enumerate(columns)}

@@ -5,7 +5,9 @@ then the late-fusion ``MultimodalModel(EEGNetAttentionRegularized,
 SpectrogramCNN)``, with the EEGNet stem reassociated for inference and the
 first two spectrogram blocks served through the fused conv×3+pool kernel.
 ``serving_dtype=torch.bfloat16`` selects the bf16 program of the JAX
-bench's ``--multimodal`` mode.  :func:`capture_forward` turns a forward
+bench's ``--multimodal`` mode, and ``signal=config.SPEC_RES_PRESET`` its
+reduced-resolution preset (``BENCH_SPEC_RES=200x150``): the same weights
+on spectrograms anti-alias-resized to 200×150.  :func:`capture_forward` turns a forward
 into one captured CUDA graph (the counterpart of ``jax.jit``).
 :func:`explain_entry` gives the same model and preprocessed inputs ready
 for attribution (``xai``), float32 and eager.  Runs on CUDA unless the
@@ -131,17 +133,21 @@ def seeded(device: Optional[Union[str, torch.device]] = None, batch: int = 4,
 
 def entry(device: Optional[Union[str, torch.device]] = None, batch: int = 4,
           assume_finite: bool = False, seed: int = 0,
-          serving_dtype: Optional[torch.dtype] = None
+          serving_dtype: Optional[torch.dtype] = None,
+          signal: Optional[C.SignalConfig] = None
           ) -> Tuple[Callable, Tuple[torch.Tensor, torch.Tensor]]:
     """Return ``(forward, (raw_eeg, raw_spec))``: the full-size serving
     forward with weights drawn from ``seed``, and seeded raw inputs —
     EEG (batch, 20, 10000) µV and spectrograms (batch, 400, 300).
     ``assume_finite=False`` (the default, as the JAX entry) runs the
     NaN-bearing EEG route; ``serving_dtype=torch.bfloat16`` the bf16
-    program (:func:`make_forward`).  The forward is eager: pass it to
+    program; ``signal`` (default ``SignalConfig()``) sets the spectrogram
+    plane the model sees, e.g. the 200×150 ``resize_mode="resample"``
+    preset (:func:`make_forward`).  The forward is eager: pass it to
     :func:`capture_forward` for one CUDA graph."""
     model, raw_eeg, raw_spec = seeded(device, batch, seed, serving_dtype)
-    return make_forward(model, assume_finite=assume_finite,
+    return make_forward(model, signal=signal or C.SignalConfig(),
+                        assume_finite=assume_finite,
                         serving_dtype=serving_dtype), (raw_eeg, raw_spec)
 
 

@@ -71,6 +71,16 @@ def butter_bandpass(low: float, high: float, fs: float,
     return FilterCoeffs.make(b, a, sos)
 
 
+@functools.lru_cache(maxsize=64)
+def butter_lowpass(cutoff: float, fs: float, order: int) -> FilterCoeffs:
+    """Butterworth lowpass design."""
+    from scipy.signal import butter
+    wn = cutoff / (0.5 * fs)
+    b, a = butter(order, wn, btype="low")
+    sos = butter(order, wn, btype="low", output="sos")
+    return FilterCoeffs.make(b, a, sos)
+
+
 def cascade(*filters: FilterCoeffs) -> FilterCoeffs:
     """Compose filters into one SOS cascade (LTI composition is exact)."""
     b = np.asarray([1.0])

@@ -17,17 +17,20 @@ from .. import config as C
 
 
 def montage_matrix(pairs: Sequence[Tuple[str, str]],
+                   columns: Sequence[str] = C.EEG_COLUMNS,
+                   keep_originals: bool = True,
                    keep_channels: Optional[Sequence[str]] = None) -> np.ndarray:
-    """The (C_out, 20) montage matrix over the raw ``EEG_COLUMNS``: the kept
-    original channels (all 20 unless ``keep_channels``), then one row per
-    bipolar pair with +1 at the first channel and −1 at the second."""
-    columns = C.EEG_COLUMNS
-    f2i = {name: i for i, name in enumerate(columns)}
+    """The (C_out, C_in) montage matrix over ``columns``: the kept original
+    channels (all of ``columns`` unless ``keep_channels``; none unless
+    ``keep_originals``), then one row per bipolar pair with +1 at the first
+    channel and −1 at the second."""
+    f2i = C.feature_to_index(columns)
     rows = []
-    for ch in (keep_channels if keep_channels is not None else columns):
-        row = np.zeros(len(columns), np.float32)
-        row[f2i[ch]] = 1.0
-        rows.append(row)
+    if keep_originals:
+        for ch in (keep_channels if keep_channels is not None else columns):
+            row = np.zeros(len(columns), np.float32)
+            row[f2i[ch]] = 1.0
+            rows.append(row)
     for a, b in pairs:
         row = np.zeros(len(columns), np.float32)
         row[f2i[a]] += 1.0
@@ -39,8 +42,9 @@ def montage_matrix(pairs: Sequence[Tuple[str, str]],
 @functools.lru_cache(maxsize=None)
 def _matrix_on(keep_channels: Optional[Tuple[str, ...]], device: torch.device,
                dtype: torch.dtype) -> torch.Tensor:
-    return torch.as_tensor(montage_matrix(C.MAP_FEATURES, keep_channels),
-                           dtype=dtype, device=device)
+    return torch.as_tensor(
+        montage_matrix(C.MAP_FEATURES, keep_channels=keep_channels),
+        dtype=dtype, device=device)
 
 
 def apply_montage(x: torch.Tensor,
@@ -70,3 +74,18 @@ def select_and_map_channels(x: torch.Tensor) -> torch.Tensor:
     """Keep the 19 scalp channels + the 18 trailing differential rows:
     (..., 38, T) → (..., 37, T)."""
     return x[..., _channel_index_on(x.device), :]
+
+
+@functools.lru_cache(maxsize=None)
+def _magic8_on(columns: Tuple[str, ...], device: torch.device,
+               dtype: torch.dtype) -> torch.Tensor:
+    return torch.as_tensor(
+        montage_matrix(C.CHRIS_MAGIC_PAIRS, columns, keep_originals=False).T,
+        dtype=dtype, device=device)
+
+
+def chris_magic_ch8(x: torch.Tensor,
+                    columns: Sequence[str] = C.EEG_FEATURES) -> torch.Tensor:
+    """Chris' magic-8 bipolar features of ``x`` (..., T, C_in) with
+    channels named by ``columns``: (..., T, 8)."""
+    return torch.matmul(x, _magic8_on(tuple(columns), x.device, x.dtype))

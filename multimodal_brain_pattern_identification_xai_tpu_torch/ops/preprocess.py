@@ -2,11 +2,15 @@
 ``ops/preprocess.py``), float32, with the JAX package's bf16 serving modes
 (``serving_dtype``).
 
+* :func:`eeg_transform`: raw EEG window (..., L, C) → (..., L/5, C'), the
+  raw-EEG transformer chain.
 * :func:`hms_eeg_preprocess`: raw EEG (..., 20, T) µV → (..., 1, 37, L).
-* :func:`hms_spectrogram_preprocess`: raw spectrogram (..., 400, 300) →
-  (..., 3, 400, 300), with ``resize_mode="pad"`` and the dense-operator
-  route for the linear middle section.
-* :func:`preprocess_multimodal`: both.
+* :func:`hms_spectrogram_preprocess`: raw spectrogram (..., H, W) →
+  (..., 3, *image_size), zero-padded or anti-alias-resized
+  (``resize_mode``), with the dense-operator route or the op-by-op
+  reference chain (``linear_ops``) for the linear middle section.
+* :func:`preprocess_multimodal`: both HMS chains.
+* :func:`mirror_eeg`: the left/right hemisphere swap.
 
 The IIR cascades run through :mod:`.cuda_iir`: the CUDA kernels for CUDA
 tensors, the sequential scan for CPU tensors.  Constant operators are made
@@ -76,6 +80,37 @@ def _bp_and_rolldec(coeffs: iir.FilterCoeffs, x: torch.Tensor,
     return resample.rolling_mean4_decimate_flat(iir.lfilter(coeffs, x), stride)
 
 
+def eeg_transform(x: torch.Tensor,
+                  cfg: C.EEGTransformConfig = C.EEGTransformConfig(),
+                  fs: float = 200.0) -> torch.Tensor:
+    """The raw-EEG transformer chain over a batch.
+
+    ``x``: (..., L, C) raw window, C = 19 scalp channels or the 20 raw
+    columns.  Returns (..., L', C') with L' = ceil(L / ``downsample``) and
+    C' = 8 (magic-8) or C.
+
+    Chain: optional magic-8 bipolar montage (channels named by
+    ``EEG_COLUMNS`` at 20 columns, ``EEG_FEATURES`` otherwise) →
+    clip ±``clip_value``, NaN → 0, ÷ ``scale`` → Butterworth lowpass along
+    time from zero state (:func:`.iir.lfilter`: the IIR kernel on a CUDA
+    tensor) → optional mu-law → every ``downsample``-th sample."""
+    if cfg.apply_chris_magic_ch8:
+        cols = (C.EEG_COLUMNS if x.shape[-1] == len(C.EEG_COLUMNS)
+                else C.EEG_FEATURES)
+        x = montage.chris_magic_ch8(x, cols)
+    if cfg.normalize:
+        x = normalize.clip_scale(x, cfg.clip_value, cfg.scale)
+    if cfg.apply_butter_lowpass_filter:
+        coeffs = iir.butter_lowpass(cfg.lowpass_cutoff_hz, fs,
+                                    cfg.lowpass_order)
+        x = iir.lfilter(coeffs, x, axis=-2)
+    if cfg.apply_mu_law_encoding:
+        x = normalize.mu_law_encode(x, 1.0)
+    if cfg.downsample:
+        x = resample.decimate(x, cfg.downsample, axis=-2)
+    return x
+
+
 def hms_eeg_preprocess(x: torch.Tensor,
                        cfg: C.HMSPreprocessConfig = C.HMSPreprocessConfig(),
                        signal: C.SignalConfig = C.SignalConfig(),
@@ -140,35 +175,59 @@ def hms_spectrogram_preprocess(spec: torch.Tensor,
                                cfg: C.HMSPreprocessConfig = C.HMSPreprocessConfig(),
                                signal: C.SignalConfig = C.SignalConfig(),
                                serving_dtype: Optional[torch.dtype] = None,
+                               linear_ops: bool = True,
                                ) -> torch.Tensor:
     """``HMS_Spectrogram_Dataset`` chain over a batch.
 
     ``spec``: (..., H, W) offset-cropped, transposed spectrogram.  Returns
-    (..., 3, *image_size) float32: zero-pad/crop to ``image_size`` → NaN
-    repair → baseline correction → 60 Hz notch ``filtfilt`` down the time
-    axis → Gaussian σ=1 → per-plane min-max → tile to 3 channels.  The
-    linear middle section runs as the two dense operators
-    ``(M_h @ x) @ M_w``.
+    (..., 3, *image_size) float32: reach ``image_size`` and repair NaNs →
+    baseline correction → 60 Hz notch ``filtfilt`` down the time axis →
+    Gaussian σ=1 → per-plane min-max → tile to 3 channels.
+
+    ``signal.resize_mode``: ``"pad"`` zero-pads or crops to ``image_size``,
+    then repairs NaNs; ``"resample"`` repairs NaNs first (a NaN would
+    otherwise spread over the resize operators' support) and then
+    anti-alias-resizes (:func:`.resample.resize_antialiased`, float32).
+    Any other mode raises ``ValueError``.
+
+    ``linear_ops=True`` (the serving route): the linear middle section runs
+    as the two dense operators ``(M_h @ x) @ M_w``.  ``False``: the
+    reference that holds the dense route (as the JAX package's tests use
+    it; no serving program takes it), op by op: the notch ``filtfilt``
+    through :func:`.cuda_iir.filtfilt` (two launches of the IIR kernel on
+    a CUDA tensor) and the Gaussian as shifted sums.
 
     ``serving_dtype=torch.bfloat16`` (the JAX chain's bf16 serving mode):
-    after the NaN repair, x and both operators are bf16, each matmul
-    accumulates in float32 and stores bf16, and the min-max and the tile
-    run in bf16; the result is bf16."""
-    if signal.resize_mode != "pad":
-        raise NotImplementedError(
-            f"resize_mode={signal.resize_mode!r} is not ported; use 'pad'")
-    x = resample.pad_or_truncate(spec.float(), tuple(signal.image_size))
-    x = nanfix.nan_to_channel_mean(x)
+    after the NaN repair (and, op by op, the baseline correction) the plane
+    is bf16 and so is the result.  Dense route: x and both operators are
+    bf16, each matmul accumulates in float32 and stores bf16.  Op by op: the
+    IIR kernels take float32 only, and a bf16 recurrence is unstable, so
+    the notch filters the bf16-rounded plane in float32 and rounds its
+    result to bf16; the Gaussian and the min-max run in bf16."""
+    if signal.resize_mode == "resample":
+        x = nanfix.nan_to_channel_mean(spec.float())
+        x = resample.resize_antialiased(x, tuple(signal.image_size))
+    elif signal.resize_mode == "pad":
+        x = resample.pad_or_truncate(spec.float(), tuple(signal.image_size))
+        x = nanfix.nan_to_channel_mean(x)
+    else:
+        raise ValueError(f"signal.resize_mode must be 'pad' or 'resample', "
+                         f"got {signal.resize_mode!r}")
     notch = iir.iirnotch(cfg.notch_freq_hz, cfg.notch_quality,
                          float(signal.sampling_rate))
-    if serving_dtype is not None:
-        x = x.to(serving_dtype)
-    m_h, m_w = _spec_operators_on(*x.shape[-2:], notch, cfg.gaussian_sigma,
-                                  x.device, x.dtype)
-    x = torch.matmul(torch.matmul(m_h, x), m_w)
-    mn = x.amin(dim=(-2, -1), keepdim=True)
-    mx = x.amax(dim=(-2, -1), keepdim=True)
-    x = (x - mn) / (mx - mn + 1e-6)
+    if linear_ops:
+        if serving_dtype is not None:
+            x = x.to(serving_dtype)
+        m_h, m_w = _spec_operators_on(*x.shape[-2:], notch,
+                                      cfg.gaussian_sigma, x.device, x.dtype)
+        x = torch.matmul(torch.matmul(m_h, x), m_w)
+    else:
+        x = normalize.baseline_correction(x, axis=-2)
+        if serving_dtype is not None:
+            x = x.to(serving_dtype)
+        x = iir.filtfilt(notch, x.float(), axis=-2).to(x.dtype)
+        x = smooth.gaussian_smooth2d(x, cfg.gaussian_sigma)
+    x = normalize.minmax(x, axis=(-2, -1))
     return x[..., None, :, :].expand(x.shape[:-2] + (3,) + x.shape[-2:])
 
 
@@ -188,3 +247,20 @@ def preprocess_multimodal(raw_eeg: torch.Tensor, raw_spec: torch.Tensor,
                 serving_dtype=serving_dtype if assume_finite else None),
             hms_spectrogram_preprocess(raw_spec, cfg, signal,
                                        serving_dtype=serving_dtype))
+
+
+@functools.lru_cache(maxsize=8)
+def _mirror_perm(n: int) -> np.ndarray:
+    f2i = C.feature_to_index()
+    idx1 = [f2i[ch] for ch in C.LL + C.LP]
+    idx2 = [f2i[ch] for ch in C.RL + C.RP]
+    perm = np.arange(n)
+    perm[idx1], perm[idx2] = perm[idx2], perm[idx1].copy()
+    return perm
+
+
+def mirror_eeg(x: torch.Tensor) -> torch.Tensor:
+    """Left/right hemisphere swap (augmentation). ``x``: (..., 20, T) in
+    ``EEG_COLUMNS`` order."""
+    perm = torch.as_tensor(_mirror_perm(x.shape[-2]), device=x.device)
+    return x.index_select(-2, perm)

@@ -2,12 +2,14 @@
 
     python3 scripts/torch_profile_forward.py [--batch 256] [--route finite]
         [--dtype float32|bfloat16] [--stem reassociated|canonical]
-        [--graph] [--trace trace.json]
+        [--graph] [--preset] [--trace trace.json]
 
 Runs the serving forward (``entry.seeded`` + ``make_forward``, weights
 from seed 0) with the chosen program — float32 or the bf16 program, the
 EEGNet stem reassociated (as served) or canonical, eager or captured as
-one CUDA graph (``capture_forward``) — warms it up, then traces three
+one CUDA graph (``capture_forward``), on 400x300 spectrogram planes or
+(``--preset``) the reduced-resolution serving preset's 200x150 ones —
+warms it up, then traces three
 forwards with ``torch.profiler``.  Prints the wall time per forward (host
 clock around a synchronised run), the device-busy share (summed kernel
 time over wall time), the kernels launched per forward, the share of
@@ -40,6 +42,8 @@ def main() -> int:
                     default="reassociated")
     ap.add_argument("--graph", action="store_true",
                     help="profile the forward captured as one CUDA graph")
+    ap.add_argument("--preset", action="store_true",
+                    help="the 200x150 resize_mode='resample' preset")
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--trace", help="write the Chrome trace to this file")
     args = ap.parse_args()
@@ -47,7 +51,7 @@ def main() -> int:
         print("torch_profile_forward: no CUDA device", file=sys.stderr)
         return 1
     from multimodal_brain_pattern_identification_xai_tpu_torch import (
-        profiling)
+        config, profiling)
     from multimodal_brain_pattern_identification_xai_tpu_torch.entry import (
         capture_forward, make_forward, seeded)
     from torch.profiler import ProfilerActivity, profile
@@ -61,14 +65,18 @@ def main() -> int:
     dtype = None if args.dtype == "float32" else torch.bfloat16
     model, eeg, spec = seeded("cuda", args.batch, dtype=dtype)
     model.eeg_model.fused_inference = args.stem == "reassociated"
-    fwd = make_forward(model, assume_finite=args.route == "finite",
+    signal = (config.SPEC_RES_PRESET if args.preset
+              else config.SignalConfig())
+    fwd = make_forward(model, signal=signal,
+                       assume_finite=args.route == "finite",
                        serving_dtype=dtype)
     if args.graph:
         fwd = capture_forward(fwd, (eeg, spec))
     prof = profiling.profile_kernels(lambda: fwd(eeg, spec), reps=REPS)
     busy = prof.busy_ms
     fft = profiling.fft_conv_ms(prof)
-    print(f"[profile] {args.route} route, {args.dtype}, {args.stem} stem, "
+    print(f"[profile] {'200x150 preset, ' if args.preset else ''}"
+          f"{args.route} route, {args.dtype}, {args.stem} stem, "
           f"{'graph' if args.graph else 'eager'}, B={args.batch}: wall "
           f"{prof.wall_ms:.3f} ms/forward (profiler on), device busy "
           f"{busy:.3f} ms ({100 * busy / prof.wall_ms:.1f}%), idle "

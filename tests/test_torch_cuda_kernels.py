@@ -16,12 +16,13 @@ import numpy as np
 import pytest
 import torch
 
+from multimodal_brain_pattern_identification_xai_tpu_torch import config as C
 from multimodal_brain_pattern_identification_xai_tpu_torch.entry import (
     capture_forward, entry)
 from multimodal_brain_pattern_identification_xai_tpu_torch.models import (
     SpectrogramCNN, seeded_state_dict)
 from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
-    cuda_duty, cuda_iir, cuda_specblock, iir)
+    cuda_duty, cuda_iir, cuda_specblock, eeg_transform, iir)
 
 pytestmark = pytest.mark.cuda
 
@@ -71,6 +72,38 @@ def test_filtfilt_steady_state(dev):
     x = _signal((1200, 400), 5)
     got = cuda_iir.filtfilt(NOTCH, x.to(dev))
     assert _rel(got[::40], cuda_iir.filtfilt(NOTCH, x[::40])) < 1e-3
+
+
+@pytest.mark.parametrize("shape", [(4, 400, 300), (2, 200, 150)])
+def test_filtfilt_along_axis_minus2(dev, shape):
+    """The op-by-op spectrogram chain's notch: ``iir.filtfilt`` down the
+    time axis of (B, H, W) planes, a strided view of B·W lanes, in two
+    IIR launches, against the CPU's sequential scan."""
+    x = _signal(shape, 5, seed=7)
+    n0 = cuda_iir.sosfilt.launches
+    got = iir.filtfilt(NOTCH, x.to(dev), axis=-2)
+    torch.cuda.synchronize()
+    assert cuda_iir.sosfilt.launches == n0 + 2
+    assert got.shape == shape
+    assert _rel(got, iir.filtfilt(NOTCH, x, axis=-2)) < 1e-4
+
+
+@pytest.mark.parametrize("shape,magic8", [((4, 10_000, 19), False),
+                                          ((2, 10_000, 20), True)])
+def test_eeg_transform_matches_cpu(dev, shape, magic8):
+    """``eeg_transform``'s lowpass along axis -2 in one IIR launch, against
+    the CPU's chain (rel 1e-4, the JAX package's bound)."""
+    x = _signal(shape, 300, seed=8)
+    x[0, 100:140, 3] = float("nan")
+    cfg = C.EEGTransformConfig(apply_chris_magic_ch8=magic8,
+                               apply_mu_law_encoding=magic8)
+    n0 = cuda_iir.sosfilt.launches
+    got = eeg_transform(x.to(dev), cfg)
+    torch.cuda.synchronize()
+    assert cuda_iir.sosfilt.launches == n0 + 1
+    want = eeg_transform(x, cfg)
+    assert got.shape == want.shape == (shape[0], 2000, 8 if magic8 else 19)
+    assert _rel(got, want) < 1e-4
 
 
 @pytest.mark.parametrize("k", [6, 11])
@@ -209,6 +242,10 @@ _SPECBLOCK_CASES = [
                   (5, 8, 8, 20, "max"))           # ragged small plane
     for dt in (torch.float32, torch.bfloat16)
 ] + [
+    # block 1 of the 200x150 preset (its only fused block)
+    _case(dt, 3, 16, 200, 150, "max", id="preset-block1")
+    for dt in (torch.float32, torch.bfloat16)
+] + [
     # Cout 8, every stage on the tensor cores, both sides ragged against 16
     _case(torch.float32, 16, 8, 34, 38, "avg"),
     # one tile, W smaller than the halo
@@ -335,6 +372,41 @@ def test_captured_forward_equals_eager(dev, dtype):
         got, want = graph(e, s), fwd(e, s)
         assert got.shape == (2, 6) and bool(torch.isfinite(got).all())
         assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_preset_forward_matches_cpu(dev, dtype):
+    """The 200x150 preset's forward (both EEG routes) on the card against
+    the CPU: log-probs within 1e-3 (float32) or probabilities within 2e-2
+    (bf16); the fused block once a forward (block 2's 100x75 plane is odd);
+    captured equal to eager (1e-6)."""
+    serving = None if dtype == torch.float32 else dtype
+    name = cuda_specblock.kernel_name(16, dtype)
+    for finite in (True, False):
+        fwd, (eeg, spec) = entry(device="cuda", batch=2, assume_finite=finite,
+                                 serving_dtype=serving,
+                                 signal=C.SPEC_RES_PRESET)
+        cfwd, (ceeg, cspec) = entry(device="cpu", batch=2,
+                                    assume_finite=finite,
+                                    serving_dtype=serving,
+                                    signal=C.SPEC_RES_PRESET)
+        if not finite:
+            for e, s in ((eeg, spec), (ceeg, cspec)):
+                e[1, 5, 2000:2300] = float("nan")
+                s[1, 200, :] = float("nan")
+        k0 = cuda_specblock.fused_specblock_convpool.kernel_launches[name]
+        got = fwd(eeg, spec)
+        torch.cuda.synchronize()
+        assert cuda_specblock.fused_specblock_convpool.kernel_launches[
+            name] == k0 + 1
+        want = cfwd(ceeg, cspec)
+        assert got.shape == (2, 6) and bool(torch.isfinite(got).all())
+        if serving is None:
+            assert float((got.cpu() - want).abs().max()) < 1e-3
+        else:
+            assert float((got.cpu().exp() - want.exp()).abs().max()) < 2e-2
+        graph = capture_forward(fwd, (eeg, spec))
+        assert float((graph(eeg, spec) - fwd(eeg, spec)).abs().max()) <= 1e-6
 
 
 @pytest.mark.parametrize("co,k", cuda_duty.SHAPES)
