@@ -9,7 +9,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
               once; prints ptxas's register / shared-memory / spill lines
               (for the IIR kernels a summary and the serving path's
               instantiations; the spectrogram block's f32 and bf16
-              tensor-core kernels must not spill), each block's dynamic
+              tensor-core kernels, the bf16 wide conv's three
+              instantiations included, must not spill), each block's
               shared memory for f32 and bf16, and, where ``cuobjdump`` is
               found, the ``HMMA`` instructions in each kernel's SASS (TF32
               in the f32 kernels, BF16 in the bf16 ones);
@@ -26,9 +27,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
               bf16 kernel at blocks 1-2 of the serving size, B=256 and
               B=4, held against the float32 chain and the plain bf16
               chain; the wide
-              kernel (Cout 64/128/256) in both types on the planes of a
-              64x48 input and on a 100x76 plane, each beside its bound and
-              the cuDNN chain; the bf16 kernel at the 200x150 preset's
+              block (Cout 64/128/256: f32 on the CUDA cores, bf16 as three
+              launches of one tensor-core conv) on the planes of a 64x48
+              input and on a 100x76 plane, each beside its bound and the
+              cuDNN chain; the bf16 kernel at the 200x150 preset's
               block 1, B=256 and B=4;
 4. main     — the serving entry at B=4 on cuda, NaN route (a NaN run in one
               EEG channel of one window, a NaN pixel and an all-NaN
@@ -267,7 +269,8 @@ def phase_build(card: str) -> None:
                 print(f"[build] {name}: {line.strip()}")
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
-            tc = func and re.search(r"specblock_(bf16_)?tc_kernel", func)
+            tc = func and re.search(
+                r"specblock_(bf16_)?tc_kernel|wide_bf16_conv_kernel", func)
             if m and tc:
                 print(f"[build] {tc.group(0)} ({func}): spill stores "
                       f"{m.group(1)} B, spill loads {m.group(2)} B")
@@ -280,9 +283,10 @@ def phase_build(card: str) -> None:
               f"bf16 (bf16 tensor cores) "
               f"{lib.specblock_smem_bytes(cin, co, 1)} bytes")
     for cin, co in WIDE_SHAPES:
-        print(f"[build] specblock wide kernel dynamic smem (cin={cin}, "
-              f"cout={co}): {lib.specblock_smem_bytes(cin, co, 0)} bytes, "
-              f"both types")
+        print(f"[build] specblock wide smem (cin={cin}, cout={co}): f32 "
+              f"(CUDA cores, dynamic) {lib.specblock_smem_bytes(cin, co, 0)}"
+              f" bytes, bf16 (wide_bf16_conv_kernel, static, each of three "
+              f"launches) {lib.specblock_smem_bytes(cin, co, 1)} bytes")
     cuobjdump = shutil.which("cuobjdump") or str(
         Path(_build._nvcc()).parent / "cuobjdump")
     if Path(cuobjdump).exists():
@@ -302,7 +306,8 @@ def phase_build(card: str) -> None:
         for (func, op), n in sorted(counts.items()):
             print(f"[build] SASS {func}: {n} {op} instructions")
         for kern, op in (("specblock_tc_kernel", "TF32"),
-                         ("specblock_bf16_tc_kernel", "BF16")):
+                         ("specblock_bf16_tc_kernel", "BF16"),
+                         ("wide_bf16_conv_kernel", "BF16")):
             found = {f for f, o in counts if kern in f and o.endswith(op)}
             require(len(found) == 3, f"{kern}: {len(found)} of 3 "
                     f"instantiations contain {op} HMMA")
@@ -583,22 +588,34 @@ def phase_kernels(card: str, dev) -> dict:
             {f"ms_{key}": c["ms"], f"bound_ms_{key}": c["bound_ms"],
              f"library_ms_{key}": c["library_ms"]})
 
-    # --- the wide kernel (Cout 64/128/256, CUDA cores, both types) on the
-    # planes of a 64x48 input (blocks 3 and 4) and Cout 256 on 8x6; then
-    # on a 100x76 plane (kept beside the record as *_large)
+    # --- the wide block (Cout 64/128/256; f32 on the CUDA cores, bf16 as
+    # three launches of one tensor-core conv) on the planes of a 64x48
+    # input (blocks 3 and 4) and Cout 256 on 8x6, each width kept in
+    # *_by_width; then on a 100x76 plane (kept as *_large).  bf16 is timed
+    # as one CUDA graph: its device work is below the eager wrapper's host
+    # time at the small planes
     for dt, name in ((torch.float32, "specblock_convpool_wide"),
                      (torch.bfloat16, "specblock_convpool_wide_bf16")):
-        rec[name] = sum_cases([
+        graph, reps = (True, 20) if dt == torch.bfloat16 else (False, 5)
+        cases = [
             specblock_case(card, dev, "block3 of 64x48", B_TIME, 16, 12, 32,
-                           64, "max", dt, 5),
+                           64, "max", dt, reps, graph=graph),
             specblock_case(card, dev, "block4 of 64x48", B_TIME, 8, 6, 64,
-                           128, "avg", dt, 5),
+                           128, "avg", dt, reps, graph=graph),
             specblock_case(card, dev, "Cout 256 on 8x6", B_TIME, 8, 6, 128,
-                           256, "max", dt, 5)])
+                           256, "max", dt, reps, graph=graph)]
+        rec[name] = sum_cases(cases)
         large = sum_cases([specblock_case(card, dev, "100x76 plane", B_TIME,
-                                          100, 76, 32, 64, "max", dt, 2)])
+                                          100, 76, 32, 64, "max", dt, 2,
+                                          graph=graph)])
         rec[name].update(ms_large=large["ms"], bound_ms_large=large["bound_ms"],
                          library_ms_large=large["library_ms"])
+        if dt == torch.bfloat16:
+            widths = [c[1] for c in WIDE_SHAPES]
+            rec[name].update(
+                ms_by_width=dict(zip(widths, (c["ms"] for c in cases))),
+                library_ms_by_width=dict(zip(widths, (c["library_ms"]
+                                                      for c in cases))))
         torch.cuda.empty_cache()
     return rec
 
@@ -1302,7 +1319,8 @@ def main() -> int:
            "specblock_convpool_wide_bf16": (
                f"{PKG}/csrc/specblock.cu",
                f"{xai_tpu}/ops/pallas_specblock.py:242",
-               "fused blocks 3-5 (64x48, 64x64), bf16"),
+               "fused blocks 3-5 (64x48, 64x64), bf16; one count a call, "
+               "three device launches of wide_bf16_conv_kernel"),
            "duty": (f"{PKG}/csrc/duty.cu", "bench.py:1123", "convprobe")}
     launches["duty"] = rec["duty"].pop("launches")
     # iir_sosfilt's launches count its callers besides the main path: the

@@ -4,8 +4,9 @@
 // Replaces the Pallas TPU kernel multimodal_brain_pattern_identification_xai_tpu/
 // ops/pallas_specblock.py:_make_kernel (launched by fused_specblock_convpool,
 // pallas_call at :242).  As there, the two intermediate activations never
-// reach device memory.  The TPU kernel's phase-packed GEMM layout existed
-// to fill the MXU and is not carried over.
+// reach device memory, except on the bf16 path at Cout 64/128/256 (three
+// launches of one conv, below).  The TPU kernel's phase-packed GEMM layout
+// existed to fill the MXU and is not carried over.
 //
 // Tiling (both storage types): one CTA of 256 threads per (sample, 16x16
 // tile of conv3 outputs).  It stages the input tile with a 3-pixel halo in
@@ -84,19 +85,62 @@
 // 8 rows hit distinct banks; __launch_bounds__(256, 2) and ~100 KB of
 // shared memory (block 2) fit two CTAs on an SM.
 //
-// Widths 64, 128 and 256 (blocks 3-5; both storage types):
-// specblock_wide_kernel<C, T>, a direct convolution on the CUDA cores.
-// The 16x16 layouts above cannot hold them (at C = 64 the tf32 hi/lo
-// weights alone are 331,776 B), so the conv3 tile shrinks as C grows
-// (wide_tile: 8x8 for C = 64 and 128, 4x4 for C = 256) until one tile's
-// stage planes plus halo fit, and the weights are not staged: each conv
-// reads them, [tap][ci][co], through the read-only cache.  A thread owns
-// one output position and kGroup = 16 output channels; consecutive threads
-// take consecutive positions of one channel group, so a warp's weight
-// loads are one broadcast address and its plane reads are contiguous.
-// Rounding as in the bf16 kernel (every stage rounded, avg pool summed in
-// f32).  Halo recompute: conv1 (T+4)^2 / T^2 = 2.25x at T = 8,
-// 4x at T = 4; bound on an H100 by f32 operations at 67 TFLOP/s.
+// Widths 64, 128 and 256 (blocks 3-5), float32: specblock_wide_kernel<C>,
+// a direct convolution on the CUDA cores.  The 16x16 layouts
+// above cannot hold them (at C = 64 the tf32 hi/lo weights alone are
+// 331,776 B), so the conv3 tile shrinks as C grows (wide_tile: 8x8 for
+// C = 64 and 128, 4x4 for C = 256) until one tile's stage planes plus
+// halo fit, and the weights are not staged: each conv reads them,
+// [tap][ci][co], through the read-only cache.  A thread owns one output
+// position and kGroup = 16 output channels; consecutive threads take
+// consecutive positions of one channel group, so a warp's weight loads are
+// one broadcast address and its plane reads are contiguous.  Halo
+// recompute: conv1 (T+4)^2 / T^2 = 2.25x at T = 8, 4x at T = 4; bound on
+// an H100 by f32 operations at 67 TFLOP/s.
+//
+// Widths 64, 128 and 256, bf16: wide_bf16_conv_kernel<Pool>, ONE 3x3 SAME
+// conv (+ bias, ReLU, bf16 rounding) as an implicit GEMM on the tensor
+// cores, launched three times a call by specblock_wide_bf16: conv1 (Cin
+// -> C) into t1, conv2 into t2 (t1, t2: (B, H, W, C) bf16 NHWC scratch in
+// device memory, allocated by the wrapper), conv3 with the 2x2 pool in its
+// epilogue into out.  Not fused as the narrow kernels are: a CTA that
+// keeps the chain on chip needs a stage's whole weights (at C = 256 conv2's
+// are 9*256*256*2 B = 1.18 MB) streamed through shared memory, while the
+// intermediates through device memory are small at the wide blocks'
+// planes (B=256 on 8x6 at C = 256: two 6.3 MB tensors, ~4 us at 3.35
+// TB/s, mostly L2-resident; 100x76 at C = 64: two 249 MB, ~0.3 ms).
+//   GEMM: M = B*H*W output pixels in window-major order, m = ((b*H/2 + wy)
+// *W/2 + wx)*4 + 2*dy + dx for pixel (b, 2wy+dy, 2wx+dx), so a 2x2 window
+// is 4 consecutive rows and m/4 is the pooled pixel's NHWC index (H, W
+// even; M % 4 == 0, so no window straddles a 128-row tile).  N = C in
+// tiles of 64: C only sets the grid.  K = 9 taps x Cin, tap-major, in
+// K-blocks of 32 channels (16 channel-pair words) of one tap: the row
+// order of ops/cuda_specblock._pack_bf16_pairs (row j = tap*Cin/2 + p), so
+// B reads those words unchanged, 16 rows a K-block.
+//   CTA: 128 pixels x 64 channels, 4 warps as 2 (M) x 2 (N) of 64 x 32
+// (4 m16 x 4 n8 tiles), mma.sync m16n8k16 bf16 with f32 accumulators;
+// __launch_bounds__(128, 4): 128 registers, 4 CTAs an SM, so Cout 256 on
+// 8x6 at B=256 (384 CTAs) is resident in one wave.  (8 warps of 32 x 32,
+// half the MMAs a warp between barriers and 2 CTAs an SM, took 1.25x as
+// long on an H100 80GB HBM3 at 700 W: scripts/torch_specblock_wide.py
+// --tiles.)  A 3-stage cp.async ring (44,544 B of static shared memory,
+// no whole-stage weight staging): each A row (one pixel's 32 channels of
+// one tap) gathered from NHWC memory, 16 B (8 channels) a cp.async, a tap
+// outside the image zero-filled (src-size 0: the SAME padding), as are
+// rows past M (never stored); each B row copied from the packed words.
+// Row pitches 20 (A) and 72 (B) words, so a fragment's 8 rows x 4 words
+// hit 32 distinct banks.
+//   Epilogue, f32: bias, ReLU, rounded to bf16.  Launches 1-2 store each
+// pair word at the pixel's NHWC address.  Launch 3 first reduces each
+// window: its 4 rows are accumulator rows g..g+3 (g % 4 == 0), lanes 4 and
+// 8 apart (__shfl_xor_sync), on the rounded values (max, or the f32 sum x
+// 0.25 rounded to bf16, as _chain_convpool and the TPU kernel round), and
+// stores only the window's word at out[m/4].  Cin not a multiple of 32
+// (conv1 only; blocks 3-5 have 32/64/128) is zero-padded by the wrapper.
+//   Bound on an H100: bf16 operations at 989 TFLOP/s (blocks 3-5 at B=256
+// on a 64x48 input: 9.06 + 9.06 GFLOP, Cout 256 on 8x6: 36.2 GFLOP; 100x76
+// at C = 64: 358.6 GFLOP); bytes second (each intermediate written once
+// and gathered once a tap, the repeats mostly from L2).
 //
 // Shared memory per CTA (specblock_smem_bytes), 32-bit words:
 //   f32:  2 * 9*max(Cin,C)*wpitch(C) (weights hi + lo) + 3C (bias)
@@ -108,10 +152,12 @@
 //         + max(ceil(Cin/2)*488, C/2*328) + max(C/2*424, C*257), with
 //         R(n) = 9*ceil(n/2) rounded up to 4 pair rows
 //         block 2: 100,640 B (2 CTAs per SM); block 1: 41,040 B.
-//   wide: 3C + max(Cin*(T+6)^2, C*(T+2)^2) + max(C*(T+4)^2, C*(T^2+1)),
-//         T = wide_tile(C): (32 -> 64) 63,232 B, (64 -> 128) 126,464 B,
-//         (128 -> 256) 119,808 B.
+//   wide f32: 3C + max(Cin*(T+6)^2, C*(T+2)^2) + max(C*(T+4)^2,
+//         C*(T^2+1)), T = wide_tile(C): (32 -> 64) 63,232 B, (64 -> 128)
+//         126,464 B, (128 -> 256) 119,808 B.
 // Above 48 KB, so cudaFuncSetAttribute raises the limit per launch.
+//   wide bf16: 3 stages x (128*20 + 16*72) words = 44,544 B, static, for
+//         every (Cin, C).
 //
 // What bounds it on an H100: at the main path's B=256 block 1 moves
 // ~369 MB in and ~491 MB out (~0.26 ms at 3.35 TB/s) and block 2 ~0.74 GB,
@@ -317,7 +363,7 @@ inline size_t wide_smem_bytes(int cin, int c) {
 // planes of rout x rout, pitch `dpitch`), rout = rin - 2; weights w
 // [tap][ci][co] in device memory (16-byte aligned), read through the
 // read-only cache; `halo` as in conv_stage.
-template <int C, typename T>
+template <int C>
 __device__ __forceinline__ void wide_stage(const float* __restrict__ src,
                                            int rin, int cin,
                                            const float* __restrict__ w,
@@ -354,18 +400,18 @@ __device__ __forceinline__ void wide_stage(const float* __restrict__ src,
 #pragma unroll
     for (int j = 0; j < kGroup; ++j) {
       const int co = grp * kGroup + j;
-      const float r = inside ? fmaxf(acc[j] + sb[co], 0.f) : 0.f;
-      dst[co * dpitch + p] = round_to<T>(r);
+      dst[co * dpitch + p] = inside ? fmaxf(acc[j] + sb[co], 0.f) : 0.f;
     }
   }
 }
 
-template <int C, typename T>
+template <int C>
 __global__ void __launch_bounds__(kThreads)
-specblock_wide_kernel(const T* __restrict__ x, const float* __restrict__ w1,
+specblock_wide_kernel(const float* __restrict__ x,
+                      const float* __restrict__ w1,
                       const float* __restrict__ w2,
                       const float* __restrict__ w3,
-                      const float* __restrict__ bias, T* __restrict__ out,
+                      const float* __restrict__ bias, float* __restrict__ out,
                       int H, int W, int cin, int tiles_x, int pool_max) {
   constexpr int TL = wide_tile(C);
   constexpr int R0 = TL + 6, R1 = TL + 4, R2 = TL + 2, P3 = TL * TL + 1;
@@ -381,13 +427,13 @@ specblock_wide_kernel(const T* __restrict__ x, const float* __restrict__ w1,
   stage_input<R0>(x, buf0, R0 * R0, b, y0, x0, H, W, cin);
   for (int i = threadIdx.x; i < 3 * C; i += blockDim.x) sb[i] = bias[i];
   __syncthreads();
-  wide_stage<C, T>(buf0, R0, cin, w1, sb, bufa, R1 * R1, 2, y0, x0, H, W);
+  wide_stage<C>(buf0, R0, cin, w1, sb, bufa, R1 * R1, 2, y0, x0, H, W);
   __syncthreads();
-  wide_stage<C, T>(bufa, R1, C, w2, sb + C, buf0, R2 * R2, 1, y0, x0, H, W);
+  wide_stage<C>(bufa, R1, C, w2, sb + C, buf0, R2 * R2, 1, y0, x0, H, W);
   __syncthreads();
-  wide_stage<C, T>(buf0, R2, C, w3, sb + 2 * C, bufa, P3, 0, y0, x0, H, W);
+  wide_stage<C>(buf0, R2, C, w3, sb + 2 * C, bufa, P3, 0, y0, x0, H, W);
   __syncthreads();
-  pool_store<C, T, TL, P3>(bufa, out, b, y0, x0, H, W, pool_max);
+  pool_store<C, float, TL, P3>(bufa, out, b, y0, x0, H, W, pool_max);
 }
 
 // --- tensor-core (3xTF32) path -------------------------------------------
@@ -921,6 +967,203 @@ specblock_bf16_tc_kernel(const __nv_bfloat16* __restrict__ x,
   pool_store<C, __nv_bfloat16>(c3, out, b, y0, x0, H, W, pool_max);
 }
 
+// --- bf16 wide path: one implicit-GEMM conv, three launches ---------------
+
+// CTA tile: kWWarpsM x kWWarpsN warps, each kWMI m16 tiles x 4 n8 tiles
+// (16 kWMI x 32), so BM = 16 kWMI kWWarpsM pixels, BN = 32 kWWarpsN
+constexpr int kWWarpsM = 2, kWWarpsN = 2, kWMI = 4;
+constexpr int kWThreads = 32 * kWWarpsM * kWWarpsN;
+constexpr int kWMinBlocks = 4;           // CTAs an SM (__launch_bounds__)
+constexpr int kWM = 16 * kWMI * kWWarpsM;   // pixels a CTA (M tile)
+constexpr int kWN = 32 * kWWarpsN;          // output channels a CTA (N tile)
+constexpr int kWK = 16;                  // pair words a K-block (32 channels)
+constexpr int kWAP = kWK + 4;            // A row pitch, words
+constexpr int kWBP = kWN + 8;            // B row pitch, words
+constexpr int kWStages = 3;
+constexpr int kWStageWords = kWM * kWAP + kWK * kWBP;
+constexpr int kWideBf16Smem = kWStages * kWStageWords * 4;
+constexpr int kWA = kWM * 4 / kWThreads;     // A rows a thread copies
+constexpr int kWB = kWK * kWN / 4 / kWThreads;   // B chunks a thread copies
+static_assert(kWideBf16Smem <= 48 * 1024 && kWA >= 1 && kWB >= 1 &&
+              kWThreads % 16 == 0, "wide bf16 tile");
+enum { kPoolNone = 0, kPoolMax = 1, kPoolAvg = 2 };
+
+// cp.async of 16 bytes, zero-filled (nothing read) where !valid
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// NHWC pixel index of window-major GEMM row m, and its (y, x)
+__device__ __forceinline__ int wide_pixel(int m, int H, int W, int& y,
+                                          int& x) {
+  const int win = m >> 2, w2 = W >> 1, h2 = H >> 1;
+  const int wx = win % w2, r = win / w2;
+  const int wy = r % h2, b = r / h2;
+  y = 2 * wy + ((m >> 1) & 1);
+  x = 2 * wx + (m & 1);
+  return (b * H + y) * W + x;
+}
+
+// out = conv3x3_SAME(x, w) + bias, ReLU, bf16; Pool != kPoolNone: then the
+// 2x2 pool, out (B, H/2, W/2, C).  x (B, H, W, cin) NHWC, cin % 32 == 0;
+// w the packed pair words (9*cin/2, C); M = B*H*W; grid ceil(M/kWM) *
+// C/kWN.
+template <int Pool>
+__global__ void __launch_bounds__(kWThreads, kWMinBlocks)
+wide_bf16_conv_kernel(const __nv_bfloat16* __restrict__ x,
+                      const uint32_t* __restrict__ w,
+                      const float* __restrict__ bias,
+                      __nv_bfloat16* __restrict__ out, int M, int H, int W,
+                      int cin, int C) {
+  __shared__ __align__(16) uint32_t smem[kWStages * kWStageWords];
+  const int ntiles = C / kWN;
+  const int m0 = (blockIdx.x / ntiles) * kWM;
+  const int n0 = (blockIdx.x % ntiles) * kWN;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp % kWWarpsM, wn = warp / kWWarpsM;
+  const int cblocks = cin / 32, kblocks = 9 * cblocks;
+
+  // this thread's copies: A rows ar + h * kWThreads/4 at chunk aq
+  // (channels 8aq..8aq+7); B rows br + h * kWThreads/16 at chunk bq
+  // (words 4bq..4bq+3)
+  const int ar = tid / 4, aq = tid % 4;
+  const __nv_bfloat16* abase[kWA];
+  int ay[kWA], ax[kWA];
+#pragma unroll
+  for (int h = 0; h < kWA; ++h) {
+    const int m = m0 + ar + h * (kWThreads / 4);
+    if (m < M) {
+      const int p = wide_pixel(m, H, W, ay[h], ax[h]);
+      abase[h] = x + static_cast<size_t>(p) * cin + 8 * aq;
+    } else {              // every tap outside the image: zero rows
+      ay[h] = -4;
+      ax[h] = 0;
+      abase[h] = x;
+    }
+  }
+  const int br = tid / 16, bq = tid % 16;
+  const uint32_t* bsrc = w + static_cast<size_t>(br) * C + n0 + 4 * bq;
+
+  auto load = [&](int kb, int s) {
+    uint32_t* sa = smem + s * kWStageWords;
+    uint32_t* sb = sa + kWM * kWAP;
+    const int tap = kb / cblocks, cb = kb - tap * cblocks;
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+#pragma unroll
+    for (int h = 0; h < kWA; ++h) {
+      const int yy = ay[h] + dy, xx = ax[h] + dx;
+      const bool ok = yy >= 0 && yy < H && xx >= 0 && xx < W;
+      const __nv_bfloat16* src =
+          ok ? abase[h] + (static_cast<ptrdiff_t>(dy) * W + dx) * cin + 32 * cb
+             : x;
+      cp_async16_zfill(sa + (ar + h * (kWThreads / 4)) * kWAP + 4 * aq, src,
+                       ok);
+    }
+#pragma unroll
+    for (int h = 0; h < kWB; ++h)
+      cp_async16(sb + (br + h * (kWThreads / 16)) * kWBP + 4 * bq,
+                 bsrc + (static_cast<size_t>(kb) * kWK + h * (kWThreads / 16))
+                            * C);
+  };
+
+  float acc[kWMI][4][4];
+#pragma unroll
+  for (int i = 0; i < kWMI; ++i)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][n][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kWStages - 1; ++s) {
+    if (s < kblocks) load(s, s);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int kb = 0; kb < kblocks; ++kb) {
+    cp_async_wait<kWStages - 2>();   // K-block kb has landed
+    __syncthreads();                 // and every warp is done with kb - 1
+    const int nx = kb + kWStages - 1;
+    if (nx < kblocks) load(nx, nx % kWStages);
+    cp_async_commit();
+    const uint32_t* sa = smem + (kb % kWStages) * kWStageWords;
+    const uint32_t* sb = sa + kWM * kWAP;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {   // two k16 steps of 8 pair words
+      uint32_t b[4][2];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const uint32_t* pb = sb + (ks * 8 + t) * kWBP + wn * 32 + n * 8 + g;
+        b[n][0] = pb[0];
+        b[n][1] = pb[4 * kWBP];
+      }
+#pragma unroll
+      for (int i = 0; i < kWMI; ++i) {
+        const uint32_t* pa =
+            sa + (wm * 16 * kWMI + i * 16 + g) * kWAP + ks * 8 + t;
+        const uint32_t a0 = pa[0], a1 = pa[8 * kWAP];
+        const uint32_t a2 = pa[4], a3 = pa[8 * kWAP + 4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          mma_bf16_k16(acc[i][n], a0, a1, a2, a3, b[n][0], b[n][1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  uint32_t* ow = reinterpret_cast<uint32_t*>(out);
+#pragma unroll
+  for (int i = 0; i < kWMI; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 16 * kWMI + i * 16 + g + 8 * h;
+      size_t row = 0;   // the word index of channel 0 of this row's output
+      if constexpr (Pool == kPoolNone) {
+        int y, xx;
+        if (m < M)
+          row = static_cast<size_t>(wide_pixel(m, H, W, y, xx)) * C / 2;
+      } else {
+        row = static_cast<size_t>(m >> 2) * C / 2;
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int co = n0 + wn * 32 + n * 8 + 2 * t;
+        float r0 = round_to<__nv_bfloat16>(
+            fmaxf(acc[i][n][2 * h] + bias[co], 0.f));
+        float r1 = round_to<__nv_bfloat16>(
+            fmaxf(acc[i][n][2 * h + 1] + bias[co + 1], 0.f));
+        if constexpr (Pool == kPoolMax) {
+          r0 = fmaxf(r0, __shfl_xor_sync(0xffffffffu, r0, 4));
+          r1 = fmaxf(r1, __shfl_xor_sync(0xffffffffu, r1, 4));
+          r0 = fmaxf(r0, __shfl_xor_sync(0xffffffffu, r0, 8));
+          r1 = fmaxf(r1, __shfl_xor_sync(0xffffffffu, r1, 8));
+        } else if constexpr (Pool == kPoolAvg) {
+          r0 += __shfl_xor_sync(0xffffffffu, r0, 4);
+          r1 += __shfl_xor_sync(0xffffffffu, r1, 4);
+          r0 = (r0 + __shfl_xor_sync(0xffffffffu, r0, 8)) * 0.25f;
+          r1 = (r1 + __shfl_xor_sync(0xffffffffu, r1, 8)) * 0.25f;
+        }
+        if (m < M && (Pool == kPoolNone || g % 4 == 0))
+          ow[row + co / 2] = pack_bf16(r0, r1);
+      }
+    }
+}
+
+template <int Pool>
+int launch_wide_bf16(const void* x, const void* w, const float* bias,
+                     void* out, int M, int H, int W, int cin, int C,
+                     cudaStream_t st) {
+  const int grid = (M + kWM - 1) / kWM * (C / kWN);
+  wide_bf16_conv_kernel<Pool><<<grid, kWThreads, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(w),
+      bias, static_cast<__nv_bfloat16*>(out), M, H, W, cin, C);
+  return cudaGetLastError();
+}
+
 template <typename T, typename Wt>
 using Kernel = void (*)(const T*, const Wt*, const Wt*, const Wt*,
                         const float*, T*, int, int, int, int, int);
@@ -967,21 +1210,16 @@ int dispatch(const void* x, const void* w1, const void* w2, const void* w3,
                               pool_max, st);
 }
 
-// C >= 64, both storage types: the wide kernel
+// C >= 64, float32: the wide CUDA-core kernel
 template <int C>
 int dispatch_wide(const void* x, const void* w1, const void* w2,
                   const void* w3, const float* bias, void* out, int B, int H,
-                  int W, int cin, int pool_max, int bf16, cudaStream_t st) {
+                  int W, int cin, int pool_max, cudaStream_t st) {
   if (!aligned16({w1, w2, w3}))       // float4 weight loads
     return cudaErrorInvalidValue;
-  const size_t smem = wide_smem_bytes(cin, C);
-  if (bf16)
-    return launch<__nv_bfloat16, float>(
-        specblock_wide_kernel<C, __nv_bfloat16>, smem, wide_tile(C), x, w1,
-        w2, w3, bias, out, B, H, W, cin, pool_max, st);
-  return launch<float, float>(specblock_wide_kernel<C, float>, smem,
-                              wide_tile(C), x, w1, w2, w3, bias, out, B, H, W,
-                              cin, pool_max, st);
+  return launch<float, float>(specblock_wide_kernel<C>,
+                              wide_smem_bytes(cin, C), wide_tile(C), x, w1,
+                              w2, w3, bias, out, B, H, W, cin, pool_max, st);
 }
 
 }  // namespace
@@ -989,28 +1227,66 @@ int dispatch_wide(const void* x, const void* w1, const void* w2,
 extern "C" {
 
 // Shared-memory bytes one CTA needs for (cin, cout) and the storage type
-// (cout >= 64: the wide kernel; else the tensor-core kernel of the type,
-// bf16 != 0: specblock_bf16_tc_kernel).
+// (cout >= 64: the wide kernels, bf16 != 0: wide_bf16_conv_kernel; else
+// the tensor-core kernel of the type, bf16 != 0: specblock_bf16_tc_kernel).
 long long specblock_smem_bytes(int cin, int cout, int bf16) {
-  if (cout >= 64) return static_cast<long long>(wide_smem_bytes(cin, cout));
+  if (cout >= 64)
+    return bf16 ? kWideBf16Smem
+                : static_cast<long long>(wide_smem_bytes(cin, cout));
   return static_cast<long long>(bf16 ? bf16_smem_bytes(cin, cout)
                                      : tc_smem_bytes(cin, cout));
 }
 
+// The bf16 block at cout in {64, 128, 256}: three launches of
+// wide_bf16_conv_kernel on `stream`, x -> t1 -> t2 -> out.  x: (B, H, W,
+// cin) bf16 NHWC with cin % 32 == 0 (the wrapper zero-pads); w1, w2, w3:
+// the int32 words (9*cin/2 or 9*cout/2, cout) of
+// ops/cuda_specblock._pack_bf16_pairs; bias: (3, cout) f32; t1, t2: (B, H,
+// W, cout) bf16 scratch; out: (B, H/2, W/2, cout) bf16.  x, t1, t2 and the
+// weights 16-byte aligned, out 4-byte; H, W even; B*H*W < 2^31 - 128.
+// Returns the first launch's cudaGetLastError() that is not cudaSuccess
+// (or cudaErrorInvalidValue for shapes it does not take).
+int specblock_wide_bf16(const void* x, const void* w1, const void* w2,
+                        const void* w3, const float* bias, void* t1,
+                        void* t2, void* out, int B, int H, int W, int cin,
+                        int cout, int pool_max, void* stream) {
+  const long long M = static_cast<long long>(B) * H * W;
+  if (B < 1 || H < 2 || W < 2 || H % 2 || W % 2 || cin < 32 || cin % 32 ||
+      (cout != 64 && cout != 128 && cout != 256) || M > (1LL << 31) - 129 ||
+      !aligned16({x, w1, w2, w3, t1, t2}) ||
+      reinterpret_cast<uintptr_t>(out) % 4)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int m = static_cast<int>(M);
+  int e = launch_wide_bf16<kPoolNone>(x, w1, bias, t1, m, H, W, cin, cout,
+                                      st);
+  if (e == cudaSuccess)
+    e = launch_wide_bf16<kPoolNone>(t1, w2, bias + cout, t2, m, H, W, cout,
+                                    cout, st);
+  if (e == cudaSuccess)
+    e = pool_max ? launch_wide_bf16<kPoolMax>(t2, w3, bias + 2 * cout, out,
+                                              m, H, W, cout, cout, st)
+                 : launch_wide_bf16<kPoolAvg>(t2, w3, bias + 2 * cout, out,
+                                              m, H, W, cout, cout, st);
+  return e;
+}
+
 // x: (B, H, W, cin) NHWC of the storage type (bf16 != 0: __nv_bfloat16,
 // else float); w1: (3, 3, cin, cout), w2, w3: (3, 3, cout, cout) HWIO f32
-// (already rounded to the storage type), except for bf16 with cout <= 32:
-// each the int32 words (bf16_rows(cin or cout), cout) of
+// (already rounded to the storage type), except for bf16: each the int32
+// words (bf16_rows(cin or cout), cout) of
 // ops/cuda_specblock._pack_bf16_pairs; bias: (3, cout) f32; out:
 // (B, H/2, W/2, cout) NHWC of the storage type.  x and the weights 16-byte
-// aligned; H, W even; cout in {8, 16, 32, 64, 128, 256}; B <= 65535.
-// Returns cudaGetLastError() (or cudaErrorInvalidValue for shapes it does
-// not take).
+// aligned; H, W even; cout in {8, 16, 32, 64, 128, 256}, bf16 only up to
+// 32 (wider: specblock_wide_bf16); B <= 65535.  Returns
+// cudaGetLastError() (or cudaErrorInvalidValue for shapes it does not
+// take).
 int specblock_convpool(const void* x, const void* w1, const void* w2,
                        const void* w3, const float* bias, void* out, int B,
                        int H, int W, int cin, int cout, int pool_max,
                        int bf16, void* stream) {
-  if (B < 1 || B > 65535 || H < 2 || W < 2 || H % 2 || W % 2 || cin < 1)
+  if (B < 1 || B > 65535 || H < 2 || W < 2 || H % 2 || W % 2 || cin < 1 ||
+      (bf16 && cout >= 64))   // bf16 at cout >= 64: specblock_wide_bf16
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (cout) {
@@ -1025,13 +1301,13 @@ int specblock_convpool(const void* x, const void* w1, const void* w2,
                           bf16, st);
     case 64:
       return dispatch_wide<64>(x, w1, w2, w3, bias, out, B, H, W, cin,
-                               pool_max, bf16, st);
+                               pool_max, st);
     case 128:
       return dispatch_wide<128>(x, w1, w2, w3, bias, out, B, H, W, cin,
-                                pool_max, bf16, st);
+                                pool_max, st);
     case 256:
       return dispatch_wide<256>(x, w1, w2, w3, bias, out, B, H, W, cin,
-                                pool_max, bf16, st);
+                                pool_max, st);
     default:
       return cudaErrorInvalidValue;
   }

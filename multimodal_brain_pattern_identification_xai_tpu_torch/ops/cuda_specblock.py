@@ -4,13 +4,17 @@
 :func:`fused_specblock_convpool` computes, on NHWC input, three 3×3 SAME
 convs with bias and ReLU (Cin→C, C→C, C→C) and then a 2×2 stride-2 VALID
 max or avg pool, each stage stored in ``dtype`` (float32, or bf16 with
-float32 accumulation).  A CUDA tensor launches ``specblock_convpool``
-(``csrc/specblock.cu``), whose intermediates never leave shared memory; a
-CPU tensor takes :func:`_plain_convpool` (``F.conv2d`` ×3 + pool).  For
-Cout 8/16/32 both types run on the tensor cores: float32 as a 3xTF32
-implicit GEMM, bf16 as a bf16 implicit GEMM whose weights
-:func:`_pack_bf16_pairs` packs into channel-pair words; Cout 64/128/256 run
-the wide CUDA-core kernel in either type.  Launches are counted in
+float32 accumulation).  A CUDA tensor launches a kernel of
+``csrc/specblock.cu``; a CPU tensor takes :func:`_plain_convpool`
+(``F.conv2d`` ×3 + pool).  For Cout 8/16/32 both types run
+``specblock_convpool`` on the tensor cores, intermediates in shared
+memory: float32 as a 3xTF32 implicit GEMM, bf16 as a bf16 implicit GEMM
+whose weights :func:`_pack_bf16_pairs` packs into channel-pair words.  For
+Cout 64/128/256, float32 runs the wide CUDA-core kernel; bf16 runs
+``specblock_wide_bf16``: three device launches of one bf16 implicit-GEMM
+conv on the tensor cores (the same packed words, Cin zero-padded to a
+multiple of 32 by :func:`_pad_cin`), the two intermediates in device
+scratch, the pool in the third launch.  Launches are counted per call in
 ``fused_specblock_convpool.launches``, and by kernel (:func:`kernel_name`)
 in ``fused_specblock_convpool.kernel_launches``.
 
@@ -37,6 +41,8 @@ from .. import _build
 #: kernels, :data:`WIDE_COUTS` on the wide kernel
 KERNEL_COUTS = (8, 16, 32, 64, 128, 256)
 WIDE_COUTS = (64, 128, 256)
+#: channels of one K-block of the bf16 wide conv (one tap's 16 pair words)
+WIDE_K_CHANNELS = 32
 MAX_BATCH = 65535
 
 _P = ctypes.c_void_p
@@ -49,6 +55,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("specblock")
     lib.specblock_convpool.argtypes = [_P] * 6 + [_I] * 7 + [_P]
     lib.specblock_convpool.restype = _I
+    lib.specblock_wide_bf16.argtypes = [_P] * 8 + [_I] * 6 + [_P]
+    lib.specblock_wide_bf16.restype = _I
     lib.specblock_smem_bytes.argtypes = [_I, _I, _I]
     lib.specblock_smem_bytes.restype = ctypes.c_longlong
     return lib
@@ -65,7 +73,8 @@ def kernel_name(cout: int, dtype: torch.dtype) -> str:
     """The kernel a (Cout, storage type) launches: ``specblock_convpool``
     (float32, the 3xTF32 tensor-core kernel), ``specblock_convpool_bf16``
     (bf16, the bf16 tensor-core kernel), ``specblock_convpool_wide`` and
-    ``specblock_convpool_wide_bf16`` (Cout in :data:`WIDE_COUTS`)."""
+    ``specblock_convpool_wide_bf16`` (Cout in :data:`WIDE_COUTS`; the bf16
+    one is counted once a call, for its three device launches)."""
     name = "specblock_convpool_wide" if cout in WIDE_COUTS \
         else "specblock_convpool"
     return name + ("_bf16" if dtype == torch.bfloat16 else "")
@@ -124,8 +133,19 @@ def _check_cuda_args(x, kernels, biases, pool, dtype) -> None:
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it where its data does not start on 16 bytes
-    (the Cout <= 32 kernels read x and the weights 16 bytes at a time)."""
+    (the tensor-core kernels read x and the weights 16 bytes at a time)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _pad_cin(x: torch.Tensor, k1: torch.Tensor):
+    """x (B, H, W, Cin) and conv1's HWIO kernel (3, 3, Cin, C) with Cin
+    zero-padded to a multiple of :data:`WIDE_K_CHANNELS` (the bf16 wide
+    conv's K-blocks); unchanged where it already is one.  The zero channels
+    meet zero weights, so conv1 computes the same function."""
+    pad = -x.shape[-1] % WIDE_K_CHANNELS
+    if pad:
+        x, k1 = F.pad(x, (0, pad)), F.pad(k1, (0, 0, 0, pad))
+    return x, k1
 
 
 def _pack_bf16_pairs(k: torch.Tensor) -> torch.Tensor:
@@ -152,19 +172,36 @@ def _launch(x, kernels, biases, pool, dtype) -> torch.Tensor:
     x = _aligned(x.to(dtype))
     b, h, w, cin = x.shape
     co = kernels[0].shape[-1]
-    if dtype == torch.bfloat16 and co not in WIDE_COUTS:
+    bf16 = dtype == torch.bfloat16
+    wide_bf16 = bf16 and co in WIDE_COUTS
+    if wide_bf16:
+        x, k1 = _pad_cin(x, kernels[0])
+        kernels = (k1, *kernels[1:])
+    if bf16:
         ws = [_aligned(_pack_bf16_pairs(k)) for k in kernels]
     else:
         ws = [_aligned(k.to(dtype).float().contiguous()) for k in kernels]
     bias = torch.stack([bi.float() for bi in biases]).contiguous()
     out = torch.empty((b, h // 2, w // 2, co), dtype=dtype, device=x.device)
+    pool_max = int(pool == "max")
     with torch.cuda.device(x.device):
-        rc = _lib().specblock_convpool(
-            x.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(),
-            ws[2].data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, cin,
-            co, int(pool == "max"), int(dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, "specblock_convpool")
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if wide_bf16:
+            # conv1 and conv2 outputs; torch.empty is safe under capture
+            t1, t2 = (torch.empty((b, h, w, co), dtype=dtype,
+                                  device=x.device) for _ in range(2))
+            rc = _lib().specblock_wide_bf16(
+                x.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(),
+                ws[2].data_ptr(), bias.data_ptr(), t1.data_ptr(),
+                t2.data_ptr(), out.data_ptr(), b, h, w, x.shape[-1], co,
+                pool_max, stream)
+        else:
+            rc = _lib().specblock_convpool(
+                x.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(),
+                ws[2].data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w,
+                cin, co, pool_max, int(bf16), stream)
+    _build.check(rc, "specblock_wide_bf16" if wide_bf16
+                 else "specblock_convpool")
     fused_specblock_convpool.launches += 1
     fused_specblock_convpool.kernel_launches[kernel_name(co, dtype)] += 1
     return out

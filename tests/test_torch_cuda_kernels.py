@@ -272,6 +272,18 @@ _SPECBLOCK_CASES = [
     for h, w in ((16, 12), (8, 6), (20, 18))
     for pool in ("max", "avg")
     for dt in (torch.float32, torch.bfloat16)
+] + [
+    # the bf16 wide conv's edges: Cin 24 and 5 (conv1 zero-padded to 32
+    # channels); B = 1 on 10x6 (M = 60, under one 128-pixel tile); x100
+    # inputs at Cout 256; a 100x76 plane (many tiles, B = 2)
+    _case(torch.bfloat16, cin, cout, h, w, pool, batch=batch, scale=scale,
+          id=ident, wscale=float(np.sqrt(2 / (9 * cin))))
+    for cin, cout, h, w, pool, batch, scale, ident in (
+        (24, 64, 16, 12, "max", 2, 1.0, "wide-cin24"),
+        (5, 64, 10, 6, "avg", 2, 1.0, "wide-cin5"),
+        (32, 64, 10, 6, "max", 1, 1.0, "wide-B1-10x6"),
+        (128, 256, 8, 6, "max", 2, 100.0, "wide-256-x100"),
+        (32, 64, 100, 76, "avg", 2, 1.0, "wide-100x76"))
 ]
 
 
@@ -336,26 +348,57 @@ def test_specblock_other_width_raises(dev):
             x.to(dev), [k.to(dev) for k in ks], [b.to(dev) for b in bs])
 
 
+@pytest.mark.parametrize("pool", ["max", "avg"])
+def test_specblock_wide_bf16_captured_equals_eager(dev, pool):
+    """A bf16 wide call (its t1, t2 scratch allocated under capture)
+    captured in a CUDA graph gives the eager call's output exactly on two
+    inputs copied into the graph's input tensor."""
+    x, ks, bs = _block_args(32, 64, 16, 12, wscale=float(np.sqrt(2 / 288)))
+    xd = x.to(dev).to(torch.bfloat16)
+    kd, bd = [k.to(dev) for k in ks], [b.to(dev) for b in bs]
+    call = lambda: cuda_specblock.fused_specblock_convpool(
+        xd, kd, bd, pool=pool, dtype=torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()                                   # warm-up (build, pack)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for shift in (0.0, 0.5):
+        xd.copy_((x + shift).to(torch.bfloat16))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, call())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fused_blocks", [3, 4])
-def test_speccnn_fused_wide_blocks_match_unfused(dev, fused_blocks):
+def test_speccnn_fused_wide_blocks_match_unfused(dev, fused_blocks, dtype):
     """SpectrogramCNN with blocks 3-4 fused (Cout 64 on 16x12, 128 on 8x6)
-    against the unfused model on a 64x48 input: log-probs within 1e-3, the
-    GPU-vs-CPU bound of chip_smoke.py (float32, sums in other orders)."""
-    fused_m = SpectrogramCNN(fused_blocks=fused_blocks)
+    against the unfused model on a 64x48 input: float32 log-probs within
+    1e-3, the GPU-vs-CPU bound of chip_smoke.py (sums in other orders);
+    bf16 probabilities within 2e-2 (the JAX package's bf16 bound)."""
+    serving = None if dtype == torch.float32 else dtype
+    fused_m = SpectrogramCNN(fused_blocks=fused_blocks, dtype=serving)
     fused_m.load_state_dict(seeded_state_dict(fused_m, 4))
-    plain_m = SpectrogramCNN()
+    plain_m = SpectrogramCNN(dtype=serving)
     plain_m.load_state_dict(fused_m.state_dict())
     fused_m.to(dev).eval()
     plain_m.to(dev).eval()
     x = _signal((2, 3, 64, 48), 1.0).to(dev)
     fused = cuda_specblock.fused_specblock_convpool
-    n0 = fused.kernel_launches["specblock_convpool_wide"]
+    name = cuda_specblock.kernel_name(64, dtype)
+    n0 = fused.kernel_launches[name]
     with torch.no_grad():
         got, want = fused_m(x), plain_m(x)
     torch.cuda.synchronize()
-    assert fused.kernel_launches["specblock_convpool_wide"] == \
-        n0 + fused_blocks - 2
-    assert float((got - want).abs().max()) < 1e-3
+    assert fused.kernel_launches[name] == n0 + fused_blocks - 2
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) < 1e-3
+    else:
+        assert float((got.exp() - want.exp()).abs().max()) < 2e-2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
