@@ -9,7 +9,7 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
               once; prints ptxas's register / shared-memory / spill lines
               (for the IIR kernels a summary and the serving path's
               instantiations; the spectrogram block's f32 and bf16
-              tensor-core kernels, the bf16 wide conv's three
+              tensor-core kernels, both wide convs' three
               instantiations included, must not spill), each block's
               shared memory for f32 and bf16, and, where ``cuobjdump`` is
               found, the ``HMMA`` instructions in each kernel's SASS (TF32
@@ -27,10 +27,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
               bf16 kernel at blocks 1-2 of the serving size, B=256 and
               B=4, held against the float32 chain and the plain bf16
               chain; the wide
-              block (Cout 64/128/256: f32 on the CUDA cores, bf16 as three
-              launches of one tensor-core conv) on the planes of a 64x48
-              input and on a 100x76 plane, each beside its bound and the
-              cuDNN chain; the bf16 kernel at the 200x150 preset's
+              block (Cout 64/128/256: three launches of one tensor-core
+              conv, 3xTF32 in f32, bf16 in bf16) on the planes of a 64x48
+              input and on a 100x76 plane, as one CUDA graph (and eagerly),
+              each beside its bound and the cuDNN chain; the bf16 kernel
+              at the 200x150 preset's
               block 1, B=256 and B=4;
 4. main     — the serving entry at B=4 on cuda, NaN route (a NaN run in one
               EEG channel of one window, a NaN pixel and an all-NaN
@@ -270,7 +271,8 @@ def phase_build(card: str) -> None:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
             tc = func and re.search(
-                r"specblock_(bf16_)?tc_kernel|wide_bf16_conv_kernel", func)
+                r"specblock_(bf16_)?tc_kernel|wide_(bf16|tf32)_conv_kernel",
+                func)
             if m and tc:
                 print(f"[build] {tc.group(0)} ({func}): spill stores "
                       f"{m.group(1)} B, spill loads {m.group(2)} B")
@@ -283,10 +285,11 @@ def phase_build(card: str) -> None:
               f"bf16 (bf16 tensor cores) "
               f"{lib.specblock_smem_bytes(cin, co, 1)} bytes")
     for cin, co in WIDE_SHAPES:
-        print(f"[build] specblock wide smem (cin={cin}, cout={co}): f32 "
-              f"(CUDA cores, dynamic) {lib.specblock_smem_bytes(cin, co, 0)}"
-              f" bytes, bf16 (wide_bf16_conv_kernel, static, each of three "
-              f"launches) {lib.specblock_smem_bytes(cin, co, 1)} bytes")
+        print(f"[build] specblock wide smem (cin={cin}, cout={co}), static, "
+              f"each of three launches: f32 (wide_tf32_conv_kernel) "
+              f"{lib.specblock_smem_bytes(cin, co, 0)} bytes, bf16 "
+              f"(wide_bf16_conv_kernel) {lib.specblock_smem_bytes(cin, co, 1)}"
+              f" bytes")
     cuobjdump = shutil.which("cuobjdump") or str(
         Path(_build._nvcc()).parent / "cuobjdump")
     if Path(cuobjdump).exists():
@@ -307,7 +310,8 @@ def phase_build(card: str) -> None:
             print(f"[build] SASS {func}: {n} {op} instructions")
         for kern, op in (("specblock_tc_kernel", "TF32"),
                          ("specblock_bf16_tc_kernel", "BF16"),
-                         ("wide_bf16_conv_kernel", "BF16")):
+                         ("wide_bf16_conv_kernel", "BF16"),
+                         ("wide_tf32_conv_kernel", "TF32")):
             found = {f for f, o in counts if kern in f and o.endswith(op)}
             require(len(found) == 3, f"{kern}: {len(found)} of 3 "
                     f"instantiations contain {op} HMMA")
@@ -343,12 +347,12 @@ def specblock_case(card, dev, what, b, h, w, cin, co, pool, dtype, reps,
     timed beside the plain chain and the cuDNN chain in the same type, on
     x already in that type (as the serving path passes it); ``graph``:
     ``reps`` calls captured in one CUDA graph, for sizes where the host's
-    launches would outlast the device.  Weights ~ N(0, wscale²), by
-    default at the He scale so that activations stay O(1).  Bound: x,
-    weights and the output moved once against the useful operations at
-    the rate of the kernel's datapath: 3xTF32 (three tensor-core products per useful one at 495
-    TFLOP/s; the pool on the CUDA cores) for the float32 kernel of Cout
-    <= 32, 67 TFLOP/s for float32 on the CUDA cores, 989 TFLOP/s for
+    launches would outlast the device (then also timed eagerly,
+    ``ms_eager``).  Weights ~ N(0, wscale²), by default at the He scale so
+    that activations stay O(1).  Bound: x, weights and the output moved
+    once against the useful operations at the rate of the kernel's
+    datapath: 3xTF32 (three tensor-core products per useful one at 495
+    TFLOP/s; the pool on the CUDA cores) for float32, 989 TFLOP/s for
     bf16."""
     from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
         cuda_specblock)
@@ -386,6 +390,7 @@ def specblock_case(card, dev, what, b, h, w, cin, co, pool, dtype, reps,
     del y, y_plain, truth
     timer = graph_ms if graph else cuda_ms
     ms = timer(fused, reps)
+    ms_eager = cuda_ms(fused, reps) if graph else ms
     plain_ms = timer(plain, reps)
     lib_ms = timer(_cudnn_chain(x, ks, bs, pool, dtype), reps)
     es = 4 if dtype == torch.float32 else 2
@@ -394,22 +399,23 @@ def specblock_case(card, dev, what, b, h, w, cin, co, pool, dtype, reps,
     conv_flops = 2 * 9 * (cin * co + 2 * co * co) * b * h * w
     pool_flops = (3 if pool == "max" else 4) * b * (h // 2) * (w // 2) * co
     flops = conv_flops + pool_flops
-    if name == "specblock_convpool":
+    if dtype == torch.float32:
         t_ops = max(3 * conv_flops / TF32_FLOP_PER_S,
                     pool_flops / F32_FLOP_PER_S) * 1e3
     else:
-        t_ops = flops / (BF16_FLOP_PER_S if dtype == torch.bfloat16
-                         else F32_FLOP_PER_S) * 1e3
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bnd = max(t_bytes, t_ops)
     print(f"[kernels] {name} "
           f"{what} ({b},{h},{w},{cin})->{co} {pool}: {held}; "
           f"{'one CUDA graph: ' if graph else ''}{ms:.4f} ms = "
-          f"{flops / ms / 1e9:.2f} useful TFLOP/s; plain chain {plain_ms:.4f}"
+          f"{flops / ms / 1e9:.2f} useful TFLOP/s"
+          f"{f' (eager {ms_eager:.4f} ms)' if graph else ''}; plain chain "
+          f"{plain_ms:.4f}"
           f" ms; cuDNN chain {lib_ms:.4f} ms; bound {bnd:.4f} ms by "
           f"{'bytes' if t_bytes >= t_ops else 'operations'} [{card}]")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                t_bytes=t_bytes, t_ops=t_ops)
+    return dict(err=err, ms=ms, ms_eager=ms_eager, plain_ms=plain_ms,
+                library_ms=lib_ms, t_bytes=t_bytes, t_ops=t_ops)
 
 
 def sum_cases(cases) -> dict:
@@ -420,6 +426,7 @@ def sum_cases(cases) -> dict:
     t_ops = sum(c["t_ops"] for c in cases)
     return dict(err=max(c["err"] for c in cases),
                 ms=sum(c["ms"] for c in cases),
+                ms_eager=sum(c["ms_eager"] for c in cases),
                 plain_ms=sum(c["plain_ms"] for c in cases),
                 library_ms=sum(c["library_ms"] for c in cases),
                 bound_ms=max(t_bytes, t_ops),
@@ -588,15 +595,15 @@ def phase_kernels(card: str, dev) -> dict:
             {f"ms_{key}": c["ms"], f"bound_ms_{key}": c["bound_ms"],
              f"library_ms_{key}": c["library_ms"]})
 
-    # --- the wide block (Cout 64/128/256; f32 on the CUDA cores, bf16 as
-    # three launches of one tensor-core conv) on the planes of a 64x48
-    # input (blocks 3 and 4) and Cout 256 on 8x6, each width kept in
-    # *_by_width; then on a 100x76 plane (kept as *_large).  bf16 is timed
-    # as one CUDA graph: its device work is below the eager wrapper's host
-    # time at the small planes
+    # --- the wide block (Cout 64/128/256; three launches of one
+    # tensor-core conv, 3xTF32 in f32, bf16 in bf16) on the planes of a
+    # 64x48 input (blocks 3 and 4) and Cout 256 on 8x6, each width kept in
+    # *_by_width; then on a 100x76 plane (kept as *_large).  Timed as one
+    # CUDA graph (and eagerly, ms_eager): the device work is below the
+    # eager wrapper's host time at the small planes
     for dt, name in ((torch.float32, "specblock_convpool_wide"),
                      (torch.bfloat16, "specblock_convpool_wide_bf16")):
-        graph, reps = (True, 20) if dt == torch.bfloat16 else (False, 5)
+        graph, reps = True, 20
         cases = [
             specblock_case(card, dev, "block3 of 64x48", B_TIME, 16, 12, 32,
                            64, "max", dt, reps, graph=graph),
@@ -609,13 +616,13 @@ def phase_kernels(card: str, dev) -> dict:
                                           100, 76, 32, 64, "max", dt, 2,
                                           graph=graph)])
         rec[name].update(ms_large=large["ms"], bound_ms_large=large["bound_ms"],
-                         library_ms_large=large["library_ms"])
-        if dt == torch.bfloat16:
-            widths = [c[1] for c in WIDE_SHAPES]
-            rec[name].update(
-                ms_by_width=dict(zip(widths, (c["ms"] for c in cases))),
-                library_ms_by_width=dict(zip(widths, (c["library_ms"]
-                                                      for c in cases))))
+                         library_ms_large=large["library_ms"],
+                         ms_eager_large=large["ms_eager"])
+        widths = [c[1] for c in WIDE_SHAPES]
+        rec[name].update(
+            ms_by_width=dict(zip(widths, (c["ms"] for c in cases))),
+            library_ms_by_width=dict(zip(widths, (c["library_ms"]
+                                                  for c in cases))))
         torch.cuda.empty_cache()
     return rec
 
@@ -1313,9 +1320,11 @@ def main() -> int:
                                        f"{xai_tpu}/ops/pallas_specblock.py:242",
                                        "serving (bf16 program; also the "
                                        "200x150 preset's block 1)"),
-           "specblock_convpool_wide": (f"{PKG}/csrc/specblock.cu",
-                                       f"{xai_tpu}/ops/pallas_specblock.py:242",
-                                       "fused blocks 3-5 (64x48, 64x64)"),
+           "specblock_convpool_wide": (
+               f"{PKG}/csrc/specblock.cu",
+               f"{xai_tpu}/ops/pallas_specblock.py:242",
+               "fused blocks 3-5 (64x48, 64x64), float32; one count a call, "
+               "three device launches of wide_tf32_conv_kernel"),
            "specblock_convpool_wide_bf16": (
                f"{PKG}/csrc/specblock.cu",
                f"{xai_tpu}/ops/pallas_specblock.py:242",

@@ -4,12 +4,13 @@
 // Replaces the Pallas TPU kernel multimodal_brain_pattern_identification_xai_tpu/
 // ops/pallas_specblock.py:_make_kernel (launched by fused_specblock_convpool,
 // pallas_call at :242).  As there, the two intermediate activations never
-// reach device memory, except on the bf16 path at Cout 64/128/256 (three
-// launches of one conv, below).  The TPU kernel's phase-packed GEMM layout
+// reach device memory, except at Cout 64/128/256 (three launches of one
+// conv, below).  The TPU kernel's phase-packed GEMM layout
 // existed to fill the MXU and is not carried over.
 //
-// Tiling (both storage types): one CTA of 256 threads per (sample, 16x16
-// tile of conv3 outputs).  It stages the input tile with a 3-pixel halo in
+// Cout 8/16/32, tiling (both storage types): one CTA of 256 threads per
+// (sample, 16x16 tile of conv3 outputs), batches above gridDim.y's 65,535
+// in slices.  It stages the input tile with a 3-pixel halo in
 // shared memory (channel-planar, zero outside the image), then runs
 //   conv1: (16+6)^2 x Cin  -> (16+4)^2 x C
 //   conv2: (16+4)^2 x C    -> (16+2)^2 x C
@@ -85,62 +86,71 @@
 // 8 rows hit distinct banks; __launch_bounds__(256, 2) and ~100 KB of
 // shared memory (block 2) fit two CTAs on an SM.
 //
-// Widths 64, 128 and 256 (blocks 3-5), float32: specblock_wide_kernel<C>,
-// a direct convolution on the CUDA cores.  The 16x16 layouts
-// above cannot hold them (at C = 64 the tf32 hi/lo weights alone are
-// 331,776 B), so the conv3 tile shrinks as C grows (wide_tile: 8x8 for
-// C = 64 and 128, 4x4 for C = 256) until one tile's stage planes plus
-// halo fit, and the weights are not staged: each conv reads them,
-// [tap][ci][co], through the read-only cache.  A thread owns one output
-// position and kGroup = 16 output channels; consecutive threads take
-// consecutive positions of one channel group, so a warp's weight loads are
-// one broadcast address and its plane reads are contiguous.  Halo
-// recompute: conv1 (T+4)^2 / T^2 = 2.25x at T = 8, 4x at T = 4; bound on
-// an H100 by f32 operations at 67 TFLOP/s.
-//
-// Widths 64, 128 and 256, bf16: wide_bf16_conv_kernel<Pool>, ONE 3x3 SAME
-// conv (+ bias, ReLU, bf16 rounding) as an implicit GEMM on the tensor
-// cores, launched three times a call by specblock_wide_bf16: conv1 (Cin
-// -> C) into t1, conv2 into t2 (t1, t2: (B, H, W, C) bf16 NHWC scratch in
-// device memory, allocated by the wrapper), conv3 with the 2x2 pool in its
+// Widths 64, 128 and 256 (blocks 3-5): ONE 3x3 SAME conv (+ bias, ReLU)
+// as an implicit GEMM on the tensor cores, launched three times a call:
+// wide_bf16_conv_kernel<Pool> (bf16, specblock_wide_bf16) and
+// wide_tf32_conv_kernel<Pool> (f32, 3xTF32, specblock_wide_f32).  The 16x16
+// layouts above cannot hold these widths (at C = 64 the tf32 hi/lo
+// weights alone are 331,776 B).  conv1 (Cin -> C) runs into t1, conv2
+// into t2 (t1, t2: (B, H, W, C) NHWC scratch of the storage type in device
+// memory, allocated by the wrapper), conv3 with the 2x2 pool in its
 // epilogue into out.  Not fused as the narrow kernels are: a CTA that
 // keeps the chain on chip needs a stage's whole weights (at C = 256 conv2's
-// are 9*256*256*2 B = 1.18 MB) streamed through shared memory, while the
-// intermediates through device memory are small at the wide blocks'
-// planes (B=256 on 8x6 at C = 256: two 6.3 MB tensors, ~4 us at 3.35
-// TB/s, mostly L2-resident; 100x76 at C = 64: two 249 MB, ~0.3 ms).
+// are 9*256*256*2 B = 1.18 MB in bf16) streamed through shared memory,
+// while the intermediates through device memory are small at the wide
+// blocks' planes (B=256 on 8x6 at C = 256: two 6.3 MB bf16 tensors, ~4 us
+// at 3.35 TB/s, mostly L2-resident; 100x76 at C = 64: two 249 MB, ~0.3
+// ms; twice that in f32).
 //   GEMM: M = B*H*W output pixels in window-major order, m = ((b*H/2 + wy)
 // *W/2 + wx)*4 + 2*dy + dx for pixel (b, 2wy+dy, 2wx+dx), so a 2x2 window
 // is 4 consecutive rows and m/4 is the pooled pixel's NHWC index (H, W
-// even; M % 4 == 0, so no window straddles a 128-row tile).  N = C in
-// tiles of 64: C only sets the grid.  K = 9 taps x Cin, tap-major, in
-// K-blocks of 32 channels (16 channel-pair words) of one tap: the row
-// order of ops/cuda_specblock._pack_bf16_pairs (row j = tap*Cin/2 + p), so
-// B reads those words unchanged, 16 rows a K-block.
-//   CTA: 128 pixels x 64 channels, 4 warps as 2 (M) x 2 (N) of 64 x 32
+// even; M % 4 == 0, so no window straddles a tile).  N = C in tiles of 64:
+// C only sets the grid.  K = 9 taps x Cin, tap-major, in K-blocks of 64
+// bytes of one tap's channels (kWK = 16 words): 32 bf16 channels (16 pair
+// words, the row order of ops/cuda_specblock._pack_bf16_pairs, row j =
+// tap*Cin/2 + p) or 16 f32 channels (the HWIO weights' own rows, tap*Cin
+// + ci), so B reads the weights unchanged, 16 rows a K-block, and both
+// types share the copy code (WideLoader) and the ring (wide_k_loop).  A
+// 3-stage cp.async ring (static shared memory, no whole-stage weight
+// staging): each A row (one pixel's 64 bytes of one tap) gathered
+// from NHWC memory, 16 B a cp.async, a tap outside the image zero-filled
+// (src-size 0: the SAME padding), as are rows past M (never stored); each
+// B row copied from the weights.  Row pitches 20 (A) and 72 (B) words, so
+// a fragment's 8 rows x 4 words hit 32 distinct banks.  Cin not a
+// multiple of 32 (conv1 only; blocks 3-5 have 32/64/128) is zero-padded by
+// the wrapper.
+//   bf16 CTA: 128 pixels x 64 channels, 4 warps as 2 (M) x 2 (N) of 64 x 32
 // (4 m16 x 4 n8 tiles), mma.sync m16n8k16 bf16 with f32 accumulators;
 // __launch_bounds__(128, 4): 128 registers, 4 CTAs an SM, so Cout 256 on
 // 8x6 at B=256 (384 CTAs) is resident in one wave.  (8 warps of 32 x 32,
 // half the MMAs a warp between barriers and 2 CTAs an SM, took 1.25x as
 // long on an H100 80GB HBM3 at 700 W: scripts/torch_specblock_wide.py
-// --tiles.)  A 3-stage cp.async ring (44,544 B of static shared memory,
-// no whole-stage weight staging): each A row (one pixel's 32 channels of
-// one tap) gathered from NHWC memory, 16 B (8 channels) a cp.async, a tap
-// outside the image zero-filled (src-size 0: the SAME padding), as are
-// rows past M (never stored); each B row copied from the packed words.
-// Row pitches 20 (A) and 72 (B) words, so a fragment's 8 rows x 4 words
-// hit 32 distinct banks.
-//   Epilogue, f32: bias, ReLU, rounded to bf16.  Launches 1-2 store each
-// pair word at the pixel's NHWC address.  Launch 3 first reduces each
-// window: its 4 rows are accumulator rows g..g+3 (g % 4 == 0), lanes 4 and
-// 8 apart (__shfl_xor_sync), on the rounded values (max, or the f32 sum x
-// 0.25 rounded to bf16, as _chain_convpool and the TPU kernel round), and
-// stores only the window's word at out[m/4].  Cin not a multiple of 32
-// (conv1 only; blocks 3-5 have 32/64/128) is zero-padded by the wrapper.
-//   Bound on an H100: bf16 operations at 989 TFLOP/s (blocks 3-5 at B=256
-// on a 64x48 input: 9.06 + 9.06 GFLOP, Cout 256 on 8x6: 36.2 GFLOP; 100x76
-// at C = 64: 358.6 GFLOP); bytes second (each intermediate written once
-// and gathered once a tap, the repeats mostly from L2).
+// --tiles.)  Epilogue: bias, ReLU in f32, rounded to bf16; launches 1-2
+// store each pair word at the pixel's NHWC address.
+//   tf32 CTA: 64 pixels x 64 channels, 4 warps as 2 (M) x 2 (N) of 32 x 32
+// (2 m16 x 4 n8 tiles), mma.sync m16n8k8 tf32 with the 3xTF32
+// arithmetic of specblock_tc_kernel: each k8 step splits its A and B
+// fragments (one 32-bit shared load each) into hi and lo, lo*hi and hi*lo
+// chain in their own accumulator and hi*hi starts from zero and is added
+// on the CUDA cores.  Two accumulator sets on a 32 x 32 warp tile are 64
+// registers; __launch_bounds__(128, 3) allows 170 (156 used, no spills).
+// On an H100 80GB HBM3 at 700 W (scripts/torch_specblock_wide.py --dtype
+// float32 --tiles, the three block shapes at B=256 / 100x76): 1.345 /
+// 8.584 ms, against 1.541 / 9.118 for 8 warps of 32 x 32 at 2 CTAs an SM
+// (128 registers, 32 B spilled), 1.365 / 7.892 for 4 warps of 64 x 32 at
+// 2 (255 registers) and 1.661 / 10.555 for 8 warps at 1.  t1 and t2 stay
+// f32, unrounded, as _chain_convpool in f32.
+//   Launch 3's epilogue first reduces each window: its 4 rows are
+// accumulator rows g..g+3 (g % 4 == 0), lanes 4 and 8 apart
+// (__shfl_xor_sync; the m16n8 accumulator layout is the same for both
+// types), on the stored values (bf16: max, or the f32 sum x 0.25 rounded
+// to bf16, as _chain_convpool and the TPU kernel round), and stores only
+// the window's channels at out[m/4].
+//   Bound on an H100 (blocks 3-5 at B=256 on a 64x48 input: 9.06 + 9.06
+// GFLOP, Cout 256 on 8x6: 36.2 GFLOP; 100x76 at C = 64: 358.6 GFLOP):
+// operations, bf16 at 989 TFLOP/s, 3xTF32 three tf32 products per useful
+// one at 495 TFLOP/s; bytes second (each intermediate written once and
+// gathered once a tap, the repeats mostly from L2).
 //
 // Shared memory per CTA (specblock_smem_bytes), 32-bit words:
 //   f32:  2 * 9*max(Cin,C)*wpitch(C) (weights hi + lo) + 3C (bias)
@@ -152,12 +162,9 @@
 //         + max(ceil(Cin/2)*488, C/2*328) + max(C/2*424, C*257), with
 //         R(n) = 9*ceil(n/2) rounded up to 4 pair rows
 //         block 2: 100,640 B (2 CTAs per SM); block 1: 41,040 B.
-//   wide f32: 3C + max(Cin*(T+6)^2, C*(T+2)^2) + max(C*(T+4)^2,
-//         C*(T^2+1)), T = wide_tile(C): (32 -> 64) 63,232 B, (64 -> 128)
-//         126,464 B, (128 -> 256) 119,808 B.
 // Above 48 KB, so cudaFuncSetAttribute raises the limit per launch.
-//   wide bf16: 3 stages x (128*20 + 16*72) words = 44,544 B, static, for
-//         every (Cin, C).
+//   wide, static, for every (Cin, C): 3 stages x (M*20 + 16*72) words,
+//         bf16 (M = 128 pixels) 44,544 B, tf32 (M = 64) 29,184 B.
 //
 // What bounds it on an H100: at the main path's B=256 block 1 moves
 // ~369 MB in and ~491 MB out (~0.26 ms at 3.35 TB/s) and block 2 ~0.74 GB,
@@ -253,16 +260,16 @@ inline size_t bf16_smem_bytes(int cin, int c) {
                              bf16_bufa_words(c));
 }
 
-// Input tile (edge R0 - 6) with a 3-pixel halo into channel-planar shared
+// Input tile (edge kTile) with a 3-pixel halo into channel-planar shared
 // memory (plane pitch `pitch`); zero outside the image.
-template <int R0 = kR0, typename T>
+template <typename T>
 __device__ __forceinline__ void stage_input(const T* __restrict__ x,
                                             float* __restrict__ buf,
                                             int pitch, int b, int y0, int x0,
                                             int H, int W, int cin) {
-  for (int i = threadIdx.x; i < R0 * R0 * cin; i += blockDim.x) {
+  for (int i = threadIdx.x; i < kR0 * kR0 * cin; i += blockDim.x) {
     const int c = i % cin, p = i / cin;
-    const int gy = y0 - 3 + p / R0, gx = x0 - 3 + p % R0;
+    const int gy = y0 - 3 + p / kR0, gx = x0 - 3 + p % kR0;
     float v = 0.f;
     if (gy >= 0 && gy < H && gx >= 0 && gx < W)
       v = load_f(x[((static_cast<size_t>(b) * H + gy) * W + gx) * cin + c]);
@@ -318,122 +325,26 @@ __device__ __forceinline__ void conv_stage(const float* __restrict__ src,
   }
 }
 
-// 2x2 pool of the TL x TL conv3 tile (plane pitch P3); NHWC store,
+// 2x2 pool of the kTile x kTile conv3 tile (plane pitch kP3); NHWC store,
 // channel fastest (coalesced), ragged edges masked.
-template <int C, typename T, int TL = kTile, int P3 = kP3>
+template <int C, typename T>
 __device__ __forceinline__ void pool_store(const float* __restrict__ src,
                                            T* __restrict__ out, int b,
                                            int y0, int x0, int H, int W,
                                            int pool_max) {
-  const int ho = H / 2, wo = W / 2, half = TL / 2;
+  const int ho = H / 2, wo = W / 2, half = kTile / 2;
   for (int i = threadIdx.x; i < half * half * C; i += blockDim.x) {
     const int co = i % C, q = i / C;
     const int qy = q / half, qx = q % half;
     const int oy = y0 / 2 + qy, ox = x0 / 2 + qx;
     if (oy >= ho || ox >= wo) continue;
-    const float* s = src + co * P3 + 2 * qy * TL + 2 * qx;
-    const float a = s[0], bb = s[1], c = s[TL], d = s[TL + 1];
+    const float* s = src + co * kP3 + 2 * qy * kTile + 2 * qx;
+    const float a = s[0], bb = s[1], c = s[kTile], d = s[kTile + 1];
     const float r = pool_max ? fmaxf(fmaxf(a, bb), fmaxf(c, d))
                              : (a + bb + c + d) * 0.25f;
     out[((static_cast<size_t>(b) * ho + oy) * wo + ox) * C + co] =
         store_t<T>(r);
   }
-}
-
-// --- wide path (C >= 64, CUDA cores) -------------------------------------
-
-// conv3 tile edge of the wide kernel
-__host__ __device__ constexpr int wide_tile(int c) { return c >= 256 ? 4 : 8; }
-constexpr int kGroup = 16;   // output channels a thread accumulates
-
-__host__ __device__ inline int wide_buf0_words(int cin, int c) {
-  const int t = wide_tile(c);
-  return imax(cin * (t + 6) * (t + 6), c * (t + 2) * (t + 2));
-}
-__host__ __device__ inline int wide_bufa_words(int c) {
-  const int t = wide_tile(c);
-  return imax(c * (t + 4) * (t + 4), c * (t * t + 1));
-}
-inline size_t wide_smem_bytes(int cin, int c) {
-  return sizeof(float) * static_cast<size_t>(3 * c + wide_buf0_words(cin, c) +
-                                             wide_bufa_words(c));
-}
-
-// One conv stage: src (cin planes of rin x rin, pitch rin^2) -> dst (C
-// planes of rout x rout, pitch `dpitch`), rout = rin - 2; weights w
-// [tap][ci][co] in device memory (16-byte aligned), read through the
-// read-only cache; `halo` as in conv_stage.
-template <int C>
-__device__ __forceinline__ void wide_stage(const float* __restrict__ src,
-                                           int rin, int cin,
-                                           const float* __restrict__ w,
-                                           const float* __restrict__ sb,
-                                           float* __restrict__ dst,
-                                           int dpitch, int halo, int y0,
-                                           int x0, int H, int W) {
-  const int rout = rin - 2, npos = rout * rout, spitch = rin * rin;
-  for (int i = threadIdx.x; i < npos * (C / kGroup); i += blockDim.x) {
-    const int grp = i / npos, p = i - grp * npos;
-    const int py = p / rout, px = p - py * rout;
-    const float4* wg = reinterpret_cast<const float4*>(w) + grp * (kGroup / 4);
-    float acc[kGroup];
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) acc[j] = 0.f;
-    for (int ci = 0; ci < cin; ++ci) {
-      const float* s = src + ci * spitch + py * rin + px;
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const float v = s[(tap / 3) * rin + tap % 3];
-        const float4* w4 = wg + (tap * cin + ci) * (C / 4);
-#pragma unroll
-        for (int q = 0; q < kGroup / 4; ++q) {
-          const float4 wv = __ldg(w4 + q);
-          acc[4 * q + 0] += v * wv.x;
-          acc[4 * q + 1] += v * wv.y;
-          acc[4 * q + 2] += v * wv.z;
-          acc[4 * q + 3] += v * wv.w;
-        }
-      }
-    }
-    const int gy = y0 - halo + py, gx = x0 - halo + px;
-    const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      const int co = grp * kGroup + j;
-      dst[co * dpitch + p] = inside ? fmaxf(acc[j] + sb[co], 0.f) : 0.f;
-    }
-  }
-}
-
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-specblock_wide_kernel(const float* __restrict__ x,
-                      const float* __restrict__ w1,
-                      const float* __restrict__ w2,
-                      const float* __restrict__ w3,
-                      const float* __restrict__ bias, float* __restrict__ out,
-                      int H, int W, int cin, int tiles_x, int pool_max) {
-  constexpr int TL = wide_tile(C);
-  constexpr int R0 = TL + 6, R1 = TL + 4, R2 = TL + 2, P3 = TL * TL + 1;
-  extern __shared__ float4 smem4[];
-  float* sb = reinterpret_cast<float*>(smem4);
-  float* buf0 = sb + 3 * C;
-  float* bufa = buf0 + wide_buf0_words(cin, C);
-
-  const int b = blockIdx.y;
-  const int y0 = (blockIdx.x / tiles_x) * TL;
-  const int x0 = (blockIdx.x % tiles_x) * TL;
-
-  stage_input<R0>(x, buf0, R0 * R0, b, y0, x0, H, W, cin);
-  for (int i = threadIdx.x; i < 3 * C; i += blockDim.x) sb[i] = bias[i];
-  __syncthreads();
-  wide_stage<C>(buf0, R0, cin, w1, sb, bufa, R1 * R1, 2, y0, x0, H, W);
-  __syncthreads();
-  wide_stage<C>(bufa, R1, C, w2, sb + C, buf0, R2 * R2, 1, y0, x0, H, W);
-  __syncthreads();
-  wide_stage<C>(buf0, R2, C, w3, sb + 2 * C, bufa, P3, 0, y0, x0, H, W);
-  __syncthreads();
-  pool_store<C, float, TL, P3>(bufa, out, b, y0, x0, H, W, pool_max);
 }
 
 // --- tensor-core (3xTF32) path -------------------------------------------
@@ -967,26 +878,42 @@ specblock_bf16_tc_kernel(const __nv_bfloat16* __restrict__ x,
   pool_store<C, __nv_bfloat16>(c3, out, b, y0, x0, H, W, pool_max);
 }
 
-// --- bf16 wide path: one implicit-GEMM conv, three launches ---------------
+// --- wide path: one implicit-GEMM conv, three launches ---------------------
 
-// CTA tile: kWWarpsM x kWWarpsN warps, each kWMI m16 tiles x 4 n8 tiles
-// (16 kWMI x 32), so BM = 16 kWMI kWWarpsM pixels, BN = 32 kWWarpsN
-constexpr int kWWarpsM = 2, kWWarpsN = 2, kWMI = 4;
-constexpr int kWThreads = 32 * kWWarpsM * kWWarpsN;
-constexpr int kWMinBlocks = 4;           // CTAs an SM (__launch_bounds__)
-constexpr int kWM = 16 * kWMI * kWWarpsM;   // pixels a CTA (M tile)
-constexpr int kWN = 32 * kWWarpsN;          // output channels a CTA (N tile)
-constexpr int kWK = 16;                  // pair words a K-block (32 channels)
-constexpr int kWAP = kWK + 4;            // A row pitch, words
-constexpr int kWBP = kWN + 8;            // B row pitch, words
+// A K-block is 64 bytes of one tap's channels (32 bf16, 16 f32): kWK
+// 32-bit words of an A row (a pixel) and kWK rows of B (pair words, or
+// f32 weights), so both storage types share the copy code and the ring.
+constexpr int kWK = 16;                  // 32-bit words a K-block
 constexpr int kWStages = 3;
-constexpr int kWStageWords = kWM * kWAP + kWK * kWBP;
-constexpr int kWideBf16Smem = kWStages * kWStageWords * 4;
-constexpr int kWA = kWM * 4 / kWThreads;     // A rows a thread copies
-constexpr int kWB = kWK * kWN / 4 / kWThreads;   // B chunks a thread copies
-static_assert(kWideBf16Smem <= 48 * 1024 && kWA >= 1 && kWB >= 1 &&
-              kWThreads % 16 == 0, "wide bf16 tile");
 enum { kPoolNone = 0, kPoolMax = 1, kPoolAvg = 2 };
+
+// CTA tile: WM x WN warps, each MI m16 tiles x 4 n8 tiles (16 MI x 32), so
+// kM = 16 MI WM pixels and kN = 32 WN output channels a CTA.
+template <int WM, int WN, int MI>
+struct WideTile {
+  static constexpr int kWarpsM = WM, kMI = MI;
+  static constexpr int kThreads = 32 * WM * WN;
+  static constexpr int kM = 16 * MI * WM;
+  static constexpr int kN = 32 * WN;
+  static constexpr int kAP = kWK + 4;    // A row pitch, words
+  static constexpr int kBP = kN + 8;     // B row pitch, words
+  static constexpr int kStageWords = kM * kAP + kWK * kBP;
+  static constexpr int kSmem = kWStages * kStageWords * 4;
+  static constexpr int kA = kM * 4 / kThreads;         // A chunks a thread
+  static constexpr int kB = kWK * kN / 4 / kThreads;   // B chunks a thread
+  static_assert(kSmem <= 48 * 1024 && kA >= 1 && kB >= 1 &&
+                kThreads % 16 == 0, "wide tile");
+};
+
+// bf16: 4 warps of 64 x 32, 4 CTAs an SM (128 registers)
+constexpr int kWWarpsM = 2, kWWarpsN = 2, kWMI = 4;
+constexpr int kWMinBlocks = 4;           // CTAs an SM (__launch_bounds__)
+using Bf16Tile = WideTile<kWWarpsM, kWWarpsN, kWMI>;
+// tf32 (3xTF32): two accumulator sets, so 4 warps of 32 x 32, 3 CTAs an SM
+// (170 registers)
+constexpr int kTWarpsM = 2, kTWarpsN = 2, kTMI = 2;
+constexpr int kTMinBlocks = 3;
+using Tf32Tile = WideTile<kTWarpsM, kTWarpsN, kTMI>;
 
 // cp.async of 16 bytes, zero-filled (nothing read) where !valid
 __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
@@ -1007,80 +934,77 @@ __device__ __forceinline__ int wide_pixel(int m, int H, int W, int& y,
   return (b * H + y) * W + x;
 }
 
-// out = conv3x3_SAME(x, w) + bias, ReLU, bf16; Pool != kPoolNone: then the
-// 2x2 pool, out (B, H/2, W/2, C).  x (B, H, W, cin) NHWC, cin % 32 == 0;
-// w the packed pair words (9*cin/2, C); M = B*H*W; grid ceil(M/kWM) *
-// C/kWN.
-template <int Pool>
-__global__ void __launch_bounds__(kWThreads, kWMinBlocks)
-wide_bf16_conv_kernel(const __nv_bfloat16* __restrict__ x,
-                      const uint32_t* __restrict__ w,
-                      const float* __restrict__ bias,
-                      __nv_bfloat16* __restrict__ out, int M, int H, int W,
-                      int cin, int C) {
-  __shared__ __align__(16) uint32_t smem[kWStages * kWStageWords];
-  const int ntiles = C / kWN;
-  const int m0 = (blockIdx.x / ntiles) * kWM;
-  const int n0 = (blockIdx.x % ntiles) * kWN;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm = warp % kWWarpsM, wn = warp / kWWarpsM;
-  const int cblocks = cin / 32, kblocks = 9 * cblocks;
+// One thread's share of a stage's cp.async copies: A rows ar + h *
+// kThreads/4 at 16-byte chunk aq; B rows br + h * kThreads/16 at chunk bq
+// (words 4bq..4bq+3).  x: NHWC of T with cin % (64 / sizeof(T)) == 0; w:
+// (9*cin*sizeof(T)/4, C) 32-bit words, K-block kb = rows kWK kb..+kWK.
+template <typename T, class Tile>
+struct WideLoader {
+  static constexpr int kCh = 64 / sizeof(T);   // channels a K-block
+  const T* x;
+  const T* abase[Tile::kA];
+  int ay[Tile::kA], ax[Tile::kA];
+  const uint32_t* bsrc;
+  int H, W, cin, C, cblocks;
 
-  // this thread's copies: A rows ar + h * kWThreads/4 at chunk aq
-  // (channels 8aq..8aq+7); B rows br + h * kWThreads/16 at chunk bq
-  // (words 4bq..4bq+3)
-  const int ar = tid / 4, aq = tid % 4;
-  const __nv_bfloat16* abase[kWA];
-  int ay[kWA], ax[kWA];
+  __device__ __forceinline__ WideLoader(const T* x_, const uint32_t* w,
+                                        int m0, int n0, int M, int H_,
+                                        int W_, int cin_, int C_)
+      : x(x_), H(H_), W(W_), cin(cin_), C(C_), cblocks(cin_ / kCh) {
+    const int tid = threadIdx.x, ar = tid / 4, aq = tid % 4;
 #pragma unroll
-  for (int h = 0; h < kWA; ++h) {
-    const int m = m0 + ar + h * (kWThreads / 4);
-    if (m < M) {
-      const int p = wide_pixel(m, H, W, ay[h], ax[h]);
-      abase[h] = x + static_cast<size_t>(p) * cin + 8 * aq;
-    } else {              // every tap outside the image: zero rows
-      ay[h] = -4;
-      ax[h] = 0;
-      abase[h] = x;
+    for (int h = 0; h < Tile::kA; ++h) {
+      const int m = m0 + ar + h * (Tile::kThreads / 4);
+      if (m < M) {
+        const int p = wide_pixel(m, H, W, ay[h], ax[h]);
+        abase[h] = x + static_cast<size_t>(p) * cin + aq * (kCh / 4);
+      } else {            // every tap outside the image: zero rows
+        ay[h] = -4;
+        ax[h] = 0;
+        abase[h] = x;
+      }
     }
+    bsrc = w + static_cast<size_t>(tid / 16) * C + n0 + 4 * (tid % 16);
   }
-  const int br = tid / 16, bq = tid % 16;
-  const uint32_t* bsrc = w + static_cast<size_t>(br) * C + n0 + 4 * bq;
 
-  auto load = [&](int kb, int s) {
-    uint32_t* sa = smem + s * kWStageWords;
-    uint32_t* sb = sa + kWM * kWAP;
+  // K-block kb (tap kb / cblocks, channels kCh (kb % cblocks) ..) into
+  // the stage at `sa` (A rows, then B rows); SAME padding by zero-fill
+  __device__ __forceinline__ void load(int kb, uint32_t* sa) const {
+    uint32_t* sb = sa + Tile::kM * Tile::kAP;
+    const int tid = threadIdx.x, ar = tid / 4, aq = tid % 4;
     const int tap = kb / cblocks, cb = kb - tap * cblocks;
     const int dy = tap / 3 - 1, dx = tap % 3 - 1;
 #pragma unroll
-    for (int h = 0; h < kWA; ++h) {
+    for (int h = 0; h < Tile::kA; ++h) {
       const int yy = ay[h] + dy, xx = ax[h] + dx;
       const bool ok = yy >= 0 && yy < H && xx >= 0 && xx < W;
-      const __nv_bfloat16* src =
-          ok ? abase[h] + (static_cast<ptrdiff_t>(dy) * W + dx) * cin + 32 * cb
+      const T* src =
+          ok ? abase[h] + (static_cast<ptrdiff_t>(dy) * W + dx) * cin +
+                   kCh * cb
              : x;
-      cp_async16_zfill(sa + (ar + h * (kWThreads / 4)) * kWAP + 4 * aq, src,
-                       ok);
+      cp_async16_zfill(sa + (ar + h * (Tile::kThreads / 4)) * Tile::kAP +
+                           4 * aq,
+                       src, ok);
     }
 #pragma unroll
-    for (int h = 0; h < kWB; ++h)
-      cp_async16(sb + (br + h * (kWThreads / 16)) * kWBP + 4 * bq,
-                 bsrc + (static_cast<size_t>(kb) * kWK + h * (kWThreads / 16))
-                            * C);
-  };
+    for (int h = 0; h < Tile::kB; ++h)
+      cp_async16(sb + (tid / 16 + h * (Tile::kThreads / 16)) * Tile::kBP +
+                     4 * (tid % 16),
+                 bsrc + (static_cast<size_t>(kb) * kWK +
+                         h * (Tile::kThreads / 16)) * C);
+  }
+};
 
-  float acc[kWMI][4][4];
-#pragma unroll
-  for (int i = 0; i < kWMI; ++i)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][n][j] = 0.f;
-
+// The K loop of both wide kernels: the 3-stage ring over 9*cblocks
+// K-blocks, `step(sa, sb)` on each landed stage (A rows of kAP words at
+// sa, B rows of kBP words at sb).
+template <class Tile, typename L, typename Step>
+__device__ __forceinline__ void wide_k_loop(const L& ld, uint32_t* smem,
+                                            Step step) {
+  const int kblocks = 9 * ld.cblocks;
 #pragma unroll
   for (int s = 0; s < kWStages - 1; ++s) {
-    if (s < kblocks) load(s, s);
+    if (s < kblocks) ld.load(s, smem + s * Tile::kStageWords);
     cp_async_commit();
   }
 #pragma unroll 1
@@ -1088,47 +1012,104 @@ wide_bf16_conv_kernel(const __nv_bfloat16* __restrict__ x,
     cp_async_wait<kWStages - 2>();   // K-block kb has landed
     __syncthreads();                 // and every warp is done with kb - 1
     const int nx = kb + kWStages - 1;
-    if (nx < kblocks) load(nx, nx % kWStages);
+    if (nx < kblocks)
+      ld.load(nx, smem + (nx % kWStages) * Tile::kStageWords);
     cp_async_commit();
-    const uint32_t* sa = smem + (kb % kWStages) * kWStageWords;
-    const uint32_t* sb = sa + kWM * kWAP;
+    const uint32_t* sa = smem + (kb % kWStages) * Tile::kStageWords;
+    step(sa, sa + Tile::kM * Tile::kAP);
+  }
+  cp_async_wait<0>();
+}
+
+// The epilogue's 2x2 pool of rows g..g+3 (g % 4 == 0: lanes 4 and 8
+// apart) on this lane's two channels; the result is valid in lanes with
+// g % 4 == 0
+template <int Pool>
+__device__ __forceinline__ void wide_pool(float& r0, float& r1) {
+  if constexpr (Pool == kPoolMax) {
+    r0 = fmaxf(r0, __shfl_xor_sync(0xffffffffu, r0, 4));
+    r1 = fmaxf(r1, __shfl_xor_sync(0xffffffffu, r1, 4));
+    r0 = fmaxf(r0, __shfl_xor_sync(0xffffffffu, r0, 8));
+    r1 = fmaxf(r1, __shfl_xor_sync(0xffffffffu, r1, 8));
+  } else if constexpr (Pool == kPoolAvg) {
+    r0 += __shfl_xor_sync(0xffffffffu, r0, 4);
+    r1 += __shfl_xor_sync(0xffffffffu, r1, 4);
+    r0 = (r0 + __shfl_xor_sync(0xffffffffu, r0, 8)) * 0.25f;
+    r1 = (r1 + __shfl_xor_sync(0xffffffffu, r1, 8)) * 0.25f;
+  }
+}
+
+// Output element index of channel 0 of GEMM row m (Pool: of its window)
+template <int Pool>
+__device__ __forceinline__ size_t wide_row(int m, int M, int H, int W,
+                                           int C) {
+  if constexpr (Pool == kPoolNone) {
+    int y, xx;
+    return m < M ? static_cast<size_t>(wide_pixel(m, H, W, y, xx)) * C : 0;
+  } else {
+    return static_cast<size_t>(m >> 2) * C;
+  }
+}
+
+// out = conv3x3_SAME(x, w) + bias, ReLU, bf16; Pool != kPoolNone: then the
+// 2x2 pool, out (B, H/2, W/2, C).  x (B, H, W, cin) NHWC, cin % 32 == 0;
+// w the packed pair words (9*cin/2, C); M = B*H*W; grid ceil(M/kM) * C/kN.
+template <int Pool>
+__global__ void __launch_bounds__(Bf16Tile::kThreads, kWMinBlocks)
+wide_bf16_conv_kernel(const __nv_bfloat16* __restrict__ x,
+                      const uint32_t* __restrict__ w,
+                      const float* __restrict__ bias,
+                      __nv_bfloat16* __restrict__ out, int M, int H, int W,
+                      int cin, int C) {
+  using Tl = Bf16Tile;
+  constexpr int MI = Tl::kMI;
+  __shared__ __align__(16) uint32_t smem[kWStages * Tl::kStageWords];
+  const int ntiles = C / Tl::kN;
+  const int m0 = (blockIdx.x / ntiles) * Tl::kM;
+  const int n0 = (blockIdx.x % ntiles) * Tl::kN;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp % Tl::kWarpsM, wn = warp / Tl::kWarpsM;
+  const WideLoader<__nv_bfloat16, Tl> ld(x, w, m0, n0, M, H, W, cin, C);
+
+  float acc[MI][4][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][n][j] = 0.f;
+
+  wide_k_loop<Tl>(ld, smem, [&](const uint32_t* sa, const uint32_t* sb) {
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks) {   // two k16 steps of 8 pair words
       uint32_t b[4][2];
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
-        const uint32_t* pb = sb + (ks * 8 + t) * kWBP + wn * 32 + n * 8 + g;
+        const uint32_t* pb = sb + (ks * 8 + t) * Tl::kBP + wn * 32 + n * 8 + g;
         b[n][0] = pb[0];
-        b[n][1] = pb[4 * kWBP];
+        b[n][1] = pb[4 * Tl::kBP];
       }
 #pragma unroll
-      for (int i = 0; i < kWMI; ++i) {
+      for (int i = 0; i < MI; ++i) {
         const uint32_t* pa =
-            sa + (wm * 16 * kWMI + i * 16 + g) * kWAP + ks * 8 + t;
-        const uint32_t a0 = pa[0], a1 = pa[8 * kWAP];
-        const uint32_t a2 = pa[4], a3 = pa[8 * kWAP + 4];
+            sa + (wm * 16 * MI + i * 16 + g) * Tl::kAP + ks * 8 + t;
+        const uint32_t a0 = pa[0], a1 = pa[8 * Tl::kAP];
+        const uint32_t a2 = pa[4], a3 = pa[8 * Tl::kAP + 4];
 #pragma unroll
         for (int n = 0; n < 4; ++n)
           mma_bf16_k16(acc[i][n], a0, a1, a2, a3, b[n][0], b[n][1]);
       }
     }
-  }
-  cp_async_wait<0>();
+  });
 
   uint32_t* ow = reinterpret_cast<uint32_t*>(out);
 #pragma unroll
-  for (int i = 0; i < kWMI; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm * 16 * kWMI + i * 16 + g + 8 * h;
-      size_t row = 0;   // the word index of channel 0 of this row's output
-      if constexpr (Pool == kPoolNone) {
-        int y, xx;
-        if (m < M)
-          row = static_cast<size_t>(wide_pixel(m, H, W, y, xx)) * C / 2;
-      } else {
-        row = static_cast<size_t>(m >> 2) * C / 2;
-      }
+      const int m = m0 + wm * 16 * MI + i * 16 + g + 8 * h;
+      const size_t row = wide_row<Pool>(m, M, H, W, C) / 2;   // words
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
         const int co = n0 + wn * 32 + n * 8 + 2 * t;
@@ -1136,56 +1117,166 @@ wide_bf16_conv_kernel(const __nv_bfloat16* __restrict__ x,
             fmaxf(acc[i][n][2 * h] + bias[co], 0.f));
         float r1 = round_to<__nv_bfloat16>(
             fmaxf(acc[i][n][2 * h + 1] + bias[co + 1], 0.f));
-        if constexpr (Pool == kPoolMax) {
-          r0 = fmaxf(r0, __shfl_xor_sync(0xffffffffu, r0, 4));
-          r1 = fmaxf(r1, __shfl_xor_sync(0xffffffffu, r1, 4));
-          r0 = fmaxf(r0, __shfl_xor_sync(0xffffffffu, r0, 8));
-          r1 = fmaxf(r1, __shfl_xor_sync(0xffffffffu, r1, 8));
-        } else if constexpr (Pool == kPoolAvg) {
-          r0 += __shfl_xor_sync(0xffffffffu, r0, 4);
-          r1 += __shfl_xor_sync(0xffffffffu, r1, 4);
-          r0 = (r0 + __shfl_xor_sync(0xffffffffu, r0, 8)) * 0.25f;
-          r1 = (r1 + __shfl_xor_sync(0xffffffffu, r1, 8)) * 0.25f;
-        }
+        wide_pool<Pool>(r0, r1);
         if (m < M && (Pool == kPoolNone || g % 4 == 0))
           ow[row + co / 2] = pack_bf16(r0, r1);
       }
     }
 }
 
+// out = conv3x3_SAME(x, w) + bias, ReLU, f32, as 3xTF32; Pool as above.
+// x (B, H, W, cin) f32 NHWC, cin % 16 == 0; w (9*cin, C) f32, row tap*cin
+// + ci (HWIO); M = B*H*W; grid ceil(M/kM) * C/kN.  Each k8 step splits
+// its A and B fragments into tf32 hi = tf32(v), lo = tf32(v - hi); lo*hi
+// and hi*lo chain in `cor`, and hi*hi starts from zero each step and is
+// added into `acc` on the CUDA cores (the tensor cores truncate when they
+// accumulate; see the header).
 template <int Pool>
-int launch_wide_bf16(const void* x, const void* w, const float* bias,
-                     void* out, int M, int H, int W, int cin, int C,
-                     cudaStream_t st) {
-  const int grid = (M + kWM - 1) / kWM * (C / kWN);
-  wide_bf16_conv_kernel<Pool><<<grid, kWThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(w),
-      bias, static_cast<__nv_bfloat16*>(out), M, H, W, cin, C);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(Tf32Tile::kThreads, kTMinBlocks)
+wide_tf32_conv_kernel(const float* __restrict__ x,
+                      const float* __restrict__ w,
+                      const float* __restrict__ bias,
+                      float* __restrict__ out, int M, int H, int W, int cin,
+                      int C) {
+  using Tl = Tf32Tile;
+  constexpr int MI = Tl::kMI;
+  __shared__ __align__(16) uint32_t smem[kWStages * Tl::kStageWords];
+  const int ntiles = C / Tl::kN;
+  const int m0 = (blockIdx.x / ntiles) * Tl::kM;
+  const int n0 = (blockIdx.x % ntiles) * Tl::kN;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp % Tl::kWarpsM, wn = warp / Tl::kWarpsM;
+  const WideLoader<float, Tl> ld(x, reinterpret_cast<const uint32_t*>(w), m0,
+                                 n0, M, H, W, cin, C);
+
+  float acc[MI][4][4], cor[MI][4][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][n][j] = cor[i][n][j] = 0.f;
+
+  wide_k_loop<Tl>(ld, smem, [&](const uint32_t* sa, const uint32_t* sb) {
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {   // two k8 steps of 8 channels
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const uint32_t* pb = sb + (ks * 8 + t) * Tl::kBP + wn * 32 + n * 8 + g;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float v = __uint_as_float(pb[4 * j * Tl::kBP]);
+          bh[n][j] = tf32(v);
+          bl[n][j] = tf32(v - __uint_as_float(bh[n][j]));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const uint32_t* pa =
+            sa + (wm * 16 * MI + i * 16 + g) * Tl::kAP + ks * 8 + t;
+        const uint32_t a[4] = {pa[0], pa[8 * Tl::kAP], pa[4],
+                               pa[8 * Tl::kAP + 4]};
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          ah[j] = tf32(__uint_as_float(a[j]));
+          al[j] = tf32(__uint_as_float(a[j]) - __uint_as_float(ah[j]));
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {   // small terms first
+          mma_tf32(cor[i][n], al, bh[n][0], bh[n][1]);
+          mma_tf32(cor[i][n], ah, bl[n][0], bl[n][1]);
+          float p[4];
+          mma_tf32_z(p, ah, bh[n][0], bh[n][1]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][n][j] += p[j];
+        }
+      }
+    }
+  });
+
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 16 * MI + i * 16 + g + 8 * h;
+      const size_t row = wide_row<Pool>(m, M, H, W, C);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int co = n0 + wn * 32 + n * 8 + 2 * t;
+        float r0 = fmaxf(acc[i][n][2 * h] + cor[i][n][2 * h] + bias[co], 0.f);
+        float r1 = fmaxf(acc[i][n][2 * h + 1] + cor[i][n][2 * h + 1] +
+                             bias[co + 1],
+                         0.f);
+        wide_pool<Pool>(r0, r1);
+        if (m < M && (Pool == kPoolNone || g % 4 == 0))
+          *reinterpret_cast<float2*>(out + row + co) = make_float2(r0, r1);
+      }
+    }
+}
+
+template <typename T, typename Wt>
+using WideKernel = void (*)(const T*, const Wt*, const float*, T*, int, int,
+                            int, int, int);
+
+// The three launches of one wide call on `st`, x -> t1 -> t2 -> out:
+// kern[0] (no pool) twice, then kern[1] (max pool) or kern[2] (avg).
+// Returns the first launch's cudaGetLastError() that is not cudaSuccess.
+template <class Tile, typename T, typename Wt>
+int wide_call(const WideKernel<T, Wt> (&kern)[3], const void* x,
+              const void* w1, const void* w2, const void* w3,
+              const float* bias, void* t1, void* t2, void* out, int M, int H,
+              int W, int cin, int C, int pool_max, cudaStream_t st) {
+  const int grid = (M + Tile::kM - 1) / Tile::kM * (C / Tile::kN);
+  const void* src[3] = {x, t1, t2};
+  const void* ws[3] = {w1, w2, w3};
+  void* dst[3] = {t1, t2, out};
+  for (int s = 0; s < 3; ++s) {
+    const WideKernel<T, Wt> k = kern[s < 2 ? 0 : (pool_max ? 1 : 2)];
+    k<<<grid, Tile::kThreads, 0, st>>>(
+        static_cast<const T*>(src[s]), static_cast<const Wt*>(ws[s]),
+        bias + s * C, static_cast<T*>(dst[s]), M, H, W, s ? C : cin, C);
+    const int e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 template <typename T, typename Wt>
 using Kernel = void (*)(const T*, const Wt*, const Wt*, const Wt*,
                         const float*, T*, int, int, int, int, int);
 
+// One CTA per (sample, 16x16 tile): the tile in blockIdx.x, the sample in
+// blockIdx.y.  gridDim.y holds at most 65,535 samples, so a larger batch
+// launches in slices of that many, x and out offset to each slice's first
+// sample (the kernel itself unchanged).
 template <typename T, typename Wt>
-int launch(Kernel<T, Wt> kern, size_t smem, int tile, const void* x,
-           const void* w1, const void* w2, const void* w3,
-           const float* bias, void* out, int B, int H, int W, int cin,
-           int pool_max, cudaStream_t st) {
+int launch(Kernel<T, Wt> kern, size_t smem, const void* x, const void* w1,
+           const void* w2, const void* w3, const float* bias, void* out,
+           int B, int H, int W, int cin, int C, int pool_max,
+           cudaStream_t st) {
+  constexpr int kMaxGridY = 65535;
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const int tiles_y = (H + tile - 1) / tile;
-  const int tiles_x = (W + tile - 1) / tile;
-  const dim3 grid(tiles_y * tiles_x, B);
-  kern<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const Wt*>(w1),
-      static_cast<const Wt*>(w2), static_cast<const Wt*>(w3), bias,
-      static_cast<T*>(out), H, W, cin, tiles_x, pool_max);
-  return cudaGetLastError();
+  const int tiles_y = (H + kTile - 1) / kTile;
+  const int tiles_x = (W + kTile - 1) / kTile;
+  const size_t x_step = static_cast<size_t>(H) * W * cin;
+  const size_t o_step = static_cast<size_t>(H / 2) * (W / 2) * C;
+  for (int b0 = 0; b0 < B; b0 += kMaxGridY) {
+    const dim3 grid(tiles_y * tiles_x, B - b0 < kMaxGridY ? B - b0 : kMaxGridY);
+    kern<<<grid, kThreads, smem, st>>>(
+        static_cast<const T*>(x) + b0 * x_step, static_cast<const Wt*>(w1),
+        static_cast<const Wt*>(w2), static_cast<const Wt*>(w3), bias,
+        static_cast<T*>(out) + b0 * o_step, H, W, cin, tiles_x, pool_max);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 bool aligned16(std::initializer_list<const void*> ps) {
@@ -1203,23 +1294,11 @@ int dispatch(const void* x, const void* w1, const void* w2, const void* w3,
     return cudaErrorInvalidValue;
   if (bf16)
     return launch<__nv_bfloat16, uint32_t>(
-        specblock_bf16_tc_kernel<C>, bf16_smem_bytes(cin, C), kTile, x, w1,
-        w2, w3, bias, out, B, H, W, cin, pool_max, st);
+        specblock_bf16_tc_kernel<C>, bf16_smem_bytes(cin, C), x, w1, w2, w3,
+        bias, out, B, H, W, cin, C, pool_max, st);
   return launch<float, float>(specblock_tc_kernel<C>, tc_smem_bytes(cin, C),
-                              kTile, x, w1, w2, w3, bias, out, B, H, W, cin,
+                              x, w1, w2, w3, bias, out, B, H, W, cin, C,
                               pool_max, st);
-}
-
-// C >= 64, float32: the wide CUDA-core kernel
-template <int C>
-int dispatch_wide(const void* x, const void* w1, const void* w2,
-                  const void* w3, const float* bias, void* out, int B, int H,
-                  int W, int cin, int pool_max, cudaStream_t st) {
-  if (!aligned16({w1, w2, w3}))       // float4 weight loads
-    return cudaErrorInvalidValue;
-  return launch<float, float>(specblock_wide_kernel<C>,
-                              wide_smem_bytes(cin, C), wide_tile(C), x, w1,
-                              w2, w3, bias, out, B, H, W, cin, pool_max, st);
 }
 
 }  // namespace
@@ -1227,14 +1306,29 @@ int dispatch_wide(const void* x, const void* w1, const void* w2,
 extern "C" {
 
 // Shared-memory bytes one CTA needs for (cin, cout) and the storage type
-// (cout >= 64: the wide kernels, bf16 != 0: wide_bf16_conv_kernel; else
-// the tensor-core kernel of the type, bf16 != 0: specblock_bf16_tc_kernel).
+// (cout >= 64: the wide convs, static, each of three launches; bf16 != 0:
+// wide_bf16_conv_kernel, else wide_tf32_conv_kernel.  cout <= 32: the
+// tensor-core kernel of the type, dynamic; bf16 != 0:
+// specblock_bf16_tc_kernel, else specblock_tc_kernel).
 long long specblock_smem_bytes(int cin, int cout, int bf16) {
-  if (cout >= 64)
-    return bf16 ? kWideBf16Smem
-                : static_cast<long long>(wide_smem_bytes(cin, cout));
+  if (cout >= 64) return bf16 ? Bf16Tile::kSmem : Tf32Tile::kSmem;
   return static_cast<long long>(bf16 ? bf16_smem_bytes(cin, cout)
                                      : tc_smem_bytes(cin, cout));
+}
+
+// Shapes and pointers a wide call takes: H, W even; cout in {64, 128,
+// 256}; cin a positive multiple of `cin_unit`; B*H*W < 2^31 - 128; x, t1,
+// t2 and the weights 16-byte aligned, out 8-byte.
+static bool wide_args_ok(const void* x, const void* w1, const void* w2,
+                         const void* w3, const void* t1, const void* t2,
+                         const void* out, int B, int H, int W, int cin,
+                         int cout, int cin_unit) {
+  const long long M = static_cast<long long>(B) * H * W;
+  return B >= 1 && H >= 2 && W >= 2 && H % 2 == 0 && W % 2 == 0 &&
+         cin >= cin_unit && cin % cin_unit == 0 &&
+         (cout == 64 || cout == 128 || cout == 256) &&
+         M <= (1LL << 31) - 129 && aligned16({x, w1, w2, w3, t1, t2}) &&
+         reinterpret_cast<uintptr_t>(out) % 8 == 0;
 }
 
 // The bf16 block at cout in {64, 128, 256}: three launches of
@@ -1242,33 +1336,39 @@ long long specblock_smem_bytes(int cin, int cout, int bf16) {
 // cin) bf16 NHWC with cin % 32 == 0 (the wrapper zero-pads); w1, w2, w3:
 // the int32 words (9*cin/2 or 9*cout/2, cout) of
 // ops/cuda_specblock._pack_bf16_pairs; bias: (3, cout) f32; t1, t2: (B, H,
-// W, cout) bf16 scratch; out: (B, H/2, W/2, cout) bf16.  x, t1, t2 and the
-// weights 16-byte aligned, out 4-byte; H, W even; B*H*W < 2^31 - 128.
+// W, cout) bf16 scratch; out: (B, H/2, W/2, cout) bf16 (wide_args_ok).
 // Returns the first launch's cudaGetLastError() that is not cudaSuccess
 // (or cudaErrorInvalidValue for shapes it does not take).
 int specblock_wide_bf16(const void* x, const void* w1, const void* w2,
                         const void* w3, const float* bias, void* t1,
                         void* t2, void* out, int B, int H, int W, int cin,
                         int cout, int pool_max, void* stream) {
-  const long long M = static_cast<long long>(B) * H * W;
-  if (B < 1 || H < 2 || W < 2 || H % 2 || W % 2 || cin < 32 || cin % 32 ||
-      (cout != 64 && cout != 128 && cout != 256) || M > (1LL << 31) - 129 ||
-      !aligned16({x, w1, w2, w3, t1, t2}) ||
-      reinterpret_cast<uintptr_t>(out) % 4)
+  if (!wide_args_ok(x, w1, w2, w3, t1, t2, out, B, H, W, cin, cout, 32))
     return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int m = static_cast<int>(M);
-  int e = launch_wide_bf16<kPoolNone>(x, w1, bias, t1, m, H, W, cin, cout,
-                                      st);
-  if (e == cudaSuccess)
-    e = launch_wide_bf16<kPoolNone>(t1, w2, bias + cout, t2, m, H, W, cout,
-                                    cout, st);
-  if (e == cudaSuccess)
-    e = pool_max ? launch_wide_bf16<kPoolMax>(t2, w3, bias + 2 * cout, out,
-                                              m, H, W, cout, cout, st)
-                 : launch_wide_bf16<kPoolAvg>(t2, w3, bias + 2 * cout, out,
-                                              m, H, W, cout, cout, st);
-  return e;
+  static const WideKernel<__nv_bfloat16, uint32_t> kern[3] = {
+      wide_bf16_conv_kernel<kPoolNone>, wide_bf16_conv_kernel<kPoolMax>,
+      wide_bf16_conv_kernel<kPoolAvg>};
+  return wide_call<Bf16Tile>(kern, x, w1, w2, w3, bias, t1, t2, out,
+                             B * H * W, H, W, cin, cout, pool_max,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The float32 block at cout in {64, 128, 256}: three launches of
+// wide_tf32_conv_kernel, as specblock_wide_bf16 but f32 throughout: x
+// (B, H, W, cin) with cin % 16 == 0; w1, w2, w3: HWIO (3, 3, cin or cout,
+// cout) f32; t1, t2: (B, H, W, cout) f32; out (B, H/2, W/2, cout) f32.
+int specblock_wide_f32(const void* x, const void* w1, const void* w2,
+                       const void* w3, const float* bias, void* t1, void* t2,
+                       void* out, int B, int H, int W, int cin, int cout,
+                       int pool_max, void* stream) {
+  if (!wide_args_ok(x, w1, w2, w3, t1, t2, out, B, H, W, cin, cout, 16))
+    return cudaErrorInvalidValue;
+  static const WideKernel<float, float> kern[3] = {
+      wide_tf32_conv_kernel<kPoolNone>, wide_tf32_conv_kernel<kPoolMax>,
+      wide_tf32_conv_kernel<kPoolAvg>};
+  return wide_call<Tf32Tile>(kern, x, w1, w2, w3, bias, t1, t2, out,
+                             B * H * W, H, W, cin, cout, pool_max,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // x: (B, H, W, cin) NHWC of the storage type (bf16 != 0: __nv_bfloat16,
@@ -1277,16 +1377,15 @@ int specblock_wide_bf16(const void* x, const void* w1, const void* w2,
 // words (bf16_rows(cin or cout), cout) of
 // ops/cuda_specblock._pack_bf16_pairs; bias: (3, cout) f32; out:
 // (B, H/2, W/2, cout) NHWC of the storage type.  x and the weights 16-byte
-// aligned; H, W even; cout in {8, 16, 32, 64, 128, 256}, bf16 only up to
-// 32 (wider: specblock_wide_bf16); B <= 65535.  Returns
-// cudaGetLastError() (or cudaErrorInvalidValue for shapes it does not
-// take).
+// aligned; H, W even; cout in {8, 16, 32} (wider: specblock_wide_bf16,
+// specblock_wide_f32); any B >= 1 (above 65,535 in slices).  Returns the
+// first launch's cudaGetLastError() that is not cudaSuccess (or
+// cudaErrorInvalidValue for shapes it does not take).
 int specblock_convpool(const void* x, const void* w1, const void* w2,
                        const void* w3, const float* bias, void* out, int B,
                        int H, int W, int cin, int cout, int pool_max,
                        int bf16, void* stream) {
-  if (B < 1 || B > 65535 || H < 2 || W < 2 || H % 2 || W % 2 || cin < 1 ||
-      (bf16 && cout >= 64))   // bf16 at cout >= 64: specblock_wide_bf16
+  if (B < 1 || H < 2 || W < 2 || H % 2 || W % 2 || cin < 1)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (cout) {
@@ -1299,15 +1398,6 @@ int specblock_convpool(const void* x, const void* w1, const void* w2,
     case 32:
       return dispatch<32>(x, w1, w2, w3, bias, out, B, H, W, cin, pool_max,
                           bf16, st);
-    case 64:
-      return dispatch_wide<64>(x, w1, w2, w3, bias, out, B, H, W, cin,
-                               pool_max, st);
-    case 128:
-      return dispatch_wide<128>(x, w1, w2, w3, bias, out, B, H, W, cin,
-                                pool_max, st);
-    case 256:
-      return dispatch_wide<256>(x, w1, w2, w3, bias, out, B, H, W, cin,
-                                pool_max, st);
     default:
       return cudaErrorInvalidValue;
   }

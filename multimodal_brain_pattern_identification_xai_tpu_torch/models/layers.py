@@ -14,14 +14,22 @@ from ..ops import cuda_specblock
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over dim 1 with running statistics, eps 1e-5
-    (torch's default, which the JAX package matches).  Holds exactly the
-    reference's keys (``weight``, ``bias``, ``running_mean``,
-    ``running_var``); serving never updates them.
+    """BatchNorm over dim 1, eps 1e-5 (torch's default, which the JAX
+    package matches).  Holds exactly the reference's keys (``weight``,
+    ``bias``, ``running_mean``, ``running_var``).
+
+    Eval mode (serving) normalises with the running statistics and never
+    updates them.  Training mode is flax's ``BatchNorm(use_running_average
+    =False, momentum=0.9)``: it normalises with the batch statistics over
+    every axis but 1 and updates ``r ← 0.9·r + 0.1·s``, where the variance
+    is flax's biased E[x²] − E[x]² (clipped at 0), not the unbiased
+    n/(n−1) estimate that torch's own training-mode BatchNorm stores.
 
     A bf16 input is normalised in float32 against the float32 statistics
     and affine, then stored in bf16: flax's ``BatchNorm(dtype=bf16)``
     promotes x to the parameters' float32 and casts the result."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -31,9 +39,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x.float(), self.running_mean, self.running_var,
-                            self.weight, self.bias, training=False,
-                            eps=1e-5).to(x.dtype)
+        xf = x.float()
+        if not self.training:
+            return F.batch_norm(xf, self.running_mean, self.running_var,
+                                self.weight, self.bias, training=False,
+                                eps=1e-5).to(x.dtype)
+        dims = [d for d in range(xf.dim()) if d != 1]
+        mean = xf.mean(dims)
+        var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            for r, s in ((self.running_mean, mean), (self.running_var, var)):
+                r.mul_(self.MOMENTUM).add_(s, alpha=1 - self.MOMENTUM)
+        shape = [1, -1] + [1] * (xf.dim() - 2)
+        scale = (torch.rsqrt(var + 1e-5) * self.weight).view(shape)
+        y = (xf - mean.view(shape)) * scale + self.bias.view(shape)
+        return y.to(x.dtype)
 
 
 class Attention(nn.Module):

@@ -16,6 +16,10 @@ plain PyTorch (for the tests).
 * :func:`filtfilt` — the host wrapper of ``pallas_filtfilt``: odd
   extension, two steady-state passes of :func:`sosfilt`, crop.
 
+A launch takes at most :data:`MAX_SECTIONS` sections; a longer cascade
+runs as consecutive runs of them (:func:`split_sections`), one launch a
+run, the rolldec kernel on the last.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 """
@@ -32,7 +36,7 @@ from .. import _build
 from .iir import FilterCoeffs, _chunk_ops, _sos_scan, _sos_zi
 from .resample import rolling_mean4_decimate_flat
 
-MAX_SECTIONS = 12
+MAX_SECTIONS = 12          # csrc/iir.cu kMaxSections
 MAX_THREADS = 512          # csrc/iir.cu kMaxThreads
 STAGE = 32                 # csrc/iir.cu kStage
 MIN_CHUNK = 64
@@ -83,14 +87,28 @@ def launch_shape(lanes: int, T: int, K: int,
     return chunk, n_chunks, max(1, min(CTA_THREADS // width, -(-lanes // SMS)))
 
 
+def split_sections(sos: Tuple[Tuple[float, ...], ...]
+                   ) -> Tuple[Tuple[Tuple[float, ...], ...], ...]:
+    """The cascade ``sos`` as consecutive runs of at most
+    :data:`MAX_SECTIONS` sections, the most one launch takes.  A cascade is
+    the composition of its sections, so filtering by the runs one after
+    another is the whole cascade, NaN mask included.  From the steady
+    state (``steady_state_init``), each run starts from its own
+    ``sosfilt_zi`` times its own input's first sample: a run started in
+    steady state outputs its DC gain times x[0] at sample 0, so in exact
+    arithmetic the runs start where the whole cascade's ``sosfilt_zi`` ·
+    x[0] would."""
+    return tuple(sos[i:i + MAX_SECTIONS]
+                 for i in range(0, len(sos), MAX_SECTIONS))
+
+
 def _check_cuda_input(x: torch.Tensor, coeffs: FilterCoeffs) -> None:
     if not x.is_cuda:
         raise ValueError(f"expected a CPU or CUDA tensor, got {x.device}")
     if x.dtype != torch.float32:
         raise TypeError(f"the IIR kernels take float32, got {x.dtype}")
-    if not 1 <= len(coeffs.sos) <= MAX_SECTIONS:
-        raise ValueError(f"the IIR kernels take 1..{MAX_SECTIONS} sections, "
-                         f"got {len(coeffs.sos)}")
+    if not coeffs.sos:
+        raise ValueError("the IIR kernels need at least one section")
 
 
 @functools.lru_cache(maxsize=64)
@@ -102,15 +120,16 @@ def _chunk_args(sos, chunk: int):
             a_pow.ctypes.data_as(_DP))
 
 
-def _launch(name: str, coeffs: FilterCoeffs, x: torch.Tensor, y: torch.Tensor,
+def _launch(name: str, sos, x: torch.Tensor, y: torch.Tensor,
             chunk: Optional[int], *zi_init: int) -> None:
-    """Launch ``name`` on x (lanes, T) → y, with the chunked scan's
+    """Launch ``name`` with the sections ``sos`` (at most
+    :data:`MAX_SECTIONS`) on x (lanes, T) → y, with the chunked scan's
     constants for the chunk length :func:`launch_shape` picks (or for
     ``chunk``, which only the chunk-length sweep sets)."""
     lanes, T = x.shape
-    K = len(coeffs.sos)
+    K = len(sos)
     L, _, G = launch_shape(lanes, T, K, chunk)
-    coef, zi, a_pow = _chunk_args(coeffs.sos, L)
+    coef, zi, a_pow = _chunk_args(sos, L)
     with torch.cuda.device(x.device):
         rc = getattr(_lib(), name)(
             x.data_ptr(), y.data_ptr(), T, lanes, K, L, G, coef, zi, *zi_init,
@@ -128,11 +147,19 @@ def sosfilt(coeffs: FilterCoeffs, x: torch.Tensor,
              * x[..., :1, None])
         return _sos_scan(x, coeffs.sos, z)
     _check_cuda_input(x, coeffs)
-    x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    y = torch.empty_like(x2)
-    _launch("iir_sosfilt_f32", coeffs, x2, y, None, int(steady_state_init))
-    sosfilt.launches += 1
+    y = x.reshape(-1, x.shape[-1]).contiguous()
+    for run in split_sections(coeffs.sos):
+        y = _sosfilt_run(run, y, steady_state_init)
     return y.reshape(x.shape)
+
+
+def _sosfilt_run(sos, x2: torch.Tensor, steady_state_init: bool
+                 ) -> torch.Tensor:
+    """One launch of the plain cascade kernel: x2 (lanes, T) contiguous."""
+    y = torch.empty_like(x2)
+    _launch("iir_sosfilt_f32", sos, x2, y, None, int(steady_state_init))
+    sosfilt.launches += 1
+    return y
 
 
 sosfilt.launches = 0
@@ -148,11 +175,14 @@ def sosfilt_rolldec(coeffs: FilterCoeffs, x: torch.Tensor) -> torch.Tensor:
         y = _sos_scan(x.reshape(-1, T), coeffs.sos)
         return rolling_mean4_decimate_flat(y, 4).reshape(shape[:-1] + (T // 4,))
     _check_cuda_input(x, coeffs)
+    *lead, last = split_sections(coeffs.sos)
     x2 = x.reshape(-1, T).contiguous()
+    for run in lead:
+        x2 = _sosfilt_run(run, x2, False)
     if x2.data_ptr() % 16:                  # the kernel reads float4
         x2 = x2.clone()
     y = torch.empty((x2.shape[0], T // 4), dtype=x.dtype, device=x.device)
-    _launch("iir_sosfilt_rolldec_f32", coeffs, x2, y, None)
+    _launch("iir_sosfilt_rolldec_f32", last, x2, y, None)
     sosfilt_rolldec.launches += 1
     return y.reshape(shape[:-1] + (T // 4,))
 

@@ -10,11 +10,12 @@ float32 accumulation).  A CUDA tensor launches a kernel of
 ``specblock_convpool`` on the tensor cores, intermediates in shared
 memory: float32 as a 3xTF32 implicit GEMM, bf16 as a bf16 implicit GEMM
 whose weights :func:`_pack_bf16_pairs` packs into channel-pair words.  For
-Cout 64/128/256, float32 runs the wide CUDA-core kernel; bf16 runs
-``specblock_wide_bf16``: three device launches of one bf16 implicit-GEMM
-conv on the tensor cores (the same packed words, Cin zero-padded to a
-multiple of 32 by :func:`_pad_cin`), the two intermediates in device
-scratch, the pool in the third launch.  Launches are counted per call in
+Cout 64/128/256 a call is three device launches of one implicit-GEMM conv
+on the tensor cores, the two intermediates in device scratch, the pool in
+the third launch, with Cin zero-padded to a multiple of 32 by
+:func:`_pad_cin`: bf16 runs ``specblock_wide_bf16`` (the same packed
+words), float32 ``specblock_wide_f32`` (3xTF32 over the HWIO weights as
+they are).  Launches are counted per call in
 ``fused_specblock_convpool.launches``, and by kernel (:func:`kernel_name`)
 in ``fused_specblock_convpool.kernel_launches``.
 
@@ -41,9 +42,12 @@ from .. import _build
 #: kernels, :data:`WIDE_COUTS` on the wide kernel
 KERNEL_COUTS = (8, 16, 32, 64, 128, 256)
 WIDE_COUTS = (64, 128, 256)
-#: channels of one K-block of the bf16 wide conv (one tap's 16 pair words)
+#: conv1's Cin of a wide call is padded to a multiple of this: the bf16
+#: wide conv's K-block (one tap's 16 pair words), twice the f32 one's 16
 WIDE_K_CHANNELS = 32
-MAX_BATCH = 65535
+#: the wide convs' GEMM rows B·H·W stay below 2³¹ − 128 (int indices);
+#: the 16×16-tile kernels take any batch (above 65,535 in slices)
+MAX_WIDE_PIXELS = 2 ** 31 - 129
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,8 +59,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("specblock")
     lib.specblock_convpool.argtypes = [_P] * 6 + [_I] * 7 + [_P]
     lib.specblock_convpool.restype = _I
-    lib.specblock_wide_bf16.argtypes = [_P] * 8 + [_I] * 6 + [_P]
-    lib.specblock_wide_bf16.restype = _I
+    for name in ("specblock_wide_bf16", "specblock_wide_f32"):
+        getattr(lib, name).argtypes = [_P] * 8 + [_I] * 6 + [_P]
+        getattr(lib, name).restype = _I
     lib.specblock_smem_bytes.argtypes = [_I, _I, _I]
     lib.specblock_smem_bytes.restype = ctypes.c_longlong
     return lib
@@ -73,8 +78,9 @@ def kernel_name(cout: int, dtype: torch.dtype) -> str:
     """The kernel a (Cout, storage type) launches: ``specblock_convpool``
     (float32, the 3xTF32 tensor-core kernel), ``specblock_convpool_bf16``
     (bf16, the bf16 tensor-core kernel), ``specblock_convpool_wide`` and
-    ``specblock_convpool_wide_bf16`` (Cout in :data:`WIDE_COUTS`; the bf16
-    one is counted once a call, for its three device launches)."""
+    ``specblock_convpool_wide_bf16`` (Cout in :data:`WIDE_COUTS`: the
+    3xTF32 and the bf16 wide conv, each counted once a call, for its three
+    device launches)."""
     name = "specblock_convpool_wide" if cout in WIDE_COUTS \
         else "specblock_convpool"
     return name + ("_bf16" if dtype == torch.bfloat16 else "")
@@ -115,11 +121,12 @@ def _check_cuda_args(x, kernels, biases, pool, dtype) -> None:
         raise ValueError("x must be a contiguous NHWC tensor")
     b, h, w, cin = x.shape
     co = kernels[0].shape[-1]
-    if not fused_applies(h, w) or b > MAX_BATCH:
-        raise ValueError(f"fused block does not take (B, H, W) = {(b, h, w)}")
     if co not in KERNEL_COUTS:
         raise ValueError(f"fused block kernel takes Cout in {KERNEL_COUTS}, "
                          f"got {co}")
+    if not fused_applies(h, w) or (co in WIDE_COUTS
+                                   and b * h * w > MAX_WIDE_PIXELS):
+        raise ValueError(f"fused block does not take (B, H, W) = {(b, h, w)}")
     want = [(3, 3, cin, co), (3, 3, co, co), (3, 3, co, co)]
     if [tuple(k.shape) for k in kernels] != want:
         raise ValueError(f"kernels must be HWIO {want}")
@@ -173,8 +180,8 @@ def _launch(x, kernels, biases, pool, dtype) -> torch.Tensor:
     b, h, w, cin = x.shape
     co = kernels[0].shape[-1]
     bf16 = dtype == torch.bfloat16
-    wide_bf16 = bf16 and co in WIDE_COUTS
-    if wide_bf16:
+    wide = co in WIDE_COUTS
+    if wide:
         x, k1 = _pad_cin(x, kernels[0])
         kernels = (k1, *kernels[1:])
     if bf16:
@@ -184,13 +191,15 @@ def _launch(x, kernels, biases, pool, dtype) -> torch.Tensor:
     bias = torch.stack([bi.float() for bi in biases]).contiguous()
     out = torch.empty((b, h // 2, w // 2, co), dtype=dtype, device=x.device)
     pool_max = int(pool == "max")
+    entry = ("specblock_wide_" + ("bf16" if bf16 else "f32") if wide
+             else "specblock_convpool")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if wide_bf16:
+        if wide:
             # conv1 and conv2 outputs; torch.empty is safe under capture
             t1, t2 = (torch.empty((b, h, w, co), dtype=dtype,
                                   device=x.device) for _ in range(2))
-            rc = _lib().specblock_wide_bf16(
+            rc = getattr(_lib(), entry)(
                 x.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(),
                 ws[2].data_ptr(), bias.data_ptr(), t1.data_ptr(),
                 t2.data_ptr(), out.data_ptr(), b, h, w, x.shape[-1], co,
@@ -200,8 +209,7 @@ def _launch(x, kernels, biases, pool, dtype) -> torch.Tensor:
                 x.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(),
                 ws[2].data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w,
                 cin, co, pool_max, int(bf16), stream)
-    _build.check(rc, "specblock_wide_bf16" if wide_bf16
-                 else "specblock_convpool")
+    _build.check(rc, entry)
     fused_specblock_convpool.launches += 1
     fused_specblock_convpool.kernel_launches[kernel_name(co, dtype)] += 1
     return out

@@ -139,13 +139,9 @@ def hms_eeg_preprocess(x: torch.Tensor,
     rounded x (on the card the block-matmul route is 4.4× slower than the
     kernel).  The montage and the z-score stay float32.  The JAX chain
     rounds only where it takes the block-matmul route (stride 4, T % 4 ==
-    0), and so does this one.  The JAX NaN route ignores
-    ``serving_dtype``; here it raises, so no caller believes it served
-    bf16.
+    0), and so does this one.  The NaN route ignores ``serving_dtype``
+    and returns its float32 output, as the JAX chain does.
     """
-    if serving_dtype is not None and not assume_finite:
-        raise ValueError("serving_dtype applies to the finite route only "
-                         "(assume_finite=True)")
     x = x.float()
     fs = float(signal.sampling_rate)
     bp1 = iir.butter_bandpass(cfg.bandpass.low, cfg.bandpass.high, fs,

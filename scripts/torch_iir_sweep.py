@@ -72,7 +72,8 @@ def sweep(card: str, chunks, reps: int) -> None:
                 def run(c=c):
                     if c is None:
                         return fn(coeffs, x)
-                    cuda_iir._launch(kernel, coeffs, x, y, c, *zi_init)
+                    cuda_iir._launch(kernel, coeffs.sos, x, y, c,
+                                     *zi_init)
                     return y
                 out = run()
                 torch.cuda.synchronize()

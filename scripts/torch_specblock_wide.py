@@ -1,24 +1,27 @@
-"""Times the bf16 wide fused spectrogram block (Cout 64/128/256) on one card.
+"""Times the wide fused spectrogram block (Cout 64/128/256) on one card.
 
-    python3 scripts/torch_specblock_wide.py [--repo DIR] [--tag NAME]
+    python3 scripts/torch_specblock_wide.py [--dtype bfloat16|float32]
+                                            [--repo DIR] [--tag NAME]
                                             [--profile] [--tiles SPEC ...]
 
 At chip_smoke.py phase 3's shapes (B=256: Cout 64 on 16x12, 128 on 8x6,
 256 on 8x6, and Cout 64 on a 100x76 plane), times
-``fused_specblock_convpool(dtype=bf16)`` as one CUDA graph of calls (the
-host's launches left out) and eagerly, beside cuDNN's bf16 chain (conv x3
-+ pool, one graph; never used by the port).  ``--repo`` imports the port
-from another checkout (e.g. an unpacked parent commit), so two versions
-compare on one card.  ``--profile`` adds the device time a call by kernel
-name (torch.profiler).
+``fused_specblock_convpool(dtype=...)`` (bf16 by default) as one CUDA
+graph of calls (the host's launches left out) and eagerly, beside cuDNN's
+chain in the same type (conv x3 + pool, one graph, TF32 off; never used
+by the port).  ``--repo`` imports the port from another checkout (e.g. an
+unpacked parent commit), so two versions compare on one card.
+``--profile`` adds the device time a call by kernel name (torch.profiler).
 
 ``--tiles WM,WN,MI,MB`` (repeatable) instead builds copies of
-``csrc/specblock.cu`` whose ``wide_bf16_conv_kernel`` has WM x WN warps of
-MI m16 tiles x 32 channels and ``__launch_bounds__`` minimum MB CTAs an SM,
-prints ptxas's registers and spills, holds each against the plain bf16
-chain (1e-2 of its max) and times its ``specblock_wide_bf16`` entry alone
-(weights packed once, a CUDA graph of calls), in two passes in opposite
-orders.
+``csrc/specblock.cu`` whose wide conv of the type (``wide_bf16_conv_kernel``
+or ``wide_tf32_conv_kernel``) has WM x WN warps of MI m16 tiles x 32
+channels and ``__launch_bounds__`` minimum MB CTAs an SM, prints ptxas's
+registers and spills, holds each against the plain chain of the type
+(1e-2 of its max in bf16, a sanity bound of 1e-4 in float32, where
+chip_smoke.py holds the kernel at rtol = atol = 1e-5) and times its entry
+(``specblock_wide_bf16`` or ``specblock_wide_f32``) alone (weights
+prepared once, a CUDA graph of calls), in two passes in opposite orders.
 """
 
 from __future__ import annotations
@@ -67,6 +70,12 @@ def graph_ms(fn, reps: int) -> float:
     return cuda_ms(graph.replay, 5) / reps
 
 
+#: per storage type: the tile constants' prefix in specblock.cu, the wide
+#: conv's name, its C entry
+KINDS = {torch.bfloat16: ("kW", "wide_bf16_conv_kernel", "specblock_wide_bf16"),
+         torch.float32: ("kT", "wide_tf32_conv_kernel", "specblock_wide_f32")}
+
+
 def cudnn_chain(x, ks, bs, pool):
     import torch.nn.functional as F
     xn = x.permute(0, 3, 1, 2).contiguous()
@@ -81,7 +90,7 @@ def cudnn_chain(x, ks, bs, pool):
     return run
 
 
-def inputs(b, h, w, cin, co, dev):
+def inputs(b, h, w, cin, co, dev, dtype):
     """chip_smoke.py's seeded operands: He-scale weights, biases 0.1."""
     rng = np.random.default_rng(4)
     mk = lambda *s: torch.as_tensor(rng.standard_normal(s),
@@ -89,20 +98,20 @@ def inputs(b, h, w, cin, co, dev):
     ks = [mk(3, 3, ci, co) * float(np.sqrt(2 / (9 * cin)))
           for ci in (cin, co, co)]
     bs = [mk(co) * 0.1 for _ in range(3)]
-    return mk(b, h, w, cin).to(torch.bfloat16), ks, bs
+    return mk(b, h, w, cin).to(dtype), ks, bs
 
 
 def flops(b, h, w, cin, co) -> float:
     return 2 * 9 * (cin * co + 2 * co * co) * b * h * w
 
 
-def time_wrapper(csb, tag: str, profile: bool, dev) -> None:
+def time_wrapper(csb, tag: str, profile: bool, dev, dtype) -> None:
     total = 0.0
     for b, h, w, cin, co, pool in SHAPES:
         reps = 3 if h >= 100 else 20
-        x, ks, bs = inputs(b, h, w, cin, co, dev)
+        x, ks, bs = inputs(b, h, w, cin, co, dev, dtype)
         fused = lambda: csb.fused_specblock_convpool(
-            x, ks, bs, pool=pool, dtype=torch.bfloat16)
+            x, ks, bs, pool=pool, dtype=dtype)
         # a kernel of over 1 ms a call (the parent's) takes a tenth the reps
         n = reps if cuda_ms(fused, 1) < 1.0 else max(1, reps // 10)
         g = graph_ms(fused, n)
@@ -111,7 +120,8 @@ def time_wrapper(csb, tag: str, profile: bool, dev) -> None:
         total += g if h < 100 else 0.0
         print(f"[{tag}] ({b},{h},{w},{cin})->{co} {pool}: one graph {g:.4f} "
               f"ms ({flops(b, h, w, cin, co) / g / 1e9:.1f} TFLOP/s), eager "
-              f"{e:.4f} ms; cuDNN bf16 chain, one graph {lib:.4f} ms",
+              f"{e:.4f} ms; cuDNN {str(dtype)[6:]} chain, one graph "
+              f"{lib:.4f} ms",
               flush=True)
         if profile:
             from torch.profiler import ProfilerActivity, profile as prof_
@@ -128,19 +138,21 @@ def time_wrapper(csb, tag: str, profile: bool, dev) -> None:
     print(f"[{tag}] three block shapes, one graph each, sum {total:.4f} ms")
 
 
-def build_tiles(specs, build_dir: Path):
+def build_tiles(specs, build_dir: Path, dtype):
     """One library per tile spec, nvcc started for all at once."""
+    pre, kern, entry = KINDS[dtype]
     from multimodal_brain_pattern_identification_xai_tpu_torch import _build
     src = (_build.CSRC / "specblock.cu").read_text()
     build_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for spec in specs:
         wm, wn, mi, mb = (int(v) for v in spec.split(","))
-        s, n = re.subn(r"kWWarpsM = \d+, kWWarpsN = \d+, kWMI = \d+;",
-                       f"kWWarpsM = {wm}, kWWarpsN = {wn}, kWMI = {mi};", src)
-        s, n2 = re.subn(r"kWMinBlocks = \d+;", f"kWMinBlocks = {mb};", s)
+        s, n = re.subn(rf"{pre}WarpsM = \d+, {pre}WarpsN = \d+, {pre}MI = \d+;",
+                       f"{pre}WarpsM = {wm}, {pre}WarpsN = {wn}, {pre}MI = {mi};",
+                       src)
+        s, n2 = re.subn(rf"{pre}MinBlocks = \d+;", f"{pre}MinBlocks = {mb};", s)
         assert n == n2 == 1, "tile constants not found in specblock.cu"
-        name = "tiles_" + spec.replace(",", "_")
+        name = f"tiles_{pre}_" + spec.replace(",", "_")
         (build_dir / f"{name}.cu").write_text(s)
         procs[spec] = (name, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
@@ -155,34 +167,34 @@ def build_tiles(specs, build_dir: Path):
         for line in log.splitlines():
             m = re.search(r"Function properties for (\S+)", line)
             func = m.group(1) if m else func
-            if func and "wide_bf16_conv_kernelILi1E" in func and (
+            if func and f"{kern}ILi1E" in func and (
                     "spill" in line or "Used" in line):
                 print(f"[tiles {spec}] {line.strip()}")
         lib = ctypes.CDLL(str(build_dir / f"{name}.so"))
-        lib.specblock_wide_bf16.argtypes = [ctypes.c_void_p] * 8 + \
+        getattr(lib, entry).argtypes = [ctypes.c_void_p] * 8 + \
             [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        libs[spec] = lib
+        libs[spec] = getattr(lib, entry)
     return libs
 
 
-def time_tiles(csb, specs, dev) -> None:
+def time_tiles(csb, specs, dev, dtype) -> None:
     libs = build_tiles(specs, Path(csb.__file__).parents[1] / "_build" /
-                       "tiles")
+                       "tiles", dtype)
+    bf16 = dtype == torch.bfloat16
     res = {s: [] for s in libs}
     for b, h, w, cin, co, pool in SHAPES:
-        x, ks, bs = inputs(b, h, w, cin, co, dev)
-        plain = csb._plain_convpool(x, ks, bs, pool, torch.bfloat16).float()
+        x, ks, bs = inputs(b, h, w, cin, co, dev, dtype)
+        plain = csb._plain_convpool(x, ks, bs, pool, dtype).float()
         xp, k1 = csb._pad_cin(x, ks[0])
-        ws = [csb._aligned(csb._pack_bf16_pairs(k))
-              for k in (k1, ks[1], ks[2])]
+        ws = [csb._aligned(csb._pack_bf16_pairs(k) if bf16
+                           else k.contiguous()) for k in (k1, ks[1], ks[2])]
         bias = torch.stack(bs).contiguous()
-        t1, t2 = (torch.empty((b, h, w, co), dtype=torch.bfloat16,
-                              device=dev) for _ in range(2))
-        out = torch.empty((b, h // 2, w // 2, co), dtype=torch.bfloat16,
-                          device=dev)
+        t1, t2 = (torch.empty((b, h, w, co), dtype=dtype, device=dev)
+                  for _ in range(2))
+        out = torch.empty((b, h // 2, w // 2, co), dtype=dtype, device=dev)
         for order in (list(libs), list(libs)[::-1]):
             for spec in order:
-                call = lambda: libs[spec].specblock_wide_bf16(
+                call = lambda: libs[spec](
                     xp.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(),
                     ws[2].data_ptr(), bias.data_ptr(), t1.data_ptr(),
                     t2.data_ptr(), out.data_ptr(), b, h, w, xp.shape[-1],
@@ -194,7 +206,7 @@ def time_tiles(csb, specs, dev) -> None:
                 torch.cuda.synchronize()
                 err = float((out.float() - plain).abs().max()
                             / plain.abs().max())
-                if err >= 1e-2:
+                if err >= (1e-2 if bf16 else 1e-4):
                     raise RuntimeError(f"tiles {spec}: rel err {err}")
                 ms = graph_ms(call, 3 if h >= 100 else 20)
                 res[spec].append(ms)
@@ -213,6 +225,8 @@ def main() -> int:
     ap.add_argument("--tag", default="port")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--tiles", action="append", default=[])
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_specblock_wide: no CUDA device", file=sys.stderr)
@@ -221,6 +235,8 @@ def main() -> int:
     from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
         cuda_specblock as csb)
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = getattr(torch, args.dtype)
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -228,9 +244,9 @@ def main() -> int:
         timeout=60).stdout.strip()
     print(f"[{args.tag}] port from {os.path.dirname(csb.__file__)}; {card}")
     if args.tiles:
-        time_tiles(csb, args.tiles, dev)
+        time_tiles(csb, args.tiles, dev, dtype)
     else:
-        time_wrapper(csb, args.tag, args.profile, dev)
+        time_wrapper(csb, args.tag, args.profile, dev, dtype)
     return 0
 
 

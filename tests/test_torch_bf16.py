@@ -76,12 +76,22 @@ def test_eeg_preprocess_bf16(rng):
 
 
 def test_eeg_preprocess_bf16_nan_route_raises(rng):
-    """The JAX NaN route ignores serving_dtype; the port refuses it rather
-    than serve float32 under a bf16 label."""
-    x = torch.from_numpy((rng.standard_normal((1, 20, 400)) * 40)
-                         .astype(np.float32))
-    with pytest.raises(ValueError, match="finite route"):
-        tpre.hms_eeg_preprocess(x, assume_finite=False, serving_dtype=BF16)
+    """``serving_dtype=bf16`` on the NaN route (``assume_finite=False``):
+    the JAX chain ignores ``serving_dtype`` off the finite route, and so
+    does the port, which returns the float32 NaN route's output (bit for
+    bit the ``serving_dtype=None`` output), within the float32 chains'
+    5e-3 z-scored bound (tests/test_torch_preprocess.py) of JAX's."""
+    x = (rng.standard_normal((1, 20, 400)) * 40).astype(np.float32)
+    x[0, 3, 100:150] = np.nan
+    got = tpre.hms_eeg_preprocess(torch.from_numpy(x), assume_finite=False,
+                                  serving_dtype=BF16)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, tpre.hms_eeg_preprocess(torch.from_numpy(x),
+                                                    assume_finite=False))
+    want = np.asarray(jops.hms_eeg_preprocess(
+        x, assume_finite=False, serving_dtype=jnp.bfloat16))
+    assert got.shape == want.shape == (1, 1, 37, 3000)
+    assert np.max(np.abs(got.numpy() - want)) < 5e-3
 
 
 @pytest.mark.parametrize("fused_blocks", [0, 2])

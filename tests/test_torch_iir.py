@@ -175,3 +175,51 @@ def test_chain_entry_states_decay_truncation(rng):
     # f32 matmuls over a 22-wide state with large couplings, summed in
     # another order by XLA and by torch: ~1e-5 relative
     assert _rel(got, want) < 1e-4
+
+
+def _cascade13():
+    """The finite route's cascade with ``denoise_bandpass_order=8``: 5 + 8
+    = 13 sections, one more than a kernel launch takes."""
+    return tiir.cascade(tiir.butter_bandpass(*BP5),
+                        tiir.butter_bandpass(0.5, 20.0, 200.0, 8))
+
+
+def test_split_sections_covers_the_cascade_in_order():
+    sos = _cascade13().sos
+    runs = cuda_iir.split_sections(sos)
+    assert [len(r) for r in runs] == [12, 1]
+    assert sum(runs, ()) == sos
+    assert cuda_iir.split_sections(sos[:11]) == (sos[:11],)
+
+
+@pytest.mark.parametrize("kind", ["zero", "steady_state", "rolldec"])
+def test_split_sections_chain_equals_whole_cascade(rng, kind):
+    """The plain scans chained over ``split_sections``' runs (each run
+    from zero, or from its own steady state times its own input's first
+    sample; the last run followed by the rolling mean for rolldec), which
+    is what a CUDA call of more than 12 sections launches, equal the whole
+    13-section scan and scipy at rel 2e-4."""
+    coeffs = _cascade13()
+    x = (rng.standard_normal((3, 2000)) * 40 + 300).astype(np.float32)
+    xt = torch.from_numpy(x)
+    steady = kind == "steady_state"
+    y = xt
+    for run in cuda_iir.split_sections(coeffs.sos):
+        zi = (torch.as_tensor(tiir._steady_state(run), dtype=torch.float32)
+              * y[..., :1, None] if steady else None)
+        y = tiir._sos_scan(y, run, zi)
+    sos = np.asarray(coeffs.sos)
+    if steady:
+        ref, _ = sps.sosfilt(sos, x.astype(np.float64), axis=-1,
+                             zi=sps.sosfilt_zi(sos)[:, None, :]
+                             * x[None, :, :1])
+    else:
+        ref = sps.sosfilt(sos, x.astype(np.float64), axis=-1)
+    if kind == "rolldec":
+        y = y.reshape(3, 500, 4).mean(-1)
+        ref = ref.reshape(3, 500, 4).mean(-1)
+        whole = cuda_iir.sosfilt_rolldec(coeffs, xt)
+    else:
+        whole = cuda_iir.sosfilt(coeffs, xt, steady_state_init=steady)
+    assert _rel(y.numpy(), whole.numpy()) < 2e-4
+    assert _rel(y.numpy(), ref) < 2e-4

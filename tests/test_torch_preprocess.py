@@ -61,3 +61,4 @@ def test_eeg_rolling_wrap_when_length_not_multiple_of_4(rng):
     want = np.asarray(jops.hms_eeg_preprocess(
         x, signal=JC.SignalConfig(fixed_length=256)))
     assert np.max(np.abs(got - want)) < 5e-3
+
