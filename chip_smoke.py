@@ -72,14 +72,26 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
               block's launches and backward calls read around them; then
               their times at B=256 (IG on the spectrogram branch at B=32)
               and the fused block's VJP beside the cuDNN chain's backward;
-10. convprobe — the conv probe's duty kernel against its plain version at
+10. train    — the training path (``entry.train_entry``, the JAX bench's
+              ``--train`` program; ``entry.train_multimodal``, the JAX
+              CLI's ``train-multimodal --demo`` loop): a float32 step at
+              B=4 against the CPU (loss, gradient norm, every gradient,
+              BatchNorm statistics), the IIR kernels' launches read around
+              the entry's step on both EEG routes, the NaN sentinel on the
+              card (bitwise), the loss falling over 10 steps in float32 and
+              bf16, two epochs of ``train_multimodal`` with checkpoints and a
+              bitwise resume, then ms/step, training windows/s, peak memory,
+              idle share and top device ops at B=256 (bf16 and float32,
+              finite route; bf16 on the NaN route);
+11. convprobe — the conv probe's duty kernel against its plain version at
               the probe's four GEMM shapes, then its rate at R=512.
 
 Output: a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, then the
 last line ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` are
 the main path's (phase 4; phase 5 for the wide kernel), and for
 ``iir_sosfilt`` also paths B and C (its ``main_launches`` is phase 4's);
-``routes_launches`` holds each path of phase 7 apart.  Needs one card; imports
+``routes_launches`` holds each path of phase 7 apart, ``train_launches``
+(IIR rows) phase 10's training path.  Needs one card; imports
 nothing of JAX.
 """
 
@@ -131,6 +143,20 @@ GRAPH_ATOL = 1e-6
 # reach the output damped by the weights
 BF16_PLAIN_REL = 1e-2
 DUTY_REL = 1e-4                  # duty kernel vs plain (exact bf16 products)
+# Training step at full width, B=4, card vs CPU (float32, TF32 off; both
+# also against the CPU in float64).  float32 itself is this far from
+# float64 here (CPU, one step; BatchNorm's E[x²] − E[x]² cancels at 200x150
+# planes): gradient norm 0.8-1.6e-4 relative, single gradients up to 1.1e-2
+# of their tensor's max (2.2e-2 for BatchNorm 1's bias, zero in exact
+# arithmetic), running means up to 5.9e-5 of their max.  The bounds sit
+# above that; the loss agrees to ~1e-7.
+TRAIN_LOSS_REL, TRAIN_NORM_REL = 1e-5, 1e-3
+TRAIN_GRAD_REL, TRAIN_BN_REL = 3e-2, 1e-4
+# all gradients against the CPU's float64 step, normwise: the card within
+# twice the CPU float32's distance (measured: card 1.35e-3, CPU 1.59e-3)
+TRAIN_F64_FACTOR = 2.0
+TRAIN_L2 = 1e-3                  # train_entry's l2_lambda
+TRAIN_STEPS = 8                  # timed steps, as bench.py's bench_train
 PKG = "multimodal_brain_pattern_identification_xai_tpu_torch"
 #: (Cin, Cout) of the wide kernel's instantiations: blocks 3-5
 WIDE_SHAPES = ((32, 64), (64, 128), (128, 256))
@@ -1209,6 +1235,253 @@ def phase_xai(card: str, dev, serving_ms: float) -> dict:
     return counts
 
 
+def _train_snapshot(state):
+    """Bitwise copies of what the NaN sentinel must keep: the model's
+    state_dict (BatchNorm buffers included) and the optimizer state."""
+    return ({k: v.clone() for k, v in state.model.state_dict().items()},
+            {k: v.clone() for k, v in state.opt_state.items()})
+
+
+def _same(a, b) -> bool:
+    return all(torch.equal(x[k], y[k]) for x, y in zip(a, b) for k in x)
+
+
+def _train_timing(card: str, dtype, assume_finite: bool, reset, read,
+                  top: bool) -> tuple:
+    """``bench_train``'s measurement of the training program at B_TIME: 2
+    warm-up steps, then TRAIN_STEPS steps between CUDA events; the IIR
+    kernels' launches a step read around the timed steps; peak memory;
+    the step's device busy share and, with ``top``, its top device ops
+    (profiler over 2 steps).  Returns (ms/step, windows/s, peak GiB)."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        profiling)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.entry import (
+        train_entry)
+    prog = "bf16" if dtype is not None else "float32"
+    route = "finite" if assume_finite else "nan"
+    torch.cuda.reset_peak_memory_stats()
+    step, st, (eeg, spec, y) = train_entry(device="cuda", batch=B_TIME,
+                                           dtype=dtype,
+                                           assume_finite=assume_finite)
+    box = [st]
+
+    def one():
+        box[0], m = step(box[0], eeg, spec, y)
+        return m
+    ms = cuda_ms(one, TRAIN_STEPS, warmup=2)
+    reset()
+    m = one()
+    torch.cuda.synchronize()
+    counts = read()
+    require(not bool(m["nonfinite"]), f"train {prog} {route}: skipped step")
+    peak = peak_gib()
+    prof = profiling.profile_kernels(one, reps=2, warmup=0)
+    # summed kernel time can exceed the wall when kernels overlap (cuDNN
+    # runs some on its own streams): then no idle time is measurable
+    idle = max(0.0, 1.0 - prof.busy_ms / prof.wall_ms)
+    print(f"[train] {prog} program, {route} route, B={B_TIME}: "
+          f"{ms:.3f} ms/step = {B_TIME / ms * 1e3:.1f} training windows/s "
+          f"(CUDA events, {TRAIN_STEPS} steps after 2 warm-ups); peak "
+          f"{peak:.2f} GiB; profiler: busy {prof.busy_ms:.3f} of "
+          f"{prof.wall_ms:.3f} ms wall a step = idle {100 * idle:.1f} %, "
+          f"{prof.kernels:.0f} kernels + {prof.copies:.0f} copies a step; "
+          f"launches a step: iir_sosfilt_rolldec "
+          f"{counts['iir_sosfilt_rolldec']}, iir_sosfilt "
+          f"{counts['iir_sosfilt']}; loss {float(m['loss']):.4f} [{card}]")
+    require(counts["iir_sosfilt_rolldec"] == 1
+            and counts["iir_sosfilt"] == (0 if assume_finite else 1),
+            f"train {prog} {route}: IIR launches a step {counts}")
+    if top:
+        ops = sorted(prof.kernel_ms.items(), key=lambda kv: -kv[1])[:8]
+        print(f"[train] {prog} {route}: top device ops a step: "
+              + "; ".join(f"{n[:100]} x{prof.kernel_calls[n]:.0f} {v:.3f} ms"
+                          for n, v in ops))
+    del step, st, box, eeg, spec, y
+    torch.cuda.empty_cache()
+    return ms, B_TIME / ms * 1e3, peak
+
+
+def phase_train(card: str, dev) -> dict:
+    """The training path (``entry.train_entry``, the JAX bench's ``--train``
+    program, and ``entry.train_multimodal``, the JAX CLI's
+    ``train-multimodal --demo`` loop) on the card:
+
+    * one float32 step at B_MAIN, dropout off, finite route, against the
+      same seeded weights on the CPU, both on the batch the card
+      preprocessed (the IIR kernels are held in phase 3): loss within
+      TRAIN_LOSS_REL, global gradient norm within TRAIN_NORM_REL, each
+      gradient within TRAIN_GRAD_REL of its tensor's max |g| (plus 1e-6 of
+      the largest |g| of the model: gradients that are zero in exact
+      arithmetic, BatchNorm 1's affine and the attention key's bias, are
+      rounding noise on both sides), the BatchNorm running statistics
+      within TRAIN_BN_REL of each tensor's max; and all gradients, normwise
+      against the CPU's float64 step, within TRAIN_F64_FACTOR times the CPU
+      float32's distance;
+    * the training path's launch counts: set to 0 just before one step of
+      the entry (preprocessing included) on the finite route and one on the
+      NaN route (the ``--demo`` data's route, with its NaNs), read just
+      after: one ``rolldec`` a step and one ``sosfilt`` on the NaN route;
+    * a NaN batch on the card: ``nonfinite`` set, parameters, optimizer
+      state and BatchNorm buffers bitwise unchanged, the step advanced;
+    * the loss falls over 10 steps on one batch, float32 and bf16;
+    * ``train_multimodal`` for two epochs (24 rows, B=8, 80x60 planes, 600
+      samples) writes best-kldiv, last and step_N; a run of one epoch
+      resumed to two reaches bitwise the parameters of the uninterrupted
+      run (cuDNN's deterministic algorithms on for this check);
+    * the timing of ``_train_timing``: bf16 and float32 on the finite
+      route, bf16 on the NaN route.
+
+    Returns the training path's launches by kernel name."""
+    import tempfile
+
+    from multimodal_brain_pattern_identification_xai_tpu_torch.entry import (
+        preprocess_batch, train_entry, train_multimodal)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.models import (
+        Dropout)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.train import (
+        steps as train_steps)
+    reset, read = _counters()
+
+    # --- card vs CPU, one float32 step on one preprocessed batch ---------
+    c_step, c_st, c_raw = train_entry(device="cuda", batch=B_MAIN, dtype=None)
+    _, h_st, _ = train_entry(device="cpu", batch=B_MAIN, dtype=None)
+    for st in (c_st, h_st):
+        for m in st.model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+    c_batch = preprocess_batch(*c_raw)
+    h_batch = {k: v.cpu() for k, v in c_batch.items()}
+    grads = {}
+    for where, model, batch in (
+            ("cuda", c_st.model, c_batch), ("cpu", h_st.model, h_batch),
+            ("cpu64", h_st.model,
+             {k: v.double() for k, v in h_batch.items()})):
+        model = copy.deepcopy(model)
+        if where == "cpu64":
+            model = model.double()
+        _, _, g = train_steps.loss_and_grads(model, batch, None,
+                                             l2_lambda=TRAIN_L2)
+        grads[where] = [t.detach().cpu().double() for t in g]
+    flat64 = torch.cat([g.reshape(-1) for g in grads["cpu64"]])
+    e64 = {w: float((torch.cat([g.reshape(-1) for g in grads[w]]) - flat64
+                     ).norm() / flat64.norm()) for w in ("cuda", "cpu")}
+    print(f"[train] gradients against the CPU in float64, normwise: card "
+          f"{e64['cuda']:.2e}, CPU float32 {e64['cpu']:.2e} (bound "
+          f"{TRAIN_F64_FACTOR}x the CPU's) [{card}]")
+    require(e64["cuda"] < TRAIN_F64_FACTOR * e64["cpu"],
+            "training step: the card is further from float64 than the CPU")
+    inner = train_steps.make_train_step(l2_lambda=TRAIN_L2)
+    c_st, c_m = inner(c_st, c_batch)
+    h_st, h_m = inner(h_st, h_batch)
+    e_loss = abs(float(c_m["loss"]) - float(h_m["loss"])) / abs(
+        float(h_m["loss"]))
+    e_norm = abs(float(c_m["grad_norm"]) - float(h_m["grad_norm"])) / float(
+        h_m["grad_norm"])
+    scale = max(float(g.abs().max()) for g in grads["cpu"])
+    e_grad = max(float((g - w).abs().max())
+                 / (float(w.abs().max()) + 1e-6 * scale / TRAIN_GRAD_REL)
+                 for g, w in zip(grads["cuda"], grads["cpu"]))
+    c_sd, h_sd = c_st.model.state_dict(), h_st.model.state_dict()
+    e_bn = max(float((c_sd[k].cpu() - v).abs().max() / v.abs().max())
+               for k, v in h_sd.items()
+               if k.endswith(("running_mean", "running_var")))
+    print(f"[train] float32 step, B={B_MAIN}, card vs CPU on one batch: loss "
+          f"{float(c_m['loss']):.6f} rel {e_loss:.2e} (bound "
+          f"{TRAIN_LOSS_REL}); grad norm {float(c_m['grad_norm']):.4f} rel "
+          f"{e_norm:.2e} (bound {TRAIN_NORM_REL}); worst gradient "
+          f"{e_grad:.2e} of its tensor's max (bound {TRAIN_GRAD_REL}); "
+          f"BatchNorm statistics {e_bn:.2e} (bound {TRAIN_BN_REL}) [{card}]")
+    require(e_loss < TRAIN_LOSS_REL and e_norm < TRAIN_NORM_REL
+            and e_grad < TRAIN_GRAD_REL and e_bn < TRAIN_BN_REL,
+            "training step: card vs CPU out of bounds")
+    del h_st, h_batch, grads
+
+    # --- the training path's launches: the entry's step, both routes -----
+    n_step, n_st, n_raw = train_entry(device="cuda", batch=B_MAIN,
+                                      assume_finite=False)
+    require(bool(torch.isnan(n_raw[0]).any()), "NaN route: no NaN in input")
+    reset()
+    c_st, c_m = c_step(c_st, *c_raw)
+    n_st, n_m = n_step(n_st, *n_raw)
+    torch.cuda.synchronize()
+    launches = read()
+    print(f"[train] launches in the training path's run (the entry's step: "
+          f"float32 finite route + bf16 NaN route, B={B_MAIN}): {launches}")
+    require(launches["iir_sosfilt_rolldec"] == 2
+            and launches["iir_sosfilt"] == 1,
+            f"training path: IIR launches {launches}")
+    require(not bool(c_m["nonfinite"]) and not bool(n_m["nonfinite"]),
+            "training path: a step was skipped")
+
+    # --- the NaN sentinel on the card -------------------------------------
+    bad = c_raw[0].clone()
+    bad[1, 7, 4000:4010] = float("nan")
+    before, step_no = _train_snapshot(c_st), c_st.step
+    c_st, b_m = c_step(c_st, bad, c_raw[1], c_raw[2])
+    torch.cuda.synchronize()
+    kept = _same(_train_snapshot(c_st), before)
+    print(f"[train] NaN batch on the card: nonfinite "
+          f"{bool(b_m['nonfinite'])}, loss {float(b_m['loss'])}, state "
+          f"bitwise kept {kept}, step {step_no} -> {c_st.step}")
+    require(bool(b_m["nonfinite"]) and kept and c_st.step == step_no + 1,
+            "NaN sentinel on the card")
+    del c_step, c_st, c_raw, n_step, n_st, n_raw
+
+    # --- the loss falls over 10 steps, float32 and bf16 -------------------
+    for dtype in (None, torch.bfloat16):
+        step, st, raw = train_entry(device="cuda", batch=8, dtype=dtype)
+        losses = []
+        for _ in range(10):
+            st, m = step(st, *raw)
+            losses.append(float(m["loss"]))
+        prog = "bf16" if dtype is not None else "float32"
+        print(f"[train] {prog} program, B=8, 10 steps on one batch: losses "
+              f"{[round(x, 4) for x in losses]}")
+        require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                f"{prog}: the loss did not fall")
+        del step, st, raw
+    torch.cuda.empty_cache()
+
+    # --- train_multimodal: checkpoints and a bitwise resume ---------------
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            a, best_a = train_multimodal(f"{tmp}/a", device="cuda", epochs=2)
+            names = sorted(p.name
+                           for p in Path(f"{tmp}/a/multimodal").iterdir())
+            for want in ("best-kldiv", "last", "step_1", "step_2"):
+                require(want in names, f"train_multimodal: no {want}")
+            train_multimodal(f"{tmp}/b", device="cuda", epochs=1)
+            b, best_b = train_multimodal(f"{tmp}/b", device="cuda", epochs=2,
+                                         resume=True)
+            last = [torch.load(f"{tmp}/{d}/multimodal/last/state.pt",
+                               map_location="cpu", weights_only=True)
+                    for d in ("a", "b")]
+            same = (all(torch.equal(v, last[1]["model"][k])
+                        for k, v in last[0]["model"].items())
+                    and all(torch.equal(v, b.state.model.state_dict()[k])
+                            for k, v in a.state.model.state_dict().items())
+                    and a.history == b.history)
+            print(f"[train] train_multimodal, 2 epochs: {names}; best kldiv "
+                  f"{best_a:.4f}; resumed from step_1: best {best_b:.4f}, "
+                  f"parameters and history bitwise equal {same} [{card}]")
+            require(same and best_a == best_b,
+                    "train_multimodal: the resumed run differs")
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    torch.cuda.empty_cache()
+
+    # --- timing at B_TIME -------------------------------------------------
+    times = {}
+    for dtype, finite, top in ((torch.bfloat16, True, True),
+                               (None, True, True),
+                               (torch.bfloat16, False, False)):
+        times[dtype, finite] = _train_timing(card, dtype, finite, reset, read,
+                                             top)
+    return {k: launches[k] for k in ("iir_sosfilt", "iir_sosfilt_rolldec")}
+
+
 def phase_convprobe(card: str, dev) -> dict:
     """The duty kernel against its plain version at the probe's four
     shapes (N=16384, small R), the probe's run at R=512 with its launches
@@ -1301,17 +1574,20 @@ def main() -> int:
     done("stem")
     xai_counts = phase_xai(card, dev, times["float32", "finite", B_TIME][0])
     done("xai")
+    train_launches = phase_train(card, dev)
+    done("train")
     rec["duty"] = phase_convprobe(card, dev)
     done("convprobe")
 
     xai_tpu = "multimodal_brain_pattern_identification_xai_tpu"
     src = {"iir_sosfilt": (f"{PKG}/csrc/iir.cu",
                            f"{xai_tpu}/ops/pallas_iir.py:165",
-                           "serving (NaN route); eeg_transform; notch "
-                           "filtfilt of the op-by-op reference chain"),
+                           "serving (NaN route); training (NaN route); "
+                           "eeg_transform; notch filtfilt of the op-by-op "
+                           "reference chain"),
            "iir_sosfilt_rolldec": (f"{PKG}/csrc/iir.cu",
                                    f"{xai_tpu}/ops/pallas_iir.py:254",
-                                   "serving"),
+                                   "serving; training (every step)"),
            "specblock_convpool": (f"{PKG}/csrc/specblock.cu",
                                   f"{xai_tpu}/ops/pallas_specblock.py:242",
                                   "serving (also the 200x150 preset's block "
@@ -1354,6 +1630,8 @@ def main() -> int:
             k["main_launches"] = main_sosfilt
         if k["name"] == "specblock_convpool":
             k["xai_launches"] = xai_counts["launches"]
+        if k["name"] in train_launches:
+            k["train_launches"] = train_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
 """PyTorch/CUDA port of the multimodal brain-pattern identification system.
 
-The serving forward (raw EEG + raw spectrogram → log-probs, ``entry``)
-and input-gradient XAI on the served model (``xai``, ``entry.
-explain_entry``) run on an NVIDIA Hopper card through hand-written CUDA
-kernels (``csrc/``); every kernel has a plain PyTorch version beside it
-that CPU tensors take.
-Imports ``torch``, numpy and scipy only.
+The serving forward (raw EEG + raw spectrogram → log-probs, ``entry``),
+input-gradient XAI on the served model (``xai``, ``entry.
+explain_entry``) and the multimodal training path (``train``, ``data``,
+``entry.train_entry`` and ``entry.train_multimodal``) run on an NVIDIA
+Hopper card through hand-written CUDA kernels (``csrc/``); every kernel has
+a plain PyTorch version beside it that CPU tensors take.
+Imports ``torch``, numpy and scipy only (pandas in ``data.dummy_metadata``).
 """
 
 from __future__ import annotations

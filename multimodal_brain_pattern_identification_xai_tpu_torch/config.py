@@ -1,8 +1,8 @@
 """Configuration subset of the ported slices.
 
-A copy of the channel vocabulary and the preprocessing dataclasses of the
-JAX package's ``config.py`` (the port imports nothing from that package).
-Values reproduce the reference's defaults.
+A copy of the channel and class vocabulary, the preprocessing, augmentation
+and trainer dataclasses of the JAX package's ``config.py`` (the port imports
+nothing from that package).  Values reproduce the reference's defaults.
 """
 
 from __future__ import annotations
@@ -14,6 +14,17 @@ from typing import Dict, Optional, Sequence, Tuple
 EEG_COLUMNS: Tuple[str, ...] = (
     "Fp1", "F3", "C3", "P3", "F7", "T3", "T5", "O1", "Fz", "Cz", "Pz",
     "Fp2", "F4", "C4", "P4", "F8", "T4", "T6", "O2", "EKG",
+)
+
+#: Classification targets.
+CLASSES: Tuple[str, ...] = ("Seizure", "LPD", "GPD", "LRDA", "GRDA", "Other")
+NAME2LABEL: Dict[str, int] = {name: i for i, name in enumerate(CLASSES)}
+N_CLASSES: int = len(CLASSES)
+
+#: Per-class vote columns of ``train.csv``.
+TGT_VOTE_COLS: Tuple[str, ...] = (
+    "seizure_vote", "lpd_vote", "gpd_vote", "lrda_vote", "grda_vote",
+    "other_vote",
 )
 
 #: The 19 scalp channels used as model features.
@@ -101,6 +112,37 @@ class HMSPreprocessConfig:
     notch_freq_hz: float = 60.0
     notch_quality: float = 30.0
     gaussian_sigma: float = 1.0
+
+
+@dataclass(frozen=True)
+class SpecAugmentConfig:
+    """Spectrogram train-time augmentation (``ops.augment``): MixUp against
+    a reference pool (p=0.5, λ ~ Beta(α, α)), then one full-height time
+    stripe and one full-width frequency stripe of CoarseDropout (extent
+    6-10 % of the axis, p=0.5 each)."""
+    mixup_prob: float = 0.5
+    mixup_alpha: float = 0.4
+    dropout_prob: float = 0.5         # per stripe family
+    stripe_frac: Tuple[float, float] = (0.06, 0.1)
+
+
+@dataclass(frozen=True)
+class TrainerConfig:
+    """Classifier trainer parameters (the reference's trainer defaults);
+    the epoch loop's own settings are ``train.TrainerConfig``."""
+    epochs: int = 50
+    lr: float = 1e-3
+    batch_size: int = 256
+    use_amp: bool = True              # → the bf16 spectrogram branch
+    grad_accum_steps: int = 1
+    ckpt_metric: str = "kldiv"
+    ckpt_mode: str = "min"
+    es_patience: int = 0
+    step_per_batch: bool = True
+    weight_decay: float = 0.0
+    l2_lambda: float = 0.0            # manual L2 term added to the loss
+    warmup_epochs: int = 5
+    seed: int = 42
 
 
 def feature_to_index(columns: Sequence[str] = EEG_COLUMNS) -> Dict[str, int]:

@@ -10,8 +10,11 @@ reduced-resolution preset (``BENCH_SPEC_RES=200x150``): the same weights
 on spectrograms anti-alias-resized to 200×150.  :func:`capture_forward` turns a forward
 into one captured CUDA graph (the counterpart of ``jax.jit``).
 :func:`explain_entry` gives the same model and preprocessed inputs ready
-for attribution (``xai``), float32 and eager.  Runs on CUDA unless the
-caller passes ``device="cpu"``.
+for attribution (``xai``), float32 and eager.  :func:`train_entry` is the
+JAX bench's training program (one step: preprocess, forward, loss,
+backward, Adam) and :func:`train_multimodal` the JAX CLI's
+``train-multimodal --demo`` loop.  Runs on CUDA unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -166,3 +169,148 @@ def explain_entry(device: Optional[Union[str, torch.device]] = None,
     with torch.no_grad():
         eeg_in, spec_in = preprocess_multimodal(raw_eeg, raw_spec)
     return model, (eeg_in, spec_in)
+
+
+# ---------------------------------------------------------------------------
+# training
+
+def build_train_model(samples: int = 3000, kern_length: int = 64,
+                      dtype: Optional[torch.dtype] = None) -> MultimodalModel:
+    """The model both training programs build: ``MultimodalModel(
+    EEGNetAttentionRegularized(), SpectrogramCNN(dtype=dtype))`` with no
+    fused block (training runs the unfused convs), on the CPU, in
+    training mode."""
+    if dtype == torch.float32:
+        dtype = None
+    return MultimodalModel(
+        EEGNetAttentionRegularized(samples=samples, kern_length=kern_length),
+        SpectrogramCNN(dtype=dtype)).train()
+
+
+def preprocess_batch(raw_eeg: torch.Tensor, raw_spec: torch.Tensor,
+                     y: torch.Tensor, signal: C.SignalConfig = C.SignalConfig(),
+                     assume_finite: bool = True) -> dict:
+    """Both preprocessing chains (float32, no gradients) → a training batch
+    ``{"eeg", "spec", "y"}``."""
+    with torch.no_grad():
+        eeg, spec = preprocess_multimodal(raw_eeg, raw_spec, signal=signal,
+                                          assume_finite=assume_finite)
+    return {"eeg": eeg, "spec": spec, "y": y}
+
+
+def train_entry(device: Optional[Union[str, torch.device]] = None,
+                batch: int = 256, seed: int = 0,
+                dtype: Optional[torch.dtype] = torch.bfloat16,
+                assume_finite: bool = True, l2_lambda: float = 1e-3,
+                lr: float = 1e-3):
+    """The training program of the JAX bench's ``--train`` mode: raw
+    windows → both preprocessing chains → forward + KLDiv + L2 + backward
+    + Adam, on the full-width model (:func:`build_train_model`, the
+    spectrogram branch in ``dtype``: bf16 by default, ``None`` or float32
+    for the all-float32 program) with Kaiming weights drawn from ``seed``.
+
+    Returns ``(step, state, (raw_eeg, raw_spec, y))`` on ``device`` (cuda
+    unless given): ``step(state, raw_eeg, raw_spec, y) -> (state,
+    metrics)`` preprocesses under ``no_grad`` and takes one train step
+    (:func:`..train.make_train_step`, NaN sentinel on); ``state`` is the
+    :class:`..train.TrainState`; the inputs are seeded synthetic raw EEG
+    (batch, 20, 10000) µV gathered through ``runtime.gather_windows`` (NaN
+    repair) when ``assume_finite``, else with their NaNs (the NaN route),
+    raw spectrograms (batch, 400, 300) and soft targets (batch, 6)."""
+    from .data import synthetic_raw_eeg, synthetic_raw_spectrogram
+    from .runtime import gather_windows
+    from .train import (create_train_state, initialize_kaiming_weights,
+                        make_optimizer, make_train_step)
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    raw_eeg = synthetic_raw_eeg(batch, rng)
+    if assume_finite:
+        raw_eeg = gather_windows(raw_eeg, np.arange(batch, dtype=np.int64))
+    raw_spec = synthetic_raw_spectrogram(batch, rng)
+    votes = rng.random((batch, 6))
+    y = (votes / votes.sum(1, keepdims=True)).astype(np.float32)
+    model = build_train_model(dtype=dtype)
+    initialize_kaiming_weights(model, torch.Generator().manual_seed(seed))
+    state = create_train_state(model.to(dev), make_optimizer(lr), seed=seed)
+    inner = make_train_step(l2_lambda=l2_lambda)
+
+    def step(state, raw_eeg, raw_spec, y):
+        return inner(state, preprocess_batch(raw_eeg, raw_spec, y,
+                                             assume_finite=assume_finite))
+    return step, state, tuple(torch.as_tensor(a).to(dev)
+                              for a in (raw_eeg, raw_spec, y))
+
+
+#: the demo data of ``train_multimodal``: rows, raw EEG samples a window,
+#: spectrogram plane, and the signal the model sees
+DEMO_ROWS, DEMO_POINTS, DEMO_PLANE = 24, 2000, (80, 60)
+DEMO_SIGNAL = C.SignalConfig(fixed_length=600, image_size=DEMO_PLANE)
+
+
+def train_multimodal(ckpt_dir: str,
+                     device: Optional[Union[str, torch.device]] = None,
+                     epochs: int = 3, batch_size: int = 8, seed: int = 0,
+                     augment: bool = False, resume: bool = False,
+                     dtype: Optional[torch.dtype] = None,
+                     epoch_callbacks: Optional[list] = None):
+    """The JAX CLI's ``train-multimodal --demo`` loop over synthetic
+    arrays (``data.dummy``): 24 rows of raw EEG (20, 2000) with NaNs and
+    80×60 spectrogram planes, one-hot targets, the model on 600-sample
+    windows, every row in both splits.  Each train batch (shuffled with
+    ``seed + epoch``, prefetched to the device) is mirrored when
+    ``augment``, preprocessed on the device (NaN route), and augmented by
+    ``spectrogram_augment`` against the in-batch pool with draws keyed on
+    (``seed + 1``, epoch, batch); then ``Trainer.train_eval`` with Adam at
+    the configured learning rate, checkpoints under
+    ``<ckpt_dir>/multimodal`` and ``resume``.  Returns ``(trainer,
+    best_kldiv)``.  The per-epoch LIME snapshots of the JAX command wait
+    for the LIME port (pass ``epoch_callbacks`` instead)."""
+    from .data import (batch_iterator, prefetch_to_device, synthetic_raw_eeg,
+                       synthetic_raw_spectrogram)
+    from .ops import mirror_eeg, spectrogram_augment
+    from .train import (Trainer, TrainerConfig, create_train_state,
+                        initialize_kaiming_weights, make_optimizer)
+    from .train.steps import fold_in
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    raw_eeg = synthetic_raw_eeg(DEMO_ROWS, rng, n_points=DEMO_POINTS)
+    raw_spec = synthetic_raw_spectrogram(DEMO_ROWS, rng, shape=DEMO_PLANE)
+    y = np.eye(6, dtype=np.float32)[np.arange(DEMO_ROWS) % 6]
+    arrays = {"eeg": raw_eeg, "spec": raw_spec, "y": y}
+
+    def raw_batches(shuffle: bool, epoch: int = 0):
+        return prefetch_to_device(
+            batch_iterator(arrays, batch_size, shuffle=shuffle,
+                           seed=seed + (epoch if shuffle else 0)),
+            device=dev)
+
+    aug_key = torch.Generator().manual_seed(seed + 1)
+
+    def train_iter(epoch: int = 0):
+        ep_key = fold_in(aug_key, epoch, torch.device("cpu"))
+        for i, b in enumerate(raw_batches(True, epoch)):
+            eeg = mirror_eeg(b["eeg"]) if augment else b["eeg"]
+            pb = preprocess_batch(eeg, b["spec"], b["y"], DEMO_SIGNAL,
+                                  assume_finite=False)
+            s, yb = spectrogram_augment(fold_in(ep_key, i, dev), pb["spec"],
+                                        pb["y"], pb["spec"], pb["y"])
+            yield {"eeg": pb["eeg"], "spec": s, "y": yb}
+
+    def val_iter():
+        for b in raw_batches(False):
+            yield preprocess_batch(b["eeg"], b["spec"], b["y"], DEMO_SIGNAL,
+                                   assume_finite=False)
+
+    model = build_train_model(samples=DEMO_SIGNAL.fixed_length,
+                              kern_length=16, dtype=dtype)
+    initialize_kaiming_weights(model, torch.Generator().manual_seed(seed))
+    state = create_train_state(model.to(dev),
+                               make_optimizer(C.TrainerConfig().lr))
+    cfg = TrainerConfig(epochs=epochs, seed=seed, resume=resume,
+                        hyperparams={"optimizer": "adam"})
+    trainer = Trainer(state, cfg, ckpt_dir=f"{ckpt_dir}/multimodal",
+                      epoch_callbacks=epoch_callbacks)
+    _, best, _ = trainer.train_eval(train_iter, val_iter)
+    return trainer, best

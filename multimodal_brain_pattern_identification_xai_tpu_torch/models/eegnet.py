@@ -9,7 +9,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import Attention, BatchNorm
+from .layers import Attention, BatchNorm, Dropout
 
 CHANS, N_CLASSES, F1, D, F2, DROPOUT = 37, 6, 8, 2, 16, 0.5
 
@@ -40,7 +40,7 @@ class EEGNetAttentionRegularized(nn.Module):
         self.separableConv = nn.Conv2d(F1 * D, F2, (1, 16), padding="same",
                                        bias=False)
         self.batchnorm3 = BatchNorm(F2)
-        self.dropout = nn.Dropout(DROPOUT)
+        self.dropout = Dropout(DROPOUT)
         self.attention_layer = Attention(F2, F2)
         self.dense1 = nn.Linear(F2 * (samples // 32), 128)
         self.dense2 = nn.Linear(128, N_CLASSES)

@@ -4,8 +4,11 @@ reference checkpoint loads with ``load_state_dict``."""
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import functools
+from typing import Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -27,7 +30,8 @@ class BatchNorm(nn.Module):
 
     A bf16 input is normalised in float32 against the float32 statistics
     and affine, then stored in bf16: flax's ``BatchNorm(dtype=bf16)``
-    promotes x to the parameters' float32 and casts the result."""
+    promotes x to the parameters' float32 and casts the result.  A float64
+    model (a reference) normalises in float64."""
 
     MOMENTUM = 0.9
 
@@ -39,7 +43,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if not self.training:
             return F.batch_norm(xf, self.running_mean, self.running_var,
                                 self.weight, self.bias, training=False,
@@ -54,6 +58,112 @@ class BatchNorm(nn.Module):
         scale = (torch.rsqrt(var + 1e-5) * self.weight).view(shape)
         y = (xf - mean.view(shape)) * scale + self.bias.view(shape)
         return y.to(x.dtype)
+
+
+class Dropout(nn.Dropout):
+    """Inverted dropout whose mask is drawn from an explicit generator.
+
+    In training mode with p > 0 an element is kept where ``torch.rand(x.
+    shape, generator=self.generator) >= p`` and scaled by 1/(1 − p);
+    ``self.generator`` is set for each training step by
+    :func:`dropout_generator` (the trainer's generator folded with the
+    step), so the same seed gives the same masks.  With no generator set
+    the mask draws from torch's default generator.  Eval mode and p = 0
+    return x unchanged."""
+
+    generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), 0.0)
+
+
+@contextlib.contextmanager
+def dropout_generator(model: nn.Module,
+                      generator: torch.Generator) -> Iterator[None]:
+    """Every :class:`Dropout` of ``model`` draws from ``generator`` inside
+    the block (one generator, consumed in forward order)."""
+    drops = [m for m in model.modules() if isinstance(m, Dropout)]
+    for m in drops:
+        m.generator = generator
+    try:
+        yield
+    finally:
+        for m in drops:
+            m.generator = None
+
+
+@functools.lru_cache(maxsize=64)
+def _lerp_adjoint_taps(n_in: int, n_out: int, device: torch.device
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The transpose of bilinear resizing (``align_corners=False``) along
+    one axis, n_in → n_out, in gather form: ``(idx, w)`` of shape (K, n_in)
+    with grad_in[i] = Σ_k w[k, i]·grad_out[idx[k, i]] (unused taps carry
+    weight 0).  The forward taps are torch's, in float32 as torch computes
+    them for float32 and bf16: source = (n_in/n_out)·(j + ½) − ½ clamped at
+    0, i0 = ⌊source⌋, i1 = min(i0 + 1, n_in − 1), weights 1 − λ and λ =
+    source − i0."""
+    f32 = np.float32
+    scale = f32(n_in) / f32(n_out)
+    src = np.maximum(scale * (np.arange(n_out, dtype=f32) + f32(0.5))
+                     - f32(0.5), f32(0.0))
+    i0 = np.minimum(src.astype(np.int64), n_in - 1)
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    lam = src - i0.astype(f32)
+    taps = [[] for _ in range(n_in)]
+    for jj in range(n_out):
+        taps[i0[jj]].append((jj, f32(1.0) - lam[jj]))
+        taps[i1[jj]].append((jj, lam[jj]))
+    k = max(len(t) for t in taps)
+    idx = np.zeros((k, n_in), np.int64)
+    w = np.zeros((k, n_in), np.float64)
+    for i, t in enumerate(taps):
+        for kk, (jj, wt) in enumerate(t):
+            idx[kk, i], w[kk, i] = jj, wt
+    return (torch.as_tensor(idx, device=device),
+            torch.as_tensor(w, device=device))
+
+
+def _lerp_adjoint(g: torch.Tensor, dim: int, n_in: int) -> torch.Tensor:
+    """Apply the transpose of one axis's bilinear resize to ``g`` (at least
+    float32 accumulation), gathering instead of scattering."""
+    idx, w = _lerp_adjoint_taps(n_in, g.shape[dim], g.device)
+    acc = torch.promote_types(g.dtype, torch.float32)
+    shape = [1] * g.dim()
+    shape[dim] = n_in
+    gf, w = g.to(acc), w.to(acc)
+    out = None
+    for k in range(idx.shape[0]):
+        term = gf.index_select(dim, idx[k]) * w[k].view(shape)
+        out = term if out is None else out + term
+    return out.to(g.dtype)
+
+
+class _BilinearResize(torch.autograd.Function):
+    """``F.interpolate(x, size, mode="bilinear", align_corners=False)``
+    with a deterministic backward: torch's own scatters with atomic adds
+    on CUDA, so two runs of one training step could differ in their last
+    bits; this one gathers each input's taps (:func:`_lerp_adjoint`)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+        ctx.in_hw = x.shape[-2:]
+        return F.interpolate(x, size=size, mode="bilinear",
+                             align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        h, w = ctx.in_hw
+        return _lerp_adjoint(_lerp_adjoint(g, -1, w), -2, h), None
+
+
+def bilinear_resize(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of the last two axes (torch's ``align_corners=
+    False`` taps, no anti-aliasing), deterministic in its backward."""
+    return _BilinearResize.apply(x, tuple(size))
 
 
 class Attention(nn.Module):
@@ -110,7 +220,7 @@ class SpectrogramBlock(nn.Module):
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         self.conv3 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         self.bn = BatchNorm(out_channels)
-        self.dropout = nn.Dropout(0.5)
+        self.dropout = Dropout(0.5)
         self.conv1x1 = nn.Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -132,7 +242,6 @@ class SpectrogramBlock(nn.Module):
             x = pool(x, 2)
         x = self.dropout(self.bn(x))
         if identity.shape != x.shape:
-            identity = F.interpolate(identity, size=x.shape[2:],
-                                     mode="bilinear", align_corners=False)
+            identity = bilinear_resize(identity, x.shape[2:])
             identity = _conv(self.conv1x1, identity)
         return x + identity

@@ -50,8 +50,10 @@ class SpectrogramCNN(nn.Module):
 
     def head(self, a: torch.Tensor) -> torch.Tensor:
         """Feature map → global average pool (float32 accumulation, cast
-        to float32) → FC → log-probs (B, 6)."""
-        return F.log_softmax(self.fc(a.mean(dim=(2, 3)).float()), dim=-1)
+        to float32; a float64 model stays float64) → FC → log-probs (B, 6)."""
+        pooled = a.mean(dim=(2, 3))
+        return F.log_softmax(self.fc(pooled.to(
+            torch.promote_types(pooled.dtype, torch.float32))), dim=-1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.features(x))

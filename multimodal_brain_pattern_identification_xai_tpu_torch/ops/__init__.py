@@ -35,3 +35,4 @@ from .preprocess import (  # noqa: F401
     mirror_eeg,
 )
 from .cuda_specblock import fused_specblock_convpool  # noqa: F401
+from .augment import spectrogram_augment  # noqa: F401

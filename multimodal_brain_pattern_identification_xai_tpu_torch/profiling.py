@@ -26,6 +26,7 @@ class KernelProfile:
     kernel_ms: Dict[str, float]  # device ms per call, by kernel name
     kernels: float             # kernels launched per call
     copies: float              # memcpy / memset operations per call
+    kernel_calls: Dict[str, float]  # launches per call, by kernel name
 
     @property
     def busy_ms(self) -> float:
@@ -49,6 +50,7 @@ def profile_kernels(fn: Callable[[], object], reps: int = 3,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     kernel_ms: Dict[str, float] = {}
+    kernel_calls: Dict[str, float] = {}
     kernels = copies = 0
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -59,7 +61,9 @@ def profile_kernels(fn: Callable[[], object], reps: int = 3,
         kernels += 1
         kernel_ms[ev.name] = (kernel_ms.get(ev.name, 0.0)
                               + ev.time_range.elapsed_us() / 1e3 / reps)
-    return KernelProfile(wall_ms, kernel_ms, kernels / reps, copies / reps)
+        kernel_calls[ev.name] = kernel_calls.get(ev.name, 0.0) + 1.0 / reps
+    return KernelProfile(wall_ms, kernel_ms, kernels / reps, copies / reps,
+                         kernel_calls)
 
 
 def fft_conv_ms(prof: KernelProfile) -> float:

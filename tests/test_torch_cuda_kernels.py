@@ -542,3 +542,109 @@ def test_duty_matches_plain(dev, co, k):
     assert got.shape == (co, 1024) and got.dtype == torch.float32
     assert _rel(got, cuda_duty._plain_duty(w, p, 3)) < 1e-4
     assert torch.equal(cuda_duty.duty(w, p, 0), torch.zeros_like(got))
+
+
+# --- the training path -----------------------------------------------------------
+
+def _train_pair(dev, batch=4):
+    """The float32 training program on the card and on the CPU (same seeded
+    weights), dropout off, and the batch the card preprocessed."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch.entry import (
+        preprocess_batch, train_entry)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.models import (
+        Dropout)
+    step, st, raw = train_entry(device=dev, batch=batch, dtype=None)
+    _, cst, _ = train_entry(device="cpu", batch=batch, dtype=None)
+    for s in (st, cst):
+        for m in s.model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+    return step, st, cst, raw, preprocess_batch(*raw)
+
+
+def test_train_step_matches_cpu(dev):
+    """One float32 step (KLDiv + L2 1e-3, Adam) at full width, B=4, on the
+    card against the CPU port on the same preprocessed batch, with
+    chip_smoke's bounds (TRAIN_*, set above float32's own distance from
+    float64 at this size): loss 1e-5 relative, gradient norm 1e-3, each
+    gradient within 3e-2 of its tensor's max |g| plus 1e-6 of the model's
+    largest (gradients zero in exact arithmetic are rounding noise on both
+    sides), BatchNorm statistics 1e-4 of each tensor's max."""
+    import copy
+
+    from multimodal_brain_pattern_identification_xai_tpu_torch.train import (
+        make_train_step)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.train.steps import (
+        loss_and_grads)
+    _, st, cst, _, batch = _train_pair(dev)
+    cbatch = {k: v.cpu() for k, v in batch.items()}
+    _, _, g = loss_and_grads(copy.deepcopy(st.model), batch, None,
+                             l2_lambda=1e-3)
+    _, _, cg = loss_and_grads(copy.deepcopy(cst.model), cbatch, None,
+                              l2_lambda=1e-3)
+    top = max(float(w.abs().max()) for w in cg)
+    for a, w in zip(g, cg):
+        assert float((a.cpu() - w).abs().max()) <= \
+            3e-2 * (float(w.abs().max()) + 1e-6 * top / 3e-2)
+    inner = make_train_step(l2_lambda=1e-3)
+    st, m = inner(st, batch)
+    cst, cm = inner(cst, cbatch)
+    assert not bool(m["nonfinite"])
+    assert abs(float(m["loss"]) - float(cm["loss"])) <= 1e-5 * abs(
+        float(cm["loss"]))
+    assert abs(float(m["grad_norm"]) - float(cm["grad_norm"])) <= 1e-3 * float(
+        cm["grad_norm"])
+    got = st.model.state_dict()
+    for k, w in cst.model.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            assert float((got[k].cpu() - w).abs().max()) <= \
+                1e-4 * float(w.abs().max()), k
+
+
+def test_train_sentinel_on_card(dev):
+    """A NaN window on the finite route: ``nonfinite``, the parameters,
+    BatchNorm buffers and optimizer state bitwise unchanged, the step
+    advanced; the IIR cascade launched once a step."""
+    step, st, _, raw, _ = _train_pair(dev)
+    st, m = step(st, *raw)
+    assert not bool(m["nonfinite"])
+    sd = {k: v.clone() for k, v in st.model.state_dict().items()}
+    opt = {k: v.clone() for k, v in st.opt_state.items()}
+    bad = raw[0].clone()
+    bad[2, 11, 5000] = float("nan")
+    n0 = cuda_iir.sosfilt_rolldec.launches
+    st, m = step(st, bad, raw[1], raw[2])
+    torch.cuda.synchronize()
+    assert cuda_iir.sosfilt_rolldec.launches == n0 + 1
+    assert bool(m["nonfinite"]) and st.step == 2
+    for k, v in st.model.state_dict().items():
+        assert torch.equal(v, sd[k]), k
+    for k, v in st.opt_state.items():
+        assert torch.equal(v, opt[k]), k
+
+
+@pytest.mark.parametrize("sync", [False, True])
+def test_prefetch_to_device_pinned(dev, sync):
+    """Batches staged through pinned buffers on a side stream arrive on the
+    card, in order, equal to their sources; with ``sync_transfers`` the
+    source may overwrite its buffer as soon as the next batch is asked
+    for."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch.data import (
+        prefetch_to_device)
+    buf = np.zeros((64, 20, 1000), np.float32)
+
+    def source():
+        for i in range(6):
+            if sync:
+                buf[...] = i
+                yield {"x": buf, "i": i}
+            else:
+                yield {"x": np.full_like(buf, i), "i": i}
+
+    seen = []
+    for b in prefetch_to_device(source(), size=2, device=dev,
+                                sync_transfers=sync):
+        assert b["x"].device.type == "cuda"
+        seen.append((b["i"], float(b["x"].float().mean())))
+        torch.cuda.current_stream().synchronize()
+    assert seen == [(i, float(i)) for i in range(6)]

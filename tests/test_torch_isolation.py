@@ -12,7 +12,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "multimodal_brain_pattern_identification_xai_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax",
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
              "multimodal_brain_pattern_identification_xai_tpu")
 
 
@@ -53,7 +53,9 @@ def test_port_runs_with_jax_blocked():
         "from multimodal_brain_pattern_identification_xai_tpu_torch import "
         "xai\n"
         "from multimodal_brain_pattern_identification_xai_tpu_torch.ops "
-        "import cuda_duty\n"
+        "import augment, cuda_duty\n"
+        "from multimodal_brain_pattern_identification_xai_tpu_torch import "
+        "data, runtime, train\n"
         "fwd, args = entry(device='cpu', batch=2, assume_finite=True)\n"
         "out = fwd(*args)\n"
         "assert out.shape == (2, 6) and bool(torch.isfinite(out).all())\n"
@@ -72,3 +74,15 @@ def test_entry_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry()
+
+
+@pytest.mark.parametrize("name", ["train_entry", "train_multimodal"])
+def test_train_entries_without_cuda_raise(monkeypatch, tmp_path, name):
+    """The training entry points resolve to the card too: without one they
+    raise before building anything, unless ``device="cpu"`` is given."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import entry
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = (str(tmp_path),) if name == "train_multimodal" else ()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(entry, name)(*args)
+    assert not any(tmp_path.iterdir())
