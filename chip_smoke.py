@@ -13,7 +13,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
               instantiations included, must not spill), each block's
               shared memory for f32 and bf16, and, where ``cuobjdump`` is
               found, the ``HMMA`` instructions in each kernel's SASS (TF32
-              in the f32 kernels, BF16 in the bf16 ones);
+              in the f32 kernels, BF16 in the bf16 ones) and the duty
+              kernel's ``HGMMA`` (every instantiation, no ``HMMA``, no
+              spills), and the duty kernel's shared-memory layout held
+              equal to ``cuda_duty.smem_layout``;
 3. kernels  — every serving kernel against its plain PyTorch version on
               the card (float32 with TF32 off; bf16 for the spectrogram
               block), at the main path's shapes, with the bounds of the JAX
@@ -83,8 +86,12 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
               bitwise resume, then ms/step, training windows/s, peak memory,
               idle share and top device ops at B=256 (bf16 and float32,
               finite route; bf16 on the NaN route);
-11. convprobe — the conv probe's duty kernel against its plain version at
-              the probe's four GEMM shapes, then its rate at R=512.
+11. convprobe — the conv probe's duty kernel (a ``wgmma`` loop) against its
+              plain version at the probe's four GEMM shapes (exactly on
+              integer operands), then its time and rate at R=512 beside
+              its bounds by operations and by shared memory (at the SM
+              clock read during the run) and the R library products as
+              one CUDA graph.
 
 Output: a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, then the
 last line ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` are
@@ -103,6 +110,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -113,6 +121,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12         # H100 SXM dense TF32 on the tensor cores
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 on the tensor cores
+SMEM_BYTES_PER_CLK, N_SMS = 128, 132   # H100 SXM shared memory a clock an SM
 B_MAIN, B_TIME = 4, 256
 LOGP_ATOL = 1e-3                 # GPU vs CPU log-probs (see main_path)
 # Attributions, card vs CPU and fused vs unfused (see phase_xai), relative
@@ -297,8 +306,8 @@ def phase_build(card: str) -> None:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
             tc = func and re.search(
-                r"specblock_(bf16_)?tc_kernel|wide_(bf16|tf32)_conv_kernel",
-                func)
+                r"specblock_(bf16_)?tc_kernel|wide_(bf16|tf32)_conv_kernel"
+                r"|duty_kernel", func)
             if m and tc:
                 print(f"[build] {tc.group(0)} ({func}): spill stores "
                       f"{m.group(1)} B, spill loads {m.group(2)} B")
@@ -319,19 +328,21 @@ def phase_build(card: str) -> None:
     cuobjdump = shutil.which("cuobjdump") or str(
         Path(_build._nvcc()).parent / "cuobjdump")
     if Path(cuobjdump).exists():
-        sass = subprocess.run([cuobjdump, "-sass",
-                               str(_build._target("specblock"))],
-                              capture_output=True, text=True, timeout=120,
-                              check=True).stdout
         counts, func = {}, None
-        for line in sass.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                func = m.group(1)
-            m = re.search(r"HMMA\.(\w+)\.F32\.(TF32|BF16)", line)
-            if m and func:
-                key = (func, m.group(0))
-                counts[key] = counts.get(key, 0) + 1
+        for name in ("specblock", "duty"):
+            sass = subprocess.run([cuobjdump, "-sass",
+                                   str(_build._target(name))],
+                                  capture_output=True, text=True, timeout=120,
+                                  check=True).stdout
+            for line in sass.splitlines():
+                m = re.search(r"Function : (\S+)", line)
+                if m:
+                    func = m.group(1)
+                m = re.search(r"HMMA\.(\w+)\.F32\.(TF32|BF16)|HGMMA\.\w+"
+                              r"\.F32\.BF16", line)
+                if m and func:
+                    key = (func, m.group(0))
+                    counts[key] = counts.get(key, 0) + 1
         for (func, op), n in sorted(counts.items()):
             print(f"[build] SASS {func}: {n} {op} instructions")
         for kern, op in (("specblock_tc_kernel", "TF32"),
@@ -341,11 +352,33 @@ def phase_build(card: str) -> None:
             found = {f for f, o in counts if kern in f and o.endswith(op)}
             require(len(found) == 3, f"{kern}: {len(found)} of 3 "
                     f"instantiations contain {op} HMMA")
+        # the duty kernel: every instantiation a wgmma loop, no mma.sync
+        hgmma, hmma = ({f for f, o in counts if "duty_kernel" in f
+                        and o.startswith(op)} for op in ("HGMMA", "HMMA"))
+        require(len(hgmma) == len(cuda_duty.SHAPES) and not hmma,
+                f"duty_kernel: {len(hgmma)} of {len(cuda_duty.SHAPES)} "
+                f"instantiations contain HGMMA, {len(hmma)} HMMA")
     else:
         print("[build] cuobjdump not found: SASS not inspected")
+    log = _build.build_logs.get("duty", "")
+    require("serializ" not in log, "ptxas serialized the duty kernel's "
+            "wgmma: " + "; ".join(ln for ln in log.splitlines()
+                                  if "serializ" in ln))
+    if log:
+        print(f"[build] duty: no wgmma serialized; ptxas injected "
+              f"warpgroup.arrive (C7519) {log.count('C7519')} times over "
+              f"{len(cuda_duty.SHAPES)} kernels")
     for co, k in cuda_duty.SHAPES:
-        print(f"[build] duty dynamic smem (co={co}, k={k}): "
-              f"{cuda_duty._lib().duty_smem_bytes(co, k)} bytes")
+        lay = cuda_duty.kernel_layout(co, k)
+        require(lay == cuda_duty.smem_layout(co, k),
+                f"duty ({co}, {k}): the kernel's layout {lay} differs from "
+                f"smem_layout's {cuda_duty.smem_layout(co, k)}")
+        print(f"[build] duty (co={co}, k={k}): dynamic smem "
+              f"{lay['smem_bytes']} bytes; layout "
+              f"(kernel = smem_layout) A 128-byte swizzle, tile "
+              f"{lay['a_tile']} B, LBO {lay['a_lbo']}, SBO {lay['a_sbo']}; B "
+              f"32-byte swizzle at {lay['b_offset']}, SBO {lay['b_sbo']}, "
+              f"k16 step {lay['b_kstep']} B")
 
 
 def _cudnn_chain(x, ks, bs, pool, dtype):
@@ -1482,16 +1515,64 @@ def phase_train(card: str, dev) -> dict:
     return {k: launches[k] for k in ("iir_sosfilt", "iir_sosfilt_rolldec")}
 
 
+def _sustained(fn, ms: float):
+    """``fn``'s mean device time (CUDA events) over ~1 s of back-to-back
+    launches (``ms`` each, a first estimate), and the SM clock (MHz)
+    nvidia-smi reports meanwhile: the median of the readings a polling
+    thread finished before the launches drained.  Under a sustained
+    tensor-core load the card may hold its clock below the maximum to stay
+    within its power limit, so time and clock come from one window."""
+    samples, busy = [], threading.Event()
+
+    def poll():
+        while busy.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,"
+                 "noheader,nounits", "-i", str(torch.cuda.current_device())],
+                capture_output=True, text=True, timeout=60, check=True).stdout
+            samples.append(float(out.split()[0]))
+    reps = max(1, min(5000, int(1000 / max(ms, 1e-3))))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    busy.set()
+    thread = threading.Thread(target=poll)
+    thread.start()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    done = len(samples)
+    busy.clear()
+    thread.join()
+    require(done > 0, "no SM clock reading while the duty kernel ran")
+    return start.elapsed_time(end) / reps, float(np.median(samples[:done]))
+
+
 def phase_convprobe(card: str, dev) -> dict:
     """The duty kernel against its plain version at the probe's four
-    shapes (N=16384, small R), the probe's run at R=512 with its launches
-    counted, then its times."""
+    shapes (N=16384): exactly on integer operands (R = 0, 1, 3), within
+    DUTY_REL on Gaussian ones; the probe's run at R=512 with its launches
+    counted; then each shape's time and TFLOP/s beside its bounds by
+    operations and by shared memory (at the SM clock read during its run),
+    the plain version, and the R library products as one CUDA graph (and
+    eagerly).  A shape's ms is the mean over ~1 s of back-to-back launches,
+    with the SM clock read in that window (:func:`_sustained`)."""
     from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
         cuda_duty)
     n, r_check, r_run = 16384, 4, 512
     ops = {}
     for co, k in cuda_duty.SHAPES:
         rng = np.random.default_rng(co + k)
+        wi = torch.as_tensor(rng.integers(-4, 5, (co, k)),
+                             dtype=torch.bfloat16).to(dev)
+        pi = torch.as_tensor(rng.integers(-4, 5, (k, n)),
+                             dtype=torch.bfloat16).to(dev)
+        for r in (0, 1, 3):
+            require(torch.equal(cuda_duty.duty(wi, pi, r),
+                                cuda_duty._plain_duty(wi, pi, r)),
+                    f"duty ({co}, {k}) R={r}: not exact on integer operands")
         w = torch.as_tensor(rng.standard_normal((co, k)),
                             dtype=torch.bfloat16).to(dev)
         p = torch.as_tensor(rng.standard_normal((k, n)) * 0.1,
@@ -1501,33 +1582,50 @@ def phase_convprobe(card: str, dev) -> dict:
         e = rel(got, want)
         require(e < DUTY_REL, f"duty ({co}, {k}) rel err {e}")
         ops[(co, k)] = (w, p, max_abs(got, want), e)
+    print(f"[convprobe] duty exact (torch.equal) on bf16 integers in [-4, 4] "
+          f"at all {len(ops)} shapes, N={n}, R = 0, 1, 3")
     cuda_duty.duty.launches = 0
     for w, p, _, _ in ops.values():
         cuda_duty.duty(w, p, r_run)
     torch.cuda.synchronize()
     launches = cuda_duty.duty.launches
     require(launches > 0, "the duty kernel was not launched by the probe")
-    tot = dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    keys = ("ms", "plain_ms", "bound_ms", "smem_bound_ms", "library_ms",
+            "library_eager_ms")
+    tot = dict(err=0.0, **{key: 0.0 for key in keys}, shapes=[])
     for (co, k), (w, p, err, e) in ops.items():
-        ms = cuda_ms(lambda: cuda_duty.duty(w, p, r_run), 5)
+        run = lambda: cuda_duty.duty(w, p, r_run)
+        ms, mhz = _sustained(run, cuda_ms(run, 3))
         plain_ms = cuda_ms(lambda: cuda_duty._plain_duty(w, p, r_run), 5)
-        lib_ms = r_run * cuda_ms(
-            lambda: torch.mm(w, p, out_dtype=torch.float32), 20)
+        mm = lambda: torch.mm(w, p, out_dtype=torch.float32)
+        lib_ms = r_run * graph_ms(mm, r_run)
+        lib_eager_ms = r_run * cuda_ms(mm, 20)
         flops = 2 * r_run * co * k * n
         b_ms = flops / BF16_FLOP_PER_S * 1e3
+        # each m64n{co}k16 reads 2048 bytes of P and 32*co of W
+        smem = r_run * (n // 64) * (k // 16) * (2048 + 32 * co)
+        s_ms = smem / (SMEM_BYTES_PER_CLK * N_SMS * mhz * 1e6) * 1e3
         print(f"[convprobe] duty ({co}, {k}) N={n}: rel {e:.2e} at R="
               f"{r_check} (bound {DUTY_REL}); R={r_run}: {ms:.4f} ms = "
-              f"{flops / ms / 1e9:.2f} TFLOP/s ({flops / ms / 1e9 / 989:.4f} "
-              f"of 989), bound {b_ms:.4f} ms by operations; plain f32 "
-              f"{plain_ms:.4f} ms; torch.mm bf16->f32 x R {lib_ms:.4f} ms "
-              f"[{card}]")
+              f"{flops / ms / 1e9:.2f} TFLOP/s ({b_ms / ms:.4f} of 989); "
+              f"bound {b_ms:.4f} ms by operations, {s_ms:.4f} ms by shared "
+              f"memory at {mhz:.0f} MHz SM clock; plain f32 {plain_ms:.4f} "
+              f"ms; torch.mm bf16->f32 x R as one graph {lib_ms:.4f} ms, "
+              f"eager {lib_eager_ms:.4f} ms [{card}]")
+        shape = dict(co=co, k=k, ms=ms, tflops=flops / ms / 1e9,
+                     bound_ms=b_ms, smem_bound_ms=s_ms, sm_clock_mhz=mhz,
+                     plain_ms=plain_ms, library_ms=lib_ms,
+                     library_eager_ms=lib_eager_ms, max_abs_err=err)
+        tot["shapes"].append(shape)
         tot["err"] = max(tot["err"], err)
-        tot["ms"] += ms
-        tot["plain_ms"] += plain_ms
-        tot["bound_ms"] += b_ms
-        tot["library_ms"] += lib_ms
+        for key in keys:
+            tot[key] += shape[key]
     tot["bound_by"] = "operations"
     tot["launches"] = launches
+    print(f"[convprobe] duty total {tot['ms']:.4f} ms; bound "
+          f"{tot['bound_ms']:.4f} ms by operations (reached "
+          f"{tot['bound_ms'] / tot['ms']:.4f}), {tot['smem_bound_ms']:.4f} "
+          f"ms by shared memory")
     print(f"[convprobe] duty launches during the probe's run: {launches}")
     return tot
 

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), loaded
 with ``ctypes``.  Builds happen at first use, into ``_build/`` beside this
 file (listed in ``.gitignore``); the library's file name carries a hash of
-its source, so an edited source is rebuilt.  Nothing here runs at import.
+its source and of the headers in ``csrc/``, so an edited source or
+header is rebuilt.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -42,8 +43,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """The library's path: a hash of the source, the headers beside it and
+    the flags, so that an edit to any of them rebuilds."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

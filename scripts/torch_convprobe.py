@@ -1,7 +1,7 @@
 """Conv probe of the PyTorch port on one NVIDIA GPU: how fast can small-Cout
 GEMMs and convolutions of the spectrogram blocks run on the tensor cores?
 
-    python3 scripts/torch_convprobe.py
+    python3 scripts/torch_convprobe.py [--duty-only] [--repo DIR]
 
 Counterpart of the JAX package's ``bench.py --convprobe``
 (``bench_convprobe``), in three sections, all bf16 with float32
@@ -19,14 +19,17 @@ accumulation:
    four GEMM shapes a fused block could run — the ceiling of any fused
    formulation at that shape.
 
-Every time is CUDA events over repeated calls after a warm-up.  Prints one
-JSON line with the bench's keys (``duty*`` in place of ``pallas_duty*``),
+``--duty-only`` runs section 3 alone; ``--repo DIR`` imports the port from
+another checkout (e.g. a parent commit unpacked under ``_archive/``), so
+two versions of the duty kernel compare in one call.  Every time is CUDA
+events over repeated calls after a warm-up.  Prints one JSON line with the bench's keys (``duty*`` in place of ``pallas_duty*``),
 ``vs_baseline`` the best useful rate's fraction of the H100's dense bf16
 peak (989 TFLOP/s), and the card's nvidia-smi name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -36,7 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PEAK_BF16 = 989e12          # H100 SXM dense bf16 tensor-core rate, FLOP/s
 
@@ -59,25 +62,10 @@ def tflops(flops: float, ms: float) -> float:
     return flops / ms / 1e9
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("torch_convprobe: no CUDA device", file=sys.stderr)
-        return 1
-    from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
-        cuda_duty)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
-    bf16 = lambda *shape, scale=1.0: torch.as_tensor(
-        rng.standard_normal(shape) * scale, dtype=torch.bfloat16).to(dev)
-    mm = lambda a, b: torch.mm(a, b, out_dtype=torch.float32)
-    results = {}
-
+def gemm_and_conv(results: dict, bf16, mm, K: int, CO: int) -> None:
+    """Sections 1 and 2: the GEMM orientations and the conv subgraphs."""
     # ---- 1) GEMM orientations (bf16 → f32, K=144, Cout=16) --------------
-    S, K, CO = 384 * 1024, 144, 16
+    S = 384 * 1024
     w2, p0 = bf16(CO, K), bf16(K, S, scale=0.1)
     pt = p0.t().contiguous()
     gemm_flops = 2 * CO * K * S
@@ -119,6 +107,10 @@ def main() -> int:
         results[name + "_mfu"] = 2 * macs / (ms * 1e-3) / PEAK_BF16
         del x0
 
+
+def duty_section(results: dict, bf16, cuda_duty, K: int, CO: int) -> None:
+    """Section 3: the duty kernel at R=512, N=16384, each shape's ms and
+    TFLOP/s."""
     # ---- 3) the duty kernel: R passes from shared memory ----------------
     n_tile, r = 16384, 512
     for name, co, k, useful in [
@@ -132,11 +124,42 @@ def main() -> int:
         err = float((got - want).abs().max() / want.abs().max())
         if err >= 1e-4:
             raise RuntimeError(f"duty ({co}, {k}) rel err {err}")
-        raw = tflops(2 * r * co * k * n_tile,
-                     cuda_ms(lambda: cuda_duty.duty(wd, pd, r), reps=5))
+        ms = cuda_ms(lambda: cuda_duty.duty(wd, pd, r), reps=10)
+        raw = tflops(2 * r * co * k * n_tile, ms)
+        results[name + "_ms"] = ms
         results[name + "_tflops"] = raw
         if useful < 1.0:
             results[name + "_eff_tflops"] = raw * useful
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--duty-only", action="store_true",
+                    help="run the duty kernel's section alone")
+    ap.add_argument("--repo", default=REPO,
+                    help="checkout whose port is imported")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_convprobe: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(args.repo))
+    from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
+        cuda_duty)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    bf16 = lambda *shape, scale=1.0: torch.as_tensor(
+        rng.standard_normal(shape) * scale, dtype=torch.bfloat16).to(dev)
+    mm = lambda a, b: torch.mm(a, b, out_dtype=torch.float32)
+    results = {}
+
+    K, CO = 144, 16
+    if not args.duty_only:
+        gemm_and_conv(results, bf16, mm, K, CO)
+    duty_section(results, bf16, cuda_duty, K, CO)
 
     # "best" compares useful-FLOP rates, as the JAX bench does
     useful_rates = [
@@ -149,7 +172,7 @@ def main() -> int:
     print(json.dumps({
         "metric": "convprobe_best_smallcout_tflops", "value": best,
         "unit": "TFLOP/s", "vs_baseline": best / (PEAK_BF16 / 1e12),
-        **results, "card": card,
+        **results, "card": card, "repo": os.path.abspath(args.repo),
         "device": torch.cuda.get_device_name(0)}))
     return 0
 

@@ -1,7 +1,8 @@
 """CUDA kernels of the PyTorch port against their plain PyTorch versions,
 at the main path's shapes.  Needs an NVIDIA GPU (sm_90a) and nvcc: every
 test here carries the ``cuda`` marker and skips without a card.  Run on
-the card with ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
+the card with
+``python -m pytest -m cuda --noconftest tests/test_torch_cuda_kernels.py``.
 
 Bounds: tests/test_pallas_iir.py (rel 2e-4, filtfilt 1e-3),
 tests/test_pallas_specblock.py (f32 1e-5, against the chain in float64;
@@ -10,7 +11,8 @@ tensor scale; gradients 2e-4; the same for every width), bf16 against the
 plain bf16 chain 1e-2 of its max (chip_smoke.py's BF16_PLAIN_REL), 1e-3 on
 log-probs for whole models (chip_smoke.py's GPU-vs-CPU bound), 1e-6 for a
 captured forward against eager (the same kernels on the same inputs) and the duty probe's 1e-4 relative (bf16
-products are exact in float32; only the summation order differs).  The sequential plain scan runs on the CPU over a subset of
+products are exact in float32; only the summation order differs), exact
+on bf16 integer operands, whose sums are exact in float32.  The sequential plain scan runs on the CPU over a subset of
 lanes (it is a Python loop over time)."""
 
 import numpy as np
@@ -542,6 +544,41 @@ def test_duty_matches_plain(dev, co, k):
     assert got.shape == (co, 1024) and got.dtype == torch.float32
     assert _rel(got, cuda_duty._plain_duty(w, p, 3)) < 1e-4
     assert torch.equal(cuda_duty.duty(w, p, 0), torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("n", [128, 256, 16384])
+@pytest.mark.parametrize("r", [0, 1, 3])
+@pytest.mark.parametrize("co,k", cuda_duty.SHAPES)
+def test_duty_exact_on_integer_operands(dev, co, k, r, n):
+    """bf16 integers in [-4, 4]: every product and sum is exact in float32
+    (|sum| <= 3 * 16 * 384 < 2^24), so a layout, swizzle or descriptor
+    mistake shows as an exact mismatch."""
+    rng = np.random.default_rng(co * 7 + k + n + r)
+    w = torch.as_tensor(rng.integers(-4, 5, (co, k)),
+                        dtype=torch.bfloat16).to(dev)
+    p = torch.as_tensor(rng.integers(-4, 5, (k, n)),
+                        dtype=torch.bfloat16).to(dev)
+    got = cuda_duty.duty(w, p, r)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_duty._plain_duty(w, p, r))
+
+
+@pytest.mark.parametrize("co,k", cuda_duty.SHAPES)
+def test_duty_layout_matches_wrapper(dev, co, k):
+    assert cuda_duty.kernel_layout(co, k) == cuda_duty.smem_layout(co, k)
+
+
+def test_duty_refuses_other_shapes(dev):
+    w = torch.zeros((16, 144), dtype=torch.bfloat16, device=dev)
+    n0 = cuda_duty.duty.launches
+    with pytest.raises(ValueError):
+        cuda_duty.duty(w, torch.zeros((144, 200), dtype=torch.bfloat16,
+                                      device=dev), 1)
+    with pytest.raises(ValueError):
+        cuda_duty.duty(torch.zeros((32, 144), dtype=torch.bfloat16,
+                                   device=dev), torch.zeros(
+                           (144, 256), dtype=torch.bfloat16, device=dev), 1)
+    assert cuda_duty.duty.launches == n0
 
 
 # --- the training path -----------------------------------------------------------

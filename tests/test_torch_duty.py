@@ -69,3 +69,109 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
             (meta(16, 144), meta(144, 256), -1, ValueError)]:
         with pytest.raises(err or ValueError, match=None if err else "CUDA"):
             cuda_duty._check_cuda_args(w, p, r)
+
+
+# --- the kernel's shared-memory layout, rehearsed with numpy ---------------
+
+def _swizzle(addr, width):
+    """The wgmma swizzle of ``width`` bytes on absolute shared addresses:
+    bits [4, 4+b) XOR bits [7, 7+b), b = log2(width / 16)."""
+    b = {0: 0, 32: 1, 64: 2, 128: 3}[width]
+    return addr ^ ((addr >> 3) & (((1 << b) - 1) << 4))
+
+
+def _stage(lay, w, p_tile):
+    """Shared memory as the kernel stages it (``csrc/duty.cu``), from a
+    1024-aligned base: P's 16-byte chunk c of row kr into warpgroup c // 8's
+    tile, chunk (c % 8) ^ (kr % 8); W's chunk q of row ch into slab q // 2,
+    half (q % 2) ^ ((ch // 4) % 2).  bf16 values as uint16."""
+    mem = np.zeros(lay["smem_bytes"], np.uint8)
+    k, n_tile = p_tile.shape
+    for kr in range(k):
+        for c in range(n_tile // 8):
+            off = (c // 8) * lay["a_tile"] + kr * lay["a_pitch"] + (
+                ((c % 8) ^ (kr % 8)) << 4)
+            mem[off:off + 16] = p_tile[kr, 8 * c:8 * c + 8].view(np.uint8)
+    co = w.shape[0]
+    for ch in range(co):
+        for q in range(k // 8):
+            off = (lay["b_offset"] + (q // 2) * lay["b_kstep"]
+                   + (ch // 8) * lay["b_sbo"] + ch % 8 * (lay["b_pitch"]
+                                                          + lay["b_pad"])
+                   + (((q % 2) ^ ((ch // 4) % 2)) << 4))
+            mem[off:off + 16] = w[ch, 8 * q:8 * q + 8].view(np.uint8)
+    return mem
+
+
+def _read_mn_major(mem, start, lbo, sbo, width, rows):
+    """An MN-major operand (rows × 16 k) through its descriptor: ``width``
+    bytes of consecutive rows a line, 8 lines of k an atom, SBO between
+    8-deep k groups, LBO between groups of width / 2 rows."""
+    m, kk = np.meshgrid(np.arange(rows), np.arange(16), indexing="ij")
+    per = width // 2
+    addr = (start + (m // per) * lbo + (kk // 8) * sbo + (kk % 8) * width
+            + (m % per) * 2)
+    return _gather(mem, _swizzle(addr, width))
+
+
+def _read_k_major(mem, start, sbo, width, rows):
+    """A K-major operand (rows × 16 k) through its descriptor: rows of
+    ``width`` bytes, 8 rows an atom, SBO between 8-row groups; one k16 step
+    is 32 contiguous bytes of a row (LBO is not read)."""
+    n, kk = np.meshgrid(np.arange(rows), np.arange(16), indexing="ij")
+    addr = start + (n // 8) * sbo + (n % 8) * width + kk * 2
+    return _gather(mem, _swizzle(addr, width))
+
+
+def _gather(mem, addr):
+    assert int(addr.max()) + 2 <= mem.size and not (addr % 2).any()
+    return mem[addr] | (mem[addr + 1].astype(np.uint16) << 8)
+
+
+@pytest.mark.parametrize("co,k", cuda_duty.SHAPES)
+def test_smem_layout_staging_reads_back_through_descriptors(co, k):
+    """Stage W and one CTA's P tile by :func:`cuda_duty.smem_layout`, then
+    read every k16 step back through the wgmma canonical layouts at the
+    descriptors' addresses, offsets and swizzles: warpgroup g's A is Pᵀ's
+    rows 64g..64g+63, B is Wᵀ (as co × 16 rows), exactly."""
+    lay = cuda_duty.smem_layout(co, k)
+    assert lay["b_pad"] == 0 and lay["a_swizzle"] == 128
+    assert lay["a_pitch"] == lay["a_swizzle"]          # 64 columns a line
+    assert lay["b_pitch"] == lay["b_swizzle"] == 32    # one k16 slab a line
+    rng = np.random.default_rng(co * 1000 + k)
+    n_tile = lay["n_tile"]
+    p_tile = rng.integers(0, 2 ** 16, (k, n_tile), dtype=np.uint16)
+    w = rng.integers(0, 2 ** 16, (co, k), dtype=np.uint16)
+    mem = _stage(lay, w, p_tile)
+    # every staged byte lies in its region, tiles on the swizzles' repeats
+    assert lay["b_offset"] + co * k * 2 + 1024 == lay["smem_bytes"] <= 232448
+    assert lay["a_tile"] % 1024 == 0 and lay["b_offset"] % 1024 == 0
+    assert lay["b_kstep"] % 256 == 0 and lay["a_kstep"] % 1024 == 0
+    for g in range(lay["warpgroups"]):
+        for s in range(k // 16):
+            a = _read_mn_major(mem, g * lay["a_tile"] + s * lay["a_kstep"],
+                               lay["a_lbo"], lay["a_sbo"], 128, 64)
+            np.testing.assert_array_equal(
+                a, p_tile[16 * s:16 * s + 16, 64 * g:64 * g + 64].T)
+    for s in range(k // 16):
+        b = _read_k_major(mem, lay["b_offset"] + s * lay["b_kstep"],
+                          lay["b_sbo"], 32, co)
+        np.testing.assert_array_equal(b, w[:, 16 * s:16 * s + 16])
+
+
+@pytest.mark.parametrize("co,k", cuda_duty.SHAPES)
+def test_smem_layout_descriptor_fields(co, k):
+    """The descriptors' constant bits hold LBO and SBO >> 4 in 14 bits and
+    the swizzle codes (1: 128-byte, 3: 32-byte); every start address a
+    k16 step reaches stays 16-byte aligned inside the allocation."""
+    lay = cuda_duty.smem_layout(co, k)
+    for op, code in (("a", 1), ("b", 3)):
+        d = lay[f"{op}_desc"]
+        assert d & 0x3FFF == 0 and d >> 62 == code
+        assert (d >> 16) & 0x3FFF == lay[f"{op}_lbo"] >> 4
+        assert (d >> 32) & 0x3FFF == lay[f"{op}_sbo"] >> 4
+        assert lay[f"{op}_lbo"] >> 4 < 2 ** 14 and lay[f"{op}_sbo"] % 16 == 0
+    last = (lay["b_offset"] + (k // 16 - 1) * lay["b_kstep"]) >> 4
+    assert last < 2 ** 14 and lay["smem_bytes"] >> 4 < 2 ** 14
+    with pytest.raises(ValueError):
+        cuda_duty.smem_layout(co + 1, k)
