@@ -92,19 +92,32 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
               its bounds by operations and by shared memory (at the SM
               clock read during the run) and the R library products as
               one CUDA graph.
+12. diffusion — the DiffEEG diffusion path at full width (``entry.
+              train_diffeeg`` and ``entry.generate``, the JAX CLI's
+              ``train-diffeeg`` and ``generate``): the training set's
+              transform (#1) against the CPU with its launches; the STFT
+              conditioner, the denoiser (gathered and dense conditioning,
+              amp) and one K=50, B=64 step against the CPU on the same
+              draws; the NaN sentinel bitwise; the loss falling in float32
+              and amp; a bitwise resume of ``train_diffeeg``; the sampler's
+              NaN guard; ``generate`` for all 6 classes with 1,000 steps;
+              the step's, the sampler's, the conditioning's and the
+              metrics' times.
 
 Output: a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, then the
 last line ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` are
 the main path's (phase 4; phase 5 for the wide kernel), and for
 ``iir_sosfilt`` also paths B and C (its ``main_launches`` is phase 4's);
 ``routes_launches`` holds each path of phase 7 apart, ``train_launches``
-(IIR rows) phase 10's training path.  Needs one card; imports
+(IIR rows) phase 10's training path, ``diffusion_launches``
+(``iir_sosfilt``) phase 12's ``train_diffeeg`` run.  Needs one card; imports
 nothing of JAX.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import re
 import shutil
@@ -166,6 +179,28 @@ TRAIN_GRAD_REL, TRAIN_BN_REL = 3e-2, 1e-4
 TRAIN_F64_FACTOR = 2.0
 TRAIN_L2 = 1e-3                  # train_entry's l2_lambda
 TRAIN_STEPS = 8                  # timed steps, as bench.py's bench_train
+# DiffEEG at full width (phase 12): micro-batch, accumulation, generate's
+# windows a class, raw windows of the train_diffeeg run, reverse steps timed
+DIFF_B, DIFF_K, GEN_B, DIFF_N, SAMPLER_STEPS = 64, 50, 50, 300, 200
+# DiffEEG card vs CPU (float32, TF32 off), relative to the CPU's max |value|:
+# the conditioner and the denoiser at B=64
+DIFF_REL = 1e-4
+DIFF_DENSE_ATOL = 3e-3           # gathered vs dense (tests/test_diffusion.py)
+# the amp forward differs from float32 by more than this share of the max
+# (bf16 keeps 8 bits; a model that kept float32 would sit at 0)
+DIFF_AMP_FLOOR = 1e-4
+# the full-width step, card vs CPU: loss; gradient norm and Adam's first
+# moment (0.1 g after one step) normwise; after Adam's first step each
+# parameter moved by ~lr·sign(g): where |g| exceeds DIFF_FAR of its max the
+# two agree to float32 rounding (+1e-3 lr); elsewhere a rounding-level g
+# may change sign, which no bound below 2 lr (the most two first steps can
+# differ) would allow, so that share is printed and not bounded
+DIFF_LOSS_REL, DIFF_NORM_REL, DIFF_FAR = 1e-5, 1e-3, 1e-3
+# the metrics on the card against the CPU in float64: Fréchet relative,
+# Pearson (in [-1, 1], near 0 here) absolute; MMD at the bandwidth that
+# puts the median real×generated kernel entry at e⁻¹, absolute (see
+# _diff_generation)
+DIFF_METRIC_REL, PEARSON_ATOL = 1e-3, 1e-5
 PKG = "multimodal_brain_pattern_identification_xai_tpu_torch"
 #: (Cin, Cout) of the wide kernel's instantiations: blocks 3-5
 WIDE_SHAPES = ((32, 64), (64, 128), (128, 256))
@@ -1630,6 +1665,437 @@ def phase_convprobe(card: str, dev) -> dict:
     return tot
 
 
+def _no_dropout(model) -> None:
+    from multimodal_brain_pattern_identification_xai_tpu_torch.models import (
+        Dropout)
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+
+
+def _diff_batch(seed: int, shape, dev):
+    """Seeded micro-batches ``shape`` = (..., B, C, T) of unit-scale EEG
+    and their one-hot labels, on ``dev``."""
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+    lab = torch.as_tensor(rng.integers(0, 6, shape[:-2]))
+    return x.to(dev), torch.eye(6)[lab].to(dev)
+
+
+def _layer_dtypes(model, run) -> dict:
+    """The output types of ``model``'s dense, conv and GroupNorm layers in
+    one ``run()``, counted by type name."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch.models import (
+        diffeeg)
+    kinds = (diffeeg.Linear, diffeeg.Conv1d, diffeeg.GroupNorm1)
+    seen = {}
+    hooks = [m.register_forward_hook(
+        lambda m, i, o, n=n: seen.__setitem__(n, str(o.dtype)[6:]))
+        for n, m in model.named_modules() if isinstance(m, kinds)]
+    run()
+    for h in hooks:
+        h.remove()
+    out = {}
+    for dt in seen.values():
+        out[dt] = out.get(dt, 0) + 1
+    return dict(sorted(out.items()))
+
+
+def _diff_step_vs_cpu(card: str, dev, cfg) -> None:
+    """(c), first part: one full-width step (K=DIFF_K, B=DIFF_B, dropout
+    off) on the card and on the CPU from the same seeded weights, batch and
+    injected draws; then the NaN sentinel on the card."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import entry
+    from multimodal_brain_pattern_identification_xai_tpu_torch.train import (
+        DiffEEGTrainer)
+    K, B = DIFF_K, DIFF_B
+    shape = (K, B, cfg.n_channels, cfg.input_length)
+    xs, ys = _diff_batch(21, shape, torch.device("cpu"))
+    g = torch.Generator().manual_seed(22)
+    draws = [(torch.rand(B, generator=g),
+              torch.randint(0, cfg.n_diffusion_steps, (B,), generator=g),
+              torch.randn(shape[1:], generator=g)) for _ in range(K)]
+    trs, metrics = {}, {}
+    for where, on in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        model = entry.diffeeg_model(cfg, 3)
+        _no_dropout(model)
+        tr = DiffEEGTrainer(model, cfg, seed=3, device=on)
+        t0 = time.perf_counter()
+        m = tr.train_step(xs.to(on), ys.to(on),
+                          [tuple(a.to(on) for a in d) for d in draws])
+        metrics[where] = {k: v.cpu() for k, v in m.items()}
+        trs[where] = tr
+        torch.cuda.synchronize()
+        print(f"[diffusion] step K={K}, B={B} on the {where}: "
+              f"{time.perf_counter() - t0:.2f} s (host clock, first call)")
+    mc, mh = metrics["cuda"], metrics["cpu"]
+    e_loss = abs(float(mc["loss"]) - float(mh["loss"])) / float(mh["loss"])
+    e_norm = abs(float(mc["grad_norm"]) - float(mh["grad_norm"])) / float(
+        mh["grad_norm"])
+    mu_c, mu_h = (trs[w].state.opt_state["mu"].cpu() for w in ("cuda", "cpu"))
+    e_mu = norm_rel(mu_c, mu_h)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.train.state \
+        import flat
+    p_c, p_h = (flat([p.detach() for p in trs[w].model.parameters()]).cpu()
+                for w in ("cuda", "cpu"))
+    dp = (p_c - p_h).abs()
+    far = mu_h.abs() > DIFF_FAR * mu_h.abs().max()
+    lr = cfg.lr
+    e_far = float((dp[far] - 2.4e-7 * p_h[far].abs()).max()) / lr
+    e_all = float(dp.max()) / lr
+    print(f"[diffusion] full-width step, K={K}, B={B}, dropout off, card vs "
+          f"CPU on the same draws: loss {float(mc['loss']):.6f} rel "
+          f"{e_loss:.2e} (bound {DIFF_LOSS_REL}); grad norm "
+          f"{float(mc['grad_norm']):.4e} rel {e_norm:.2e} (bound "
+          f"{DIFF_NORM_REL}); Adam's first moment (0.1 g) normwise "
+          f"{e_mu:.2e} (bound {DIFF_NORM_REL}); parameters after Adam: "
+          f"{e_far:.2e} lr beyond float32 rounding where |g| > {DIFF_FAR} "
+          f"of its max ({int(far.sum())} of {far.numel()}; bound 1e-3), "
+          f"{e_all:.3f} lr anywhere (not bounded) [{card}]")
+    require(e_loss < DIFF_LOSS_REL and e_norm < DIFF_NORM_REL
+            and e_mu < DIFF_NORM_REL and e_far < 1e-3,
+            "DiffEEG step: card vs CPU out of bounds")
+    del trs["cpu"]
+
+    # --- the NaN sentinel on the card --------------------------------------
+    tr = trs["cuda"]
+    bad = xs.clone()
+    bad[K // 2, B // 2, 5, 100:110] = float("nan")
+    before = ([p.detach().clone() for p in tr.model.parameters()],
+              {k: v.clone() for k, v in tr.state.opt_state.items()},
+              tr.state.ema.clone())
+    step_no = tr.state.step
+    m = tr.train_step(bad.to(dev), ys.to(dev))
+    torch.cuda.synchronize()
+    kept = (all(torch.equal(a, b) for a, b in
+                zip(tr.model.parameters(), before[0]))
+            and all(torch.equal(tr.state.opt_state[k], v)
+                    for k, v in before[1].items())
+            and torch.equal(tr.state.ema, before[2]))
+    print(f"[diffusion] NaN in micro-batch {K // 2} on the card: nonfinite "
+          f"{bool(m['nonfinite'])}, loss {float(m['loss'])}, parameters, "
+          f"optimizer state and EMA bitwise kept {kept}, step {step_no} -> "
+          f"{tr.state.step}")
+    require(bool(m["nonfinite"]) and kept and tr.state.step == step_no + 1,
+            "DiffEEG NaN sentinel on the card")
+
+
+def _diff_step_timing(card: str, dev, cfg, amp: bool) -> dict:
+    """(c) the loss falling over 10 steps at K=2 (lr 1e-3), then (f) the
+    full-width step's ms at K=DIFF_K, B=DIFF_B (CUDA events over 3 steps
+    after one), peak memory, and its device busy share and top ops
+    (profiler over one step)."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        entry, profiling)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.train import (
+        DiffEEGTrainer)
+    prog = "amp (bf16)" if amp else "float32"
+    dtype = torch.bfloat16 if amp else None
+    fall = dataclasses.replace(cfg, gradient_accumulate_every=2, lr=1e-3)
+    tr = DiffEEGTrainer(entry.diffeeg_model(fall, 4, dtype), fall, seed=4,
+                        device=dev)
+    xs, ys = _diff_batch(
+        23, (2, DIFF_B, cfg.n_channels, cfg.input_length), dev)
+    losses = [float(tr.train_step(xs, ys)["loss"]) for _ in range(10)]
+    print(f"[diffusion] {prog}, K=2, B={DIFF_B}, lr 1e-3, 10 steps on one "
+          f"batch: losses {[round(v, 4) for v in losses]}")
+    require(all(np.isfinite(losses))
+            and np.mean(losses[-3:]) < np.mean(losses[:3]),
+            f"DiffEEG {prog}: the loss did not fall")
+    require(all(p.dtype == torch.float32 for p in tr.model.parameters()),
+            f"DiffEEG {prog}: parameters left float32")
+    del tr, xs, ys
+    torch.cuda.empty_cache()
+
+    tr = DiffEEGTrainer(entry.diffeeg_model(cfg, 5, dtype), cfg, seed=5,
+                        device=dev)
+    xs, ys = _diff_batch(
+        24, (DIFF_K, DIFF_B, cfg.n_channels, cfg.input_length), dev)
+    torch.cuda.reset_peak_memory_stats()
+    one = lambda: tr.train_step(xs, ys)
+    ms = cuda_ms(one, 3, warmup=1)
+    peak = peak_gib()
+    prof = profiling.profile_kernels(one, reps=1, warmup=0)
+    # the profiler slows the host; the device's busy time against the
+    # unprofiled step time is the idle share that run had
+    idle = max(0.0, 1.0 - prof.busy_ms / ms)
+    wps = DIFF_K * DIFF_B / ms * 1e3
+    ops = sorted(prof.kernel_ms.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[diffusion] {prog} step, K={DIFF_K}, B={DIFF_B}: {ms:.3f} "
+          f"ms/step = {wps:.1f} training windows/s (CUDA events, 3 steps "
+          f"after 1); peak {peak:.2f} GiB; profiler: device busy "
+          f"{prof.busy_ms:.3f} ms a step = idle {100 * idle:.1f} % of the "
+          f"step (of the profiled step's {prof.wall_ms:.3f} ms wall: "
+          f"{100 * max(0.0, 1 - prof.busy_ms / prof.wall_ms):.1f} %), "
+          f"{prof.kernels:.0f} kernels a step [{card}]")
+    print(f"[diffusion] {prog} step: top device ops: " + "; ".join(
+        f"{n[:90]} x{prof.kernel_calls[n]:.0f} {v:.3f} ms" for n, v in ops))
+    del tr, xs, ys
+    torch.cuda.empty_cache()
+    return {"ms": ms, "windows_per_s": wps, "peak_gib": peak, "idle": idle}
+
+
+def phase_diffusion(card: str, dev) -> dict:
+    """The DiffEEG diffusion path at full width (``DiffEEGConfig()``: 19
+    channels × 2,000 samples, hidden 32, 1,000 diffusion steps, K=50
+    micro-batches of 64, STFT 64/32), seeded weights, float32 with TF32
+    off unless amp:
+
+    (a) ``train_diffeeg``'s transform of DIFF_N raw (10000, 20) windows on
+        the card (#1, chunks of 256) against the CPU port;
+    (b) the denoiser at B=64: the STFT conditioner and ``DiffEEG`` (gathered
+        conditioning + denoise) against the CPU; gathered against dense
+        conditioning on the card; the amp forward against float32;
+    (c) one step (K=50, B=64) against the CPU on the same draws (loss,
+        gradient norm, Adam's moment and parameters); a NaN micro-batch
+        keeps everything bitwise and advances the step; the loss falls in
+        float32 and amp;
+    (d) ``train_diffeeg`` on the raw windows (K=4, checkpoints every 2
+        steps): 4 steps against 2 and a resume to 4, bitwise (cuDNN
+        deterministic), with #1's launches read around the first run;
+    (e) the reverse sampler (NaN guard on the card against the CPU with a
+        denoiser that returns NaN at one step), then ``generate`` for all 6
+        classes from the resumed run's checkpoint, 1,000 steps at B=50;
+    (f) timings: the step in float32 and amp, the sampler's ms a reverse
+        step, the conditioning gathered and dense, the metrics.
+
+    Returns #1's launches in (d)'s first run, by kernel name."""
+    import tempfile
+
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        config as C, entry)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
+        stft_log1p_interp)
+    reset, read = _counters()
+    cfg = C.DiffEEGConfig()
+    L, CH = cfg.input_length, cfg.n_channels
+
+    # --- (a) the transform --------------------------------------------------
+    rng = np.random.default_rng(20)
+    raw = (rng.standard_normal((DIFF_N, 10_000, 20)) * 40).astype(np.float32)
+    raw[3, 500:600, 4] = np.nan
+    y = rng.random((DIFF_N, 6)).astype(np.float32)
+    y /= y.sum(1, keepdims=True)
+    reset()
+    win_c = entry.diffeeg_training_windows(raw, dev)
+    torch.cuda.synchronize()
+    counts = read()
+    win_h = entry.diffeeg_training_windows(raw, "cpu")
+    r = rel(torch.as_tensor(win_c), torch.as_tensor(win_h))
+    n_chunks = -(-DIFF_N // 256)
+    print(f"[diffusion] (a) train_diffeeg's transform {raw.shape} -> "
+          f"{win_c.shape}: card vs CPU rel {r:.2e} (bound 1e-4); "
+          f"iir_sosfilt launches {counts['iir_sosfilt']} ({n_chunks} chunks)")
+    require(win_c.shape == (DIFF_N, CH, L) and r < 1e-4
+            and counts["iir_sosfilt"] == n_chunks,
+            "diffusion transform: card vs CPU or launches")
+
+    # --- (b) the denoiser at B=64 -----------------------------------------
+    x, yb = _diff_batch(25, (DIFF_B, CH, L), dev)
+    t = torch.randint(0, cfg.n_diffusion_steps, (DIFF_B,),
+                      generator=torch.Generator().manual_seed(25)).float()
+    with torch.no_grad():
+        spec = stft_log1p_interp(x)
+        spec_h = stft_log1p_interp(x.cpu())
+        e_spec = rel(spec.cpu(), spec_h)
+        model = entry.diffeeg_model(cfg, 6).eval()
+        model_c = copy.deepcopy(model).to(dev)
+        got = model_c(x, yb, t.to(dev), spec)
+        want = model(x.cpu(), yb.cpu(), t, spec.cpu())
+        e_model = rel(got.cpu(), want)
+        cond = model_c.conditioning(yb, spec, L)
+        dense = model_c.conditioning_dense(yb, spec, L)
+        e_dense = max_abs(cond, dense)
+        amp = entry.diffeeg_model(cfg, 6, torch.bfloat16).eval().to(dev)
+        amp_dtypes = _layer_dtypes(amp, lambda: amp(x, yb, t.to(dev), spec))
+        e_amp = rel(amp(x, yb, t.to(dev), spec), got)
+        cond_ms = cuda_ms(lambda: model_c.conditioning(yb, spec, L), 5)
+        dense_ms = cuda_ms(lambda: model_c.conditioning_dense(yb, spec, L), 3)
+        den_ms = cuda_ms(lambda: model_c.denoise(x, cond, t.to(dev)), 10)
+    print(f"[diffusion] (b) B={DIFF_B}: STFT conditioner {tuple(spec.shape)} "
+          f"card vs CPU rel {e_spec:.2e}; DiffEEG {tuple(got.shape)} card vs "
+          f"CPU rel {e_model:.2e} (bound {DIFF_REL}); gathered vs dense "
+          f"conditioning on the card max abs {e_dense:.2e} (bound "
+          f"{DIFF_DENSE_ATOL}); amp vs float32 rel {e_amp:.2e} (bounds "
+          f"{DIFF_AMP_FLOOR} below, {BF16_PROB_ATOL} above); amp's layers "
+          f"return {amp_dtypes}")
+    print(f"[diffusion] (f) conditioning at B={DIFF_B}: gathered "
+          f"{cond_ms:.3f} ms, dense (the whole {CH}x33 -> 16x33x15991 "
+          f"ConvTranspose plane) {dense_ms:.3f} ms; one denoise "
+          f"{den_ms:.3f} ms [{card}]")
+    require(e_spec < DIFF_REL and e_model < DIFF_REL
+            and e_dense < DIFF_DENSE_ATOL
+            and DIFF_AMP_FLOOR < e_amp < BF16_PROB_ATOL,
+            "DiffEEG denoiser: out of bounds")
+    require(amp_dtypes == {"bfloat16": 22, "float32": 7},
+            f"DiffEEG amp: the layers' output types {amp_dtypes}, not 22 "
+            f"bf16 dense/conv layers and 6 GroupNorms + the last conv f32")
+    del x, yb, spec, spec_h, model, model_c, amp, got, want, cond, dense
+    torch.cuda.empty_cache()
+
+    # --- (c) the step ---------------------------------------------------------
+    _diff_step_vs_cpu(card, dev, cfg)
+    torch.cuda.empty_cache()
+    steps = {amp: _diff_step_timing(card, dev, cfg, amp)
+             for amp in (False, True)}
+
+    # --- (d) train_diffeeg with a resume, (e) generate ----------------------
+    run = dataclasses.replace(cfg, gradient_accumulate_every=4,
+                              save_and_sample_every=2, evaluate_every=1000)
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            kw = dict(device=dev, raw=raw, y=y, cfg=run, seed=7)
+            reset()
+            a, ha = entry.train_diffeeg(f"{tmp}/a", steps=4, **kw)
+            torch.cuda.synchronize()
+            launches = read()
+            entry.train_diffeeg(f"{tmp}/b", steps=2, **kw)
+            b, hb = entry.train_diffeeg(f"{tmp}/b", steps=4, resume=True,
+                                        **kw)
+            same = (all(torch.equal(p, q) for p, q in
+                        zip(a.model.parameters(), b.model.parameters()))
+                    and torch.equal(a.state.ema, b.state.ema)
+                    and hb["loss"] == ha["loss"][2:])
+            names = sorted(p.name for p in Path(f"{tmp}/a/diffeeg").iterdir())
+            print(f"[diffusion] (d) train_diffeeg on {DIFF_N} raw windows, "
+                  f"K=4, B={DIFF_B}: {names}; losses {ha['loss']}; resumed "
+                  f"from step_2: parameters, EMA and losses bitwise equal "
+                  f"{same}; launches in the first run {launches} [{card}]")
+            require(same and "step_4" in names,
+                    "train_diffeeg: the resumed run differs")
+            require(launches["iir_sosfilt"] == n_chunks,
+                    f"train_diffeeg: iir_sosfilt launches {launches}")
+            del a, b
+            torch.cuda.empty_cache()
+            gen_s = _diff_generation(card, dev, cfg, f"{tmp}/b", win_c)
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    torch.cuda.empty_cache()
+    print(f"[diffusion] summary: step f32 {steps[False]['ms']:.3f} ms = "
+          f"{steps[False]['windows_per_s']:.1f} windows/s, amp "
+          f"{steps[True]['ms']:.3f} ms = {steps[True]['windows_per_s']:.1f}; "
+          f"generate {gen_s:.2f} s for 6 x {GEN_B} windows [{card}]")
+    return {"iir_sosfilt": launches["iir_sosfilt"]}
+
+
+def _diff_generation(card: str, dev, cfg, ckpt_dir: str, real) -> float:
+    """(e) and the rest of (f): the NaN guard on the card, the sampler's
+    time a reverse step at B=GEN_B, ``generate`` for all classes from the
+    checkpoint under ``ckpt_dir`` (1,000 steps), the metrics of class 0's
+    windows against GEN_B real ones.  Returns generate's seconds."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        diffusion, entry)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.models import (
+        make_cached_denoiser)
+    L, CH = cfg.input_length, cfg.n_channels
+
+    # --- the NaN guard on the card ------------------------------------------
+    def bad(x, y, t, s):
+        return torch.where(t[0] == 5, float("nan"), 0.0) * x + 0.01
+    g = torch.Generator().manual_seed(30)
+    shape = (GEN_B, CH, L)
+    x0 = torch.randn(shape, generator=g)
+    noise = [torch.randn(shape, generator=g) for _ in range(9)]
+    out = {}
+    for where, on in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        sched = diffusion.make_schedule(10, on)
+        y0 = torch.zeros((GEN_B, 6), device=on)
+        s0 = torch.zeros((GEN_B, CH, 50, 50), device=on)
+        nz = [n.to(on) for n in noise]
+        for guard in (True, False):
+            out[where, guard] = diffusion.reverse_diffusion(
+                sched, bad, (x0.to(on), lambda i: nz[i]), GEN_B, y0, s0,
+                (CH, L), nan_guard=guard).cpu()
+    e_guard = max_abs(out["cuda", True], out["cpu", True])
+    print(f"[diffusion] (e) NaN guard on the card, a denoiser that returns "
+          f"NaN at t=5 of 10: finite {bool(torch.isfinite(out['cuda', True]).all())}"
+          f", card vs CPU max abs {e_guard:.2e}; unguarded all NaN "
+          f"{bool(torch.isnan(out['cuda', False]).all())}")
+    require(bool(torch.isfinite(out["cuda", True]).all()) and e_guard < 1e-5
+            and bool(torch.isnan(out["cuda", False]).all()),
+            "the sampler's NaN guard on the card")
+
+    # --- the sampler's time a reverse step ------------------------------------
+    model = entry.diffeeg_model(cfg, 8).to(dev).eval()
+    y = torch.eye(6, device=dev)[torch.zeros(GEN_B, dtype=torch.long,
+                                             device=dev)]
+    spec = torch.zeros((GEN_B, CH, 50, 50), device=dev)
+    den = make_cached_denoiser(model, y, spec, L)
+    sched = diffusion.make_schedule(SAMPLER_STEPS, dev)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    ms = cuda_ms(lambda: diffusion.reverse_diffusion(
+        sched, den, gen, GEN_B, y, spec, (CH, L)), 2) / SAMPLER_STEPS
+    wps = GEN_B / (ms * cfg.n_diffusion_steps) * 1e3
+    print(f"[diffusion] (f) reverse sampler, B={GEN_B}, cached conditioning: "
+          f"{ms:.4f} ms a reverse step (CUDA events over 2 x "
+          f"{SAMPLER_STEPS} steps) = {wps:.2f} generated windows/s at "
+          f"{cfg.n_diffusion_steps} steps [{card}]")
+    del model, den
+    torch.cuda.empty_cache()
+
+    # --- generate, all classes, 1,000 steps ----------------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paths = entry.generate(ckpt_dir, device=dev, cfg=cfg, n_samples=GEN_B,
+                           seed=9)
+    gen_s = time.perf_counter() - t0
+    outs = {c: np.load(p) for c, p in paths.items()}
+    ok = (sorted(outs) == list(range(cfg.n_classes))
+          and all(o.shape == (GEN_B, CH, L) and np.isfinite(o).all()
+                  for o in outs.values()))
+    print(f"[diffusion] (e) generate from {Path(ckpt_dir).name}'s step_4, "
+          f"{cfg.n_classes} classes x {GEN_B} windows x "
+          f"{cfg.n_diffusion_steps} steps: {gen_s:.2f} s (host clock) = "
+          f"{cfg.n_classes * GEN_B / gen_s:.2f} generated windows/s; "
+          f"shapes {sorted({o.shape for o in outs.values()})}, all finite "
+          f"{ok} [{card}]")
+    require(ok, "generate: missing, misshapen or non-finite output")
+
+    # --- the metrics on the card ------------------------------------------------
+    r_c = torch.as_tensor(real[:GEN_B]).to(dev)
+    g_c = torch.as_tensor(outs[0]).to(dev)
+    r64, g64 = r_c.cpu().double().flatten(1), g_c.cpu().double().flatten(1)
+    sq = float(torch.cat([r64, g64]).square().sum(1).max())
+    # MMD at σ² = median‖x−y‖²/2 over real×generated pairs, so that the
+    # cross term is far from 0 and a wrong one shows.  Each kernel entry's
+    # exponent carries the float32 error of ‖x‖² + ‖y‖² − 2x·y, at most
+    # ~√d·eps·4·max‖x‖² (a d-long float32 sum's rounding grows as √d), over
+    # 2σ²; the four kernel means' weights sum to 4
+    d2 = torch.cdist(r64, g64).square()
+    bw = float(d2.median() / 2) ** 0.5
+    kxy = float(torch.exp(-d2 / (2 * bw ** 2)).mean())
+    unit = r64.shape[1] ** 0.5 * np.finfo(np.float32).eps * sq / bw ** 2
+    mmd_bound = 8 * unit
+    print(f"[diffusion] (f) MMD bandwidth {bw:.6g} (median real x generated "
+          f"distance / sqrt 2): mean cross kernel {kxy:.4f} (float64), "
+          f"2 x that = {2 * kxy / mmd_bound:.3g} x the bound")
+    require(2 * kxy > 10 * mmd_bound,
+            "MMD's cross term within ten bounds of 0: the check cannot see it")
+    parts, errs = [], []
+    for name, fn in (("mmd", lambda a, b: diffusion.compute_mmd(a, b, bw)),
+                     ("frechet", diffusion.compute_frechet_distance),
+                     ("pearson", diffusion.pearson_correlation)):
+        v = float(fn(r_c, g_c))
+        v64 = float(fn(r_c.cpu().double(), g_c.cpu().double()))
+        fn_ms = cuda_ms(lambda: fn(r_c, g_c), 3)
+        bound = {"mmd": mmd_bound, "frechet": DIFF_METRIC_REL * abs(v64),
+                 "pearson": PEARSON_ATOL}[name]
+        errs.append((name, np.isfinite(v) and abs(v - v64) <= bound))
+        if name == "mmd":
+            mmd_err = abs(v - v64)
+        parts.append(f"{name} {v:.6g} ({fn_ms:.3f} ms; against the CPU in "
+                     f"float64 {v64:.6g}, |diff| {abs(v - v64):.2e}, bound "
+                     f"{bound:.2e})")
+    print(f"[diffusion] (f) metrics, {GEN_B} real vs {GEN_B} generated "
+          f"(19x2000, max |x|² {sq:.4g}): " + "; ".join(parts) + f"; MMD's "
+          f"|diff| = {mmd_err / unit:.3g} x sqrt(d) eps max|x|²/σ² [{card}]")
+    for name, ok in errs:
+        require(ok, f"{name} on the card against float64: out of bounds")
+    return gen_s
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1676,13 +2142,15 @@ def main() -> int:
     done("train")
     rec["duty"] = phase_convprobe(card, dev)
     done("convprobe")
+    diffusion_launches = phase_diffusion(card, dev)
+    done("diffusion")
 
     xai_tpu = "multimodal_brain_pattern_identification_xai_tpu"
     src = {"iir_sosfilt": (f"{PKG}/csrc/iir.cu",
                            f"{xai_tpu}/ops/pallas_iir.py:165",
                            "serving (NaN route); training (NaN route); "
-                           "eeg_transform; notch filtfilt of the op-by-op "
-                           "reference chain"),
+                           "eeg_transform (also train_diffeeg's); notch "
+                           "filtfilt of the op-by-op reference chain"),
            "iir_sosfilt_rolldec": (f"{PKG}/csrc/iir.cu",
                                    f"{xai_tpu}/ops/pallas_iir.py:254",
                                    "serving; training (every step)"),
@@ -1730,6 +2198,8 @@ def main() -> int:
             k["xai_launches"] = xai_counts["launches"]
         if k["name"] in train_launches:
             k["train_launches"] = train_launches[k["name"]]
+        if k["name"] in diffusion_launches:
+            k["diffusion_launches"] = diffusion_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

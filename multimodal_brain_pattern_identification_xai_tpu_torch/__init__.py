@@ -2,8 +2,10 @@
 
 The serving forward (raw EEG + raw spectrogram → log-probs, ``entry``),
 input-gradient XAI on the served model (``xai``, ``entry.
-explain_entry``) and the multimodal training path (``train``, ``data``,
-``entry.train_entry`` and ``entry.train_multimodal``) run on an NVIDIA
+explain_entry``), the multimodal training path (``train``, ``data``,
+``entry.train_entry`` and ``entry.train_multimodal``) and the DiffEEG
+diffusion path (``diffusion``, ``entry.train_diffeeg`` and
+``entry.generate``) run on an NVIDIA
 Hopper card through hand-written CUDA kernels (``csrc/``); every kernel has
 a plain PyTorch version beside it that CPU tensors take.
 Imports ``torch``, numpy and scipy only (pandas in ``data.dummy_metadata``).

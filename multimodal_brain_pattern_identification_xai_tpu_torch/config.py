@@ -1,8 +1,9 @@
 """Configuration subset of the ported slices.
 
-A copy of the channel and class vocabulary, the preprocessing, augmentation
-and trainer dataclasses of the JAX package's ``config.py`` (the port imports
-nothing from that package).  Values reproduce the reference's defaults.
+A copy of the channel and class vocabulary, the preprocessing, augmentation,
+trainer and DiffEEG dataclasses of the JAX package's ``config.py`` (the port
+imports nothing from that package).  Values reproduce the reference's
+defaults.
 """
 
 from __future__ import annotations
@@ -143,6 +144,45 @@ class TrainerConfig:
     l2_lambda: float = 0.0            # manual L2 term added to the loss
     warmup_epochs: int = 5
     seed: int = 42
+
+
+@dataclass(frozen=True)
+class DiffEEGConfig:
+    """DiffEEG diffusion trainer and model parameters."""
+    epochs: int = 10
+    n_channels: int = 19
+    input_length: int = 2_000
+    n_classes: int = 6
+    hidden_channels: int = 32
+    #: the reference's setting; the model has four residual blocks
+    #: whatever its value
+    n_residual_layers: int = 16
+    dropout: float = 0.1
+    n_diffusion_steps: int = 1_000
+    ema_decay: float = 0.995
+    step_start_ema: int = 20
+    update_ema_every: int = 10
+    save_and_sample_every: int = 200
+    gradient_accumulate_every: int = 50
+    evaluate_every: int = 50
+    lr: float = 1e-5
+    batch_size: int = 64
+    min_steps: int = 10_000
+    # STFT conditioning parameters
+    stft_n_fft: int = 64
+    stft_noverlap: int = 32
+    stft_window: str = "hann"
+    #: recompute the denoiser's activations in backward
+    #: (``torch.utils.checkpoint``): less memory, more work
+    remat: bool = False
+    #: fold this many accumulation micro-batches into one forward and
+    #: backward (must divide ``gradient_accumulate_every``); the averaged
+    #: gradient is the same, the batch of a pass is ``fuse_accum`` times
+    #: larger
+    fuse_accum: int = 1
+    #: bf16 compute in the denoiser's dense and conv layers (parameters,
+    #: norms, the loss and the optimizer state stay float32)
+    amp: bool = False
 
 
 def feature_to_index(columns: Sequence[str] = EEG_COLUMNS) -> Dict[str, int]:

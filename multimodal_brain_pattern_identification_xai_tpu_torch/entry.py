@@ -13,13 +13,17 @@ into one captured CUDA graph (the counterpart of ``jax.jit``).
 for attribution (``xai``), float32 and eager.  :func:`train_entry` is the
 JAX bench's training program (one step: preprocess, forward, loss,
 backward, Adam) and :func:`train_multimodal` the JAX CLI's
-``train-multimodal --demo`` loop.  Runs on CUDA unless the caller passes
-``device="cpu"``.
+``train-multimodal --demo`` loop.  :func:`train_diffeeg` and
+:func:`generate` are the JAX CLI's ``train-diffeeg`` and ``generate``.
+Runs on CUDA unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple, Union
+import dataclasses
+import itertools
+import os
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -314,3 +318,190 @@ def train_multimodal(ckpt_dir: str,
                       epoch_callbacks=epoch_callbacks)
     _, best, _ = trainer.train_eval(train_iter, val_iter)
     return trainer, best
+
+
+# ---------------------------------------------------------------------------
+# DiffEEG diffusion
+
+def diffeeg_demo_config(batch_size: Optional[int] = None,
+                        steps: Optional[int] = None) -> C.DiffEEGConfig:
+    """The JAX CLI's ``--demo`` DiffEEG configuration: 4 channels × 256
+    samples, hidden 8, 50 diffusion steps, K=2 micro-batches of 8 (or
+    ``batch_size``), ``steps`` (default 20) steps, checkpoints and
+    evaluations every 10, STFT 32/16."""
+    return C.DiffEEGConfig(
+        n_channels=4, input_length=256, hidden_channels=8,
+        n_diffusion_steps=50, gradient_accumulate_every=2,
+        batch_size=batch_size or 8, evaluate_every=10,
+        save_and_sample_every=10, min_steps=steps or 20, stft_n_fft=32,
+        stft_noverlap=16)
+
+
+def diffeeg_model(cfg: C.DiffEEGConfig, seed: int = 42,
+                  dtype: Optional[torch.dtype] = None):
+    """A ``DiffEEG`` of ``cfg``'s width on the CPU with weights drawn from
+    ``seed`` (:func:`..models.seeded_state_dict`), computing in ``dtype``."""
+    from .models import DiffEEG
+    model = DiffEEG(n_channels=cfg.n_channels, hidden=cfg.hidden_channels,
+                    dtype=dtype)
+    model.load_state_dict(seeded_state_dict(model, seed))
+    return model
+
+
+def diffeeg_training_windows(raw: np.ndarray,
+                             device: Union[str, torch.device],
+                             chunk: int = 256) -> np.ndarray:
+    """``train-diffeeg``'s training set from raw windows: (N, L, 20) µV
+    (the EKG column is dropped) → ``eeg_transform`` with the 19 scalp
+    channels and no magic-8 montage (the order-4 lowpass is the IIR kernel
+    on the card), ``chunk`` windows a call on ``device`` → (N, C', L/5)
+    float32 on the host."""
+    from .ops import eeg_transform
+    tcfg = C.EEGTransformConfig(apply_chris_magic_ch8=False,
+                                n_feats=len(C.EEG_FEATURES))
+    outs = []
+    with torch.no_grad():
+        for s in range(0, len(raw), chunk):
+            a = torch.as_tensor(raw[s:s + chunk, :, :len(C.EEG_FEATURES)],
+                                dtype=torch.float32).to(device)
+            outs.append(eeg_transform(a, tcfg).cpu().numpy())
+    return np.ascontiguousarray(np.concatenate(outs).transpose(0, 2, 1))
+
+
+def train_diffeeg(ckpt_dir: str,
+                  device: Optional[Union[str, torch.device]] = None,
+                  raw: Optional[np.ndarray] = None,
+                  y: Optional[np.ndarray] = None,
+                  cfg: Optional[C.DiffEEGConfig] = None,
+                  steps: Optional[int] = None,
+                  batch_size: Optional[int] = None, seed: int = 42,
+                  resume: bool = False):
+    """The JAX CLI's ``train-diffeeg``: a :class:`..train.DiffEEGTrainer`
+    with step checkpoints under ``<ckpt_dir>/diffeeg``, resumed from the
+    latest when ``resume``, run to ``steps`` (default ``cfg.min_steps``).
+    Returns ``(trainer, history)``.
+
+    Without ``raw``: the ``--demo`` configuration
+    (:func:`diffeeg_demo_config`; a ``cfg`` given raises ``ValueError``)
+    on a stream of Gaussian micro-batches,
+    micro-batch i drawn from ``default_rng((seed, i))``, and one Gaussian
+    validation batch.  With ``raw`` (N, 10000, 20) µV windows and soft
+    labels ``y`` (N, 6) (what the JAX package's ``data.wavenet_arrays``
+    returns): ``cfg`` (default ``DiffEEGConfig()``) with ``batch_size``
+    if given; the training set from :func:`diffeeg_training_windows`; 10 %
+    (at least one window, at most N − 1) held out for validation by
+    ``default_rng(seed)``; the rest in epoch-shuffled micro-batches
+    (``runtime.NativeBatchQueue`` with ``seed + epoch``, a resumed run
+    skipping the micro-batches already consumed), or, with fewer windows
+    than a batch, micro-batch i drawn with replacement by
+    ``default_rng((seed, i))``; the first four validation batches."""
+    from .runtime import NativeBatchQueue
+    from .train import DiffEEGTrainer
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    if raw is None:
+        if cfg is not None:
+            raise ValueError("the demo path runs diffeeg_demo_config(); "
+                             "cfg applies only with raw windows")
+        cfg = diffeeg_demo_config(batch_size, steps)
+        B, shape = cfg.batch_size, (cfg.n_channels, cfg.input_length)
+
+        def batches(start=0):
+            for i in itertools.count(start):
+                g = np.random.default_rng((seed, i))
+                x = g.standard_normal((B,) + shape).astype(np.float32)
+                yield x, np.eye(6, dtype=np.float32)[g.integers(0, 6, B)]
+
+        val = [(rng.standard_normal((4,) + shape).astype(np.float32),
+                np.eye(6, dtype=np.float32)[rng.integers(0, 6, 4)])]
+    else:
+        x = diffeeg_training_windows(raw, dev)
+        y = np.asarray(y, np.float32)
+        cfg = cfg or C.DiffEEGConfig()
+        if batch_size:
+            cfg = dataclasses.replace(cfg, batch_size=batch_size)
+        B = cfg.batch_size
+        n_val = max(1, min(len(x) // 10, len(x) - 1))
+        perm = rng.permutation(len(x))
+        va, tr = perm[:n_val], perm[n_val:]
+        if len(tr) >= B:
+            xtr = np.ascontiguousarray(x[tr])
+            ytr = np.ascontiguousarray(y[tr])
+
+            def batches(start=0):
+                # the trainer holds K micro-batches before it stacks them:
+                # the ring must exceed that
+                ring = cfg.gradient_accumulate_every + 8
+                ep0, off = divmod(start, max(1, len(xtr) // B))
+                for ep in itertools.count(ep0):
+                    it = iter(NativeBatchQueue(xtr, ytr, B, shuffle=True,
+                                               seed=seed + ep, pop_ring=ring))
+                    if ep == ep0:
+                        for _ in range(off):
+                            next(it, None)
+                    for b in it:
+                        yield b["x"], b["y"]
+        else:
+            def batches(start=0):
+                for i in itertools.count(start):
+                    sel = np.random.default_rng((seed, i)).choice(tr, size=B)
+                    yield x[sel], y[sel]
+
+        val = [(x[va[s:s + B]], y[va[s:s + B]])
+               for s in range(0, min(len(va), 4 * B), B)]
+    model = diffeeg_model(cfg, seed, torch.bfloat16 if cfg.amp else None)
+    trainer = DiffEEGTrainer(model, cfg, ckpt_dir=f"{ckpt_dir}/diffeeg",
+                             seed=seed, device=dev)
+    if resume:
+        trainer.load()
+    history = trainer.train(batches, val_batches=val,
+                            total_steps=steps or cfg.min_steps)
+    return trainer, history
+
+
+def generate(ckpt_dir: str,
+             device: Optional[Union[str, torch.device]] = None,
+             demo: bool = False, cfg: Optional[C.DiffEEGConfig] = None,
+             n_samples: Optional[int] = None, seed: int = 42
+             ) -> Dict[int, str]:
+    """The JAX CLI's ``generate``: restore the latest ``train-diffeeg``
+    step under ``<ckpt_dir>/diffeeg`` and sample every class with its EMA
+    weights from a zeros (50, 50) spectrogram prior
+    (``diffusion.generate_for_class_cached``, class c from a device
+    generator seeded ``seed + c``), ``n_samples`` windows a class (50; 2
+    with ``demo``), written to ``<ckpt_dir>/generated/
+    generated_class_{c}.npy``.  ``cfg``: the demo configuration with
+    ``demo`` (a ``cfg`` given then raises ``ValueError``), else
+    ``DiffEEGConfig()`` unless given.  Without a checkpoint
+    the demo samples from the seeded initial weights and anything else
+    raises ``FileNotFoundError``.  Returns {class: path}."""
+    from .diffusion import generate_for_class_cached
+    from .train import DiffEEGTrainer
+
+    if demo and cfg is not None:
+        raise ValueError("generate(demo=True) runs diffeeg_demo_config(); "
+                         "pass cfg without demo")
+    dev = resolve_device(device)
+    cfg = diffeeg_demo_config() if demo else (cfg or C.DiffEEGConfig())
+    trainer = DiffEEGTrainer(diffeeg_model(cfg, seed), cfg,
+                             ckpt_dir=f"{ckpt_dir}/diffeeg", seed=seed,
+                             device=dev)
+    if trainer.load() is None and not demo:
+        raise FileNotFoundError(
+            f"no train-diffeeg checkpoint under {ckpt_dir}/diffeeg: run "
+            f"train_diffeeg first")
+    n = n_samples or (2 if demo else 50)
+    out_dir = os.path.join(ckpt_dir, "generated")
+    os.makedirs(out_dir, exist_ok=True)
+    model = trainer.ema_model()
+    paths = {}
+    for c in range(cfg.n_classes):
+        gen = torch.Generator(device=dev).manual_seed(seed + c)
+        out = generate_for_class_cached(
+            trainer.schedule, model, gen, c, n_samples=n,
+            n_channels=cfg.n_channels, length=cfg.input_length,
+            n_classes=cfg.n_classes)
+        paths[c] = os.path.join(out_dir, f"generated_class_{c}.npy")
+        np.save(paths[c], out)
+    return paths

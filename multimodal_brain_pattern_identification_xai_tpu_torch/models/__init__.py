@@ -1,5 +1,8 @@
-"""Models of the serving slice (PyTorch, reference torch key layout)."""
+"""Models of the ported slices (PyTorch, reference torch key layout)."""
 
+from .diffeeg import (DiffEEG, DiffEEGSanityCheck, make_cached_denoiser,
+                      recombine_spectrograms)
+from .diffeeg_legacy import DiffEEGLegacy
 from .eegnet import EEGNetAttentionRegularized
 from .fusion import MultimodalModel
 from .layers import (Attention, BatchNorm, Dropout, SpectrogramBlock,
@@ -7,7 +10,9 @@ from .layers import (Attention, BatchNorm, Dropout, SpectrogramBlock,
 from .speccnn import SpectrogramCNN
 from .weights import jax_variables_to_state_dict, seeded_state_dict
 
-__all__ = ["Attention", "BatchNorm", "Dropout", "EEGNetAttentionRegularized",
+__all__ = ["Attention", "BatchNorm", "DiffEEG", "DiffEEGLegacy",
+           "DiffEEGSanityCheck", "Dropout", "EEGNetAttentionRegularized",
            "MultimodalModel", "SpectrogramBlock", "SpectrogramCNN",
            "dropout_generator", "jax_variables_to_state_dict",
+           "make_cached_denoiser", "recombine_spectrograms",
            "seeded_state_dict"]

@@ -6,7 +6,10 @@
 onto this package's ``state_dict`` — the inverse of the JAX package's
 ``models/torch_import.py``.  The key layout is the reference torch
 models' (``conv1.weight``, ``batchnorm1.*``, ``depthwiseConv.weight``,
-``blockN.convM.*``, ``blockN.bn.*``, ``fc1.*``, …).
+``blockN.convM.*``, ``blockN.bn.*``, ``fc1.*``, …); for ``DiffEEG`` and
+``DiffEEGLegacy`` (``{"params"}`` only) ``step_embedding_mlp.{0,2,4}``,
+``spectrogram_upsample1`` / ``spectrogram_upconv{1,2}``,
+``res_block{i}.*``, ….
 """
 
 from __future__ import annotations
@@ -74,13 +77,82 @@ def _speccnn(p: Mapping, s: Mapping) -> Dict[str, np.ndarray]:
     return sd
 
 
+def _conv1d(sd: Dict[str, np.ndarray], dst: str, p: Mapping) -> None:
+    """flax Conv kernel (k, I, O) → torch Conv1d weight (O, I, k)."""
+    sd[f"{dst}.weight"] = _np(p["kernel"]).transpose(2, 1, 0)
+    sd[f"{dst}.bias"] = _np(p["bias"])
+
+
+def _conv_transpose(sd: Dict[str, np.ndarray], dst: str, p: Mapping) -> None:
+    """flax ConvTranspose kernel (kh, kw, I, O), spatially flipped against
+    torch's, → torch ConvTranspose2d weight (I, O, kh, kw)."""
+    sd[f"{dst}.weight"] = _np(p["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1)
+    sd[f"{dst}.bias"] = _np(p["bias"])
+
+
+def _group_norm(sd: Dict[str, np.ndarray], dst: str, p: Mapping) -> None:
+    sd[f"{dst}.weight"] = _np(p["scale"])
+    sd[f"{dst}.bias"] = _np(p["bias"])
+
+
+def _diffeeg_common(p: Mapping) -> Dict[str, np.ndarray]:
+    sd: Dict[str, np.ndarray] = {}
+    for i in (0, 2, 4):
+        _dense(sd, f"step_embedding_mlp.{i}", p[f"step_mlp_{i}"])
+    sd["class_embedding.weight"] = _np(p["class_embedding"]["embedding"])
+    return sd
+
+
+def _diffeeg(p: Mapping) -> Dict[str, np.ndarray]:
+    sd = _diffeeg_common(p)
+    _conv_transpose(sd, "spectrogram_upsample1", p["spectrogram_upsample1"])
+    for name in ("channel_expand", "spectrogram_project", "input_conv",
+                 "skip_sum"):
+        _conv1d(sd, name, p[name])
+    _conv1d(sd, "gtu.conv1", p["gtu"]["conv1"])
+    _conv1d(sd, "gtu.conv2", p["gtu"]["conv2"])
+    for i in range(1, 5):
+        blk = p[f"res_block{i}"]
+        for j, name in ((0, "conv_in"), (2, "conv_dil"), (3, "conv_out")):
+            _conv1d(sd, f"res_block{i}.{j}", blk[name])
+        _group_norm(sd, f"res_block{i}.4", blk["norm"])
+    _group_norm(sd, "layer_norm", p["layer_norm"])
+    _conv1d(sd, "final_projection.0", p["final_0"])
+    _group_norm(sd, "final_projection.2", p["final_norm"])
+    _conv1d(sd, "final_projection.3", p["final_out"])
+    return sd
+
+
+def _diffeeg_legacy(p: Mapping) -> Dict[str, np.ndarray]:
+    sd = _diffeeg_common(p)
+    for name in ("spectrogram_upconv1", "spectrogram_upconv2"):
+        _conv_transpose(sd, name, p[name])
+    sd["spectrogram_embed.weight"] = _np(
+        p["spectrogram_embed"]["kernel"]).transpose(3, 2, 0, 1)
+    sd["spectrogram_embed.bias"] = _np(p["spectrogram_embed"]["bias"])
+    for name in ("input_conv", "skip_sum", "output_conv"):
+        _conv1d(sd, name, p[name])
+    for i in range(1, 5):
+        blk = p[f"res_block{i}"]
+        for j, name in ((0, "conv_in"), (2, "conv_dil"), (4, "conv_out")):
+            _conv1d(sd, f"res_block{i}.{j}", blk[name])
+    return sd
+
+
 def jax_variables_to_state_dict(variables: Mapping[str, Any]
                                 ) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` for a flax ``{"params", "batch_stats"}``
-    tree of ``EEGNetAttentionRegularized``, ``SpectrogramCNN`` or
-    ``MultimodalModel`` (detected from the tree's top-level names)."""
-    p, s = variables["params"], variables["batch_stats"]
-    if "eeg_model" in p:
+    """The port's ``state_dict`` for a flax variable tree of
+    ``EEGNetAttentionRegularized``, ``SpectrogramCNN`` or
+    ``MultimodalModel`` (``{"params", "batch_stats"}``), or of ``DiffEEG``
+    or ``DiffEEGLegacy`` (``{"params"}``), detected from the tree's
+    top-level names."""
+    p = variables["params"]
+    s = variables.get("batch_stats", {})
+    if "spectrogram_upsample1" in p:
+        sd = _diffeeg(p)
+    elif "spectrogram_upconv1" in p:
+        sd = _diffeeg_legacy(p)
+    elif "eeg_model" in p:
         sd = {f"eeg_model.{k}": v for k, v in
               _eegnet_attention(p["eeg_model"], s["eeg_model"]).items()}
         sd.update({f"spectrogram_model.{k}": v for k, v in _speccnn(

@@ -36,3 +36,4 @@ from .preprocess import (  # noqa: F401
 )
 from .cuda_specblock import fused_specblock_convpool  # noqa: F401
 from .augment import spectrogram_augment  # noqa: F401
+from .stft import stft, stft_log1p_interp  # noqa: F401

@@ -1,4 +1,5 @@
 """Host-side batch assembly (counterpart of the JAX package's
-``runtime/``); only the numpy gather the training path uses so far."""
+``runtime/``): the numpy window gather and epoch batch queue."""
 
-from .loader import gather_windows, gather_windows_into  # noqa: F401
+from .loader import (NativeBatchQueue, gather_windows,  # noqa: F401
+                     gather_windows_into)

@@ -1,7 +1,8 @@
 """Training layer (counterpart of the JAX package's ``train/``): losses,
 metrics, learning-rate schedules, the optimizer and train state, train and
 eval steps with the NaN sentinel, the epoch-loop trainer, checkpoints,
-cross-validation and checkpoint analysis."""
+cross-validation, checkpoint analysis and the DiffEEG diffusion
+trainer."""
 
 from .losses import (kldiv_with_logits, kldiv_with_log_probs,  # noqa: F401
                      cross_entropy_with_logits, l2_regularization)
@@ -21,3 +22,4 @@ from .cv import (group_kfold, stratified_kfold, run_cv,  # noqa: F401
                  detect_class_imbalance)
 from .init import initialize_kaiming_weights  # noqa: F401
 from .analyze import analyze_checkpoints  # noqa: F401
+from .diffeeg_trainer import DiffEEGTrainer  # noqa: F401

@@ -54,11 +54,14 @@ class CheckpointManager:
             with open(os.path.join(self.ckpt_dir, f"{name}.json"), "w") as f:
                 json.dump(meta, f)
 
+    def load(self, name: str) -> Dict[str, Any]:
+        """Snapshot ``name`` as written (tensors on the CPU)."""
+        return torch.load(os.path.join(self.ckpt_dir, name, STATE_FILE),
+                          map_location="cpu", weights_only=True)
+
     def restore(self, name: str, state: Any) -> Any:
         """Load snapshot ``name`` into ``state`` in place and return it."""
-        d = torch.load(os.path.join(self.ckpt_dir, name, STATE_FILE),
-                       map_location="cpu", weights_only=True)
-        return state.load_state_dict(d)
+        return state.load_state_dict(self.load(name))
 
     # -- policy ------------------------------------------------------------
 

@@ -56,6 +56,14 @@ def test_port_runs_with_jax_blocked():
         "import augment, cuda_duty\n"
         "from multimodal_brain_pattern_identification_xai_tpu_torch import "
         "data, runtime, train\n"
+        "from multimodal_brain_pattern_identification_xai_tpu_torch import "
+        "diffusion\n"
+        "from multimodal_brain_pattern_identification_xai_tpu_torch.models "
+        "import DiffEEG, DiffEEGLegacy\n"
+        "from multimodal_brain_pattern_identification_xai_tpu_torch.train "
+        "import DiffEEGTrainer\n"
+        "from multimodal_brain_pattern_identification_xai_tpu_torch.ops "
+        "import stft_log1p_interp\n"
         "fwd, args = entry(device='cpu', batch=2, assume_finite=True)\n"
         "out = fwd(*args)\n"
         "assert out.shape == (2, 6) and bool(torch.isfinite(out).all())\n"
@@ -76,13 +84,15 @@ def test_entry_without_cuda_raises(monkeypatch):
         entry()
 
 
-@pytest.mark.parametrize("name", ["train_entry", "train_multimodal"])
+@pytest.mark.parametrize("name", ["train_entry", "train_multimodal",
+                                  "train_diffeeg", "generate"])
 def test_train_entries_without_cuda_raise(monkeypatch, tmp_path, name):
-    """The training entry points resolve to the card too: without one they
-    raise before building anything, unless ``device="cpu"`` is given."""
+    """The training and generation entry points resolve to the card too:
+    without one they raise before building anything, unless
+    ``device="cpu"`` is given."""
     from multimodal_brain_pattern_identification_xai_tpu_torch import entry
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    args = (str(tmp_path),) if name == "train_multimodal" else ()
+    args = (str(tmp_path),) if name != "train_entry" else ()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         getattr(entry, name)(*args)
     assert not any(tmp_path.iterdir())
