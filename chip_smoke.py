@@ -103,6 +103,19 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
               NaN guard; ``generate`` for all 6 classes with 1,000 steps;
               the step's, the sampler's, the conditioning's and the
               metrics' times.
+13. realdata — the real-data training paths at full width from a
+              synthetic HMS tree in numpy form (256 eeg_ids x 5 rows, the
+              window cache and .npy spectrograms, no pandas): (a)
+              ``entry.train_multimodal(data_root=...)``, one epoch of fold
+              0 at B=256 in bf16 and float32, its first step's loss held
+              to the same step on the numpy gather's batch; (b)
+              ``entry.train_wavenet``, one fold, one epoch at B=16; (c)
+              ``entry.grid_search``, 3 candidates in one vmapped step, each
+              held against the candidate trained alone; (d)
+              ``entry.train_diffeeg(data_root=...)``, two steps at K=4;
+              the host library's gather and queue bitwise against numpy;
+              ms a step, windows/s, the host gather, peak memory, and a
+              ``{"realdata": ...}`` line.
 
 Output: a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, then the
 last line ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` are
@@ -110,7 +123,8 @@ the main path's (phase 4; phase 5 for the wide kernel), and for
 ``iir_sosfilt`` also paths B and C (its ``main_launches`` is phase 4's);
 ``routes_launches`` holds each path of phase 7 apart, ``train_launches``
 (IIR rows) phase 10's training path, ``diffusion_launches``
-(``iir_sosfilt``) phase 12's ``train_diffeeg`` run.  Needs one card; imports
+(``iir_sosfilt``) phase 12's ``train_diffeeg`` run, ``realdata_launches``
+(IIR rows) phase 13's four paths summed.  Needs one card; imports
 nothing of JAX.
 """
 
@@ -119,6 +133,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -201,6 +216,17 @@ DIFF_LOSS_REL, DIFF_NORM_REL, DIFF_FAR = 1e-5, 1e-3, 1e-3
 # puts the median real×generated kernel entry at e⁻¹, absolute (see
 # _diff_generation)
 DIFF_METRIC_REL, PEARSON_ATOL = 1e-3, 1e-5
+# Real-data paths (phase 13): a synthetic HMS tree in numpy form of RD_IDS
+# eeg_ids × RD_ROWS rows (the Kaggle train.csv has about 6 rows an id),
+# RD_EEG_LEN-sample recordings cropped to 10,000, (400, RD_SPEC_T)
+# spectrogram planes; the WaveNet's batch; the grid's candidates against
+# the same candidate trained alone (vmapped grouped convs against single
+# ones, 16 Adam steps, float32 with TF32 off)
+RD_IDS, RD_ROWS, RD_EEG_LEN, RD_SPEC_T = 256, 5, 12_000, 340
+RD_WAVENET_B, RD_SEED, RD_GRID_REL = 16, 42, 1e-4
+# epochs of (a) a program: the bf16 run is long enough for a steady-state
+# rate over many steps (4 steps an epoch), the f32 one only checks
+RD_EPOCHS = {"bf16": 5, "float32": 1}
 PKG = "multimodal_brain_pattern_identification_xai_tpu_torch"
 #: (Cin, Cout) of the wide kernel's instantiations: blocks 3-5
 WIDE_SHAPES = ((32, 64), (64, 128), (128, 256))
@@ -2096,6 +2122,449 @@ def _diff_generation(card: str, dev, cfg, ckpt_dir: str, real) -> float:
     return gen_s
 
 
+def _write_numpy_tree(root: str, seed: int) -> None:
+    """A synthetic HMS tree in numpy form, with no pandas: ``train.csv``
+    (the Kaggle schema's columns, written by ``csv``), the window cache
+    ``cache/eeg_cache.npz`` (each recording cropped by the port's
+    ``crop_eeg_window`` into its ``EEGRecordCache``) and
+    ``npy/<spectrogram_id>.npy`` planes stored (F, T).  Ids, patients,
+    offsets and votes follow the JAX package's ``write_synthetic_hms_tree``;
+    recordings carry a few NaN runs."""
+    import csv
+
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        config as C, data)
+    rng = np.random.default_rng(seed)
+    os.makedirs(f"{root}/cache")
+    os.makedirs(f"{root}/npy")
+    cache = data.EEGRecordCache(f"{root}/cache/eeg_cache.npz")
+    header = ["eeg_id", "eeg_sub_id", "eeg_label_offset_seconds",
+              "spectrogram_id", "spectrogram_sub_id",
+              "spectrogram_label_offset_seconds", "label_id", "patient_id",
+              "expert_consensus", *C.TGT_VOTE_COLS]
+    rows = []
+    for i in range(RD_IDS):
+        eeg_id, spec_id, patient = 1000 + i, 2000 + i, 100 + i // 2
+        rec = rng.standard_normal((RD_EEG_LEN, 20), np.float32) * 40
+        rec[rng.integers(0, RD_EEG_LEN - 50):][:50, i % 20] = np.nan
+        cache[eeg_id] = data.crop_eeg_window(rec, 10_000)
+        np.save(f"{root}/npy/{spec_id}.npy",
+                rng.random((400, RD_SPEC_T), np.float32) * 10)
+        for r in range(RD_ROWS):
+            votes = rng.integers(0, 8, 6)
+            votes[i % 6] += 8
+            rows.append([eeg_id, r, float(r * 2), spec_id, r, float(r * 4),
+                         i * 10 + r, patient, C.CLASSES[i % 6],
+                         *votes.tolist()])
+    cache.save()
+    with open(f"{root}/train.csv", "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(header)
+        w.writerows(rows)
+
+
+class _StepClock:
+    """Times every call of the epoch trainer's train step with CUDA events:
+    ``train.trainer.make_train_step`` is wrapped while the context is open.
+    ``ms()`` gives each step's device time; ``span_ms(i, j)`` the device
+    timeline from step i's start to step j's end (the host gather, the
+    copies and the preprocessing between steps included); ``gaps_ms(i,
+    j)`` the device time between consecutive steps i..j, from one step's
+    end to the next one's start."""
+
+    def __enter__(self):
+        from multimodal_brain_pattern_identification_xai_tpu_torch.train import (
+            trainer)
+        self.events, self._mod = [], trainer
+        self._orig = trainer.make_train_step
+
+        def make(**kw):
+            inner = self._orig(**kw)
+
+            def step(*args, **kwargs):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = inner(*args, **kwargs)
+                end.record()
+                self.events.append((start, end))
+                return out
+            return step
+        trainer.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.make_train_step = self._orig
+        torch.cuda.synchronize()
+
+    def ms(self) -> list:
+        return [a.elapsed_time(b) for a, b in self.events]
+
+    def span_ms(self, i: int = 0, j: int = -1) -> float:
+        return self.events[i][0].elapsed_time(self.events[j][1])
+
+    def gaps_ms(self, i: int, j: int) -> list:
+        return [self.events[k][1].elapsed_time(self.events[k + 1][0])
+                for k in range(i, j)]
+
+
+class _FirstLoss:
+    """A trainer logger keeping the logged losses (the first step's
+    among them)."""
+
+    def __init__(self):
+        self.losses = []
+
+    def log_loss(self, loss, step):
+        self.losses.append(loss)
+
+    def log_evaluation(self, result, epoch):
+        pass
+
+
+def _rd_multimodal(card: str, dev, tree: str, work: str, dtype, reset,
+                   read) -> dict:
+    """(a) ``RD_EPOCHS[prog]`` epochs of ``train_multimodal(data_root=...)``
+    at B=256 in ``dtype``: its step times, the pipeline's training
+    windows/s inside each epoch (from the first step's end to the last
+    one's, pooled over the epochs) and over epochs 2.. whole (validation
+    and epoch starts included), the device time between steps, the host
+    gather's ms a batch (library and numpy) and the producer's (the gather
+    and the pinned copy to the card, as the run's prefetch thread does them,
+    with no step to hide behind), peak memory; the first step's loss
+    against the same step run by hand on the first batch gathered by
+    ``gather_multimodal_numpy``; #2's launches, held to one a
+    preprocessed batch."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        config as C, entry, train)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.data import (
+        prefetch_to_device)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
+        spectrogram_augment)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.runtime import (
+        gather_multimodal_numpy)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.train import (
+        steps as train_steps)
+    B = C.TrainerConfig().batch_size
+    prog = "bf16" if dtype is not None else "float32"
+    epochs = RD_EPOCHS[prog]
+    # each run checkpoints in a directory of its own, beside the tree's cache
+    os.makedirs(f"{work}/{prog}")
+    os.symlink(f"{tree}/cache/eeg_cache.npz", f"{work}/{prog}/eeg_cache.npz")
+    log = _FirstLoss()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    with _StepClock() as clock:
+        tr, best = entry.train_multimodal(
+            f"{work}/{prog}", device=dev, epochs=epochs, seed=RD_SEED,
+            dtype=dtype, data_root=tree, npy_dir=f"{tree}/npy",
+            loggers=[log], workers=8)
+    wall = time.perf_counter() - t0
+    counts = read()
+    peak = peak_gib()
+    steps = clock.ms()
+    src, tr_idx, va_idx = entry.multimodal_fold0(
+        tree, f"{work}/{prog}", RD_SEED, npy_dir=f"{tree}/npy")
+    n_val = -(-len(va_idx) // B)
+    n = len(tr_idx) // B                              # steps an epoch
+    spans = [(e * n, e * n + n - 1) for e in range(epochs)]
+    inside = [clock.span_ms(i, j) - steps[i] for i, j in spans]
+    gaps = [g for i, j in spans for g in clock.gaps_ms(i, j)]
+    # the host gather alone: the library into the two-slot ring, and numpy
+    t1 = time.perf_counter()
+    for _ in src.batches(tr_idx, B, shuffle=True, seed=RD_SEED,
+                         reuse_buffers=True):
+        pass
+    gather_ms = (time.perf_counter() - t1) * 1e3 / n
+    # the producer alone: the gather and the copy to the card, as the run
+    t1 = time.perf_counter()
+    for _ in prefetch_to_device(src.batches(tr_idx, B, shuffle=True,
+                                            seed=RD_SEED, reuse_buffers=True),
+                                device=dev, sync_transfers=True):
+        pass
+    producer_ms = (time.perf_counter() - t1) * 1e3 / n
+    t1 = time.perf_counter()
+    first = next(src.batches(tr_idx, B, shuffle=True, seed=RD_SEED,
+                             gather=gather_multimodal_numpy))
+    numpy_ms = (time.perf_counter() - t1) * 1e3
+    # the first step by hand on the numpy gather's batch
+    model = entry.build_train_model(dtype=dtype)
+    train.initialize_kaiming_weights(model,
+                                     torch.Generator().manual_seed(RD_SEED))
+    state = train.create_train_state(model.to(dev), train.make_optimizer(
+        C.TrainerConfig().lr))
+    state.rng.manual_seed(RD_SEED)
+    pb = entry.preprocess_batch(*(torch.from_numpy(first[k]).to(dev)
+                                  for k in ("eeg", "spec", "y")))
+    key = train_steps.fold_in(train_steps.fold_in(
+        torch.Generator().manual_seed(RD_SEED + 1), 0, torch.device("cpu")),
+        0, dev)
+    s, yb = spectrogram_augment(key, pb["spec"], pb["y"], pb["spec"], pb["y"])
+    _, m = train.make_train_step()(state, {"eeg": pb["eeg"], "spec": s,
+                                           "y": yb}, state.rng)
+    ref = float(m["loss"])
+    out = {"epochs": epochs, "steps": len(steps), "val_rows": len(va_idx),
+           "step_ms": steps, "step_ms_after_first": float(np.mean(steps[1:])),
+           "train_windows_per_s": B * (n - 1) * epochs / sum(inside) * 1e3,
+           "epoch_windows_per_s": [B * (n - 1) / ms * 1e3 for ms in inside],
+           # from the end of epoch 1's last step to the end of the last one
+           "run_windows_per_s": (B * n * (epochs - 1) * 1e3
+                                 / (clock.span_ms(n - 1, -1) - steps[n - 1])
+                                 if epochs > 1 else None),
+           "gap_ms": gaps, "gap_ms_mean": float(np.mean(gaps)),
+           "gather_ms_a_batch": gather_ms, "numpy_gather_ms_a_batch": numpy_ms,
+           "producer_ms_a_batch": producer_ms,
+           "peak_gib": peak, "run_s": wall, "first_loss": log.losses[0],
+           "first_loss_numpy_gather": ref,
+           "train_loss": tr.history["train_loss"], "best_kldiv": best,
+           "launches": counts}
+    run_rate = ("" if epochs == 1 else
+                f", by epoch {[round(r, 1) for r in out['epoch_windows_per_s']]}"
+                f", {out['run_windows_per_s']:.1f} over epochs 2-{epochs} "
+                f"whole (validation and epoch starts included)")
+    print(f"[realdata] (a) train_multimodal {prog}, fold 0, B={B}, "
+          f"{epochs} epoch(s): {len(steps)} steps, ms a step "
+          f"{[round(x, 3) for x in steps]} (CUDA events); "
+          f"{out['train_windows_per_s']:.1f} training windows/s inside the "
+          f"epochs (steps 2-{n} of each: host gather, copies and "
+          f"preprocessing included){run_rate}; between steps "
+          f"{out['gap_ms_mean']:.3f} ms on average, "
+          f"{[round(g, 3) for g in gaps]}; host gather {gather_ms:.2f} ms a "
+          f"batch (library, ring), {numpy_ms:.2f} ms (numpy); the producer "
+          f"alone (gather and pinned copy to the card) {producer_ms:.2f} ms "
+          f"a batch; peak {peak:.2f} GiB; run {wall:.2f} s; first loss "
+          f"{log.losses[0]!r} vs {ref!r} by hand on the numpy gather's "
+          f"batch; best kldiv {best:.4f}; launches {counts} [{card}]")
+    require(all(np.isfinite(tr.history["train_loss"])) and np.isfinite(best),
+            f"(a) {prog}: a loss is not finite")
+    require(log.losses[0] == ref,
+            f"(a) {prog}: first step's loss {log.losses[0]!r} differs from "
+            f"the numpy gather's {ref!r}")
+    require(len(steps) == n * epochs
+            and counts["iir_sosfilt_rolldec"]
+            == len(steps) + (epochs + 1) * n_val
+            and counts["iir_sosfilt"] == 0,
+            f"(a) {prog}: launches {counts}, {len(steps)} steps, {n_val} "
+            f"validation batches (evaluated once an epoch and at the end)")
+    del tr, state, model, src
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rd_grid(card: str, dev, tree: str, x, y, reset, read) -> dict:
+    """(c) ``grid_search`` with the default grid (3 learning rates), one
+    epoch at B=16: each candidate's final loss against the same candidate
+    trained alone with the port's Adam (RD_GRID_REL); a vmapped step's
+    time beside a single step's, and each one's device busy time and top
+    kernels (profiler)."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        entry, profiling, train)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.data import (
+        batch_iterator)
+    reset()
+    t0 = time.perf_counter()
+    best, results = entry.grid_search(tree, f"{tree}/cache", device=dev,
+                                      epochs=1, batch_size=RD_WAVENET_B,
+                                      seed=RD_SEED)
+    wall = time.perf_counter() - t0
+    counts = read()
+    lrs = entry.DEFAULT_GRID["lr"]
+    errs = []
+    for g, lr in enumerate(lrs):
+        state = train.create_train_state(
+            entry.wavenet_model(RD_SEED + g).to(dev),
+            train.make_optimizer(np.float32(lr)))
+        step = train.make_train_step()
+        for b in batch_iterator({"x": x, "y": y}, RD_WAVENET_B, shuffle=True,
+                                seed=RD_SEED):
+            state, m = step(state, {k: torch.from_numpy(v).to(dev)
+                                    for k, v in b.items()})
+        got = next(r["loss"] for r in results
+                   if abs(r["lr"] - lr) <= 1e-6 * lr)
+        errs.append(abs(got - float(m["loss"])) / abs(float(m["loss"])))
+    # a vmapped step of the 3 candidates beside one candidate's step
+    model = entry.wavenet_model(RD_SEED).to(dev)
+    params, opt = train.init_candidates(model, len(lrs), RD_SEED)
+    vstep = train.make_grid_step(model, train.kldiv_with_logits, 0)
+    hp = torch.tensor([[lr] for lr in lrs], device=dev)
+    bx = torch.from_numpy(x[:RD_WAVENET_B]).to(dev)
+    by = torch.from_numpy(y[:RD_WAVENET_B]).to(dev)
+    box = [params, opt]
+
+    def vmapped():
+        box[0], box[1], _ = vstep(box[0], box[1], hp, bx, by)
+    v_ms = cuda_ms(vmapped, 3)
+    single = train.create_train_state(model, train.make_optimizer(1e-3))
+    one = train.make_train_step()
+    s_ms = cuda_ms(lambda: one(single, {"x": bx, "y": by}), 5)
+    # where a step's time goes: one candidate's step and the vmapped step
+    profs = {"single": profiling.profile_kernels(
+        lambda: one(single, {"x": bx, "y": by}), reps=2, warmup=0),
+        "vmapped": profiling.profile_kernels(vmapped, reps=1, warmup=0)}
+    for what, prof in profs.items():
+        ops = sorted(prof.kernel_ms.items(), key=lambda kv: -kv[1])[:5]
+        print(f"[realdata] (c) {what} WaveNet step, B={RD_WAVENET_B}, "
+              f"profiler: busy {prof.busy_ms:.3f} of {prof.wall_ms:.3f} ms "
+              f"wall, {prof.kernels:.0f} kernels; top: "
+              + "; ".join(f"{n[:90]} x{prof.kernel_calls[n]:.0f} "
+                          f"{v:.3f} ms" for n, v in ops))
+    out = {"results": results, "best": best, "candidate_rel": errs,
+           "vmapped_step_ms": v_ms, "single_step_ms": s_ms,
+           "steps": len(x) // RD_WAVENET_B, "wall_s": wall,
+           "launches": counts,
+           "profile": {what: {"busy_ms": p.busy_ms, "wall_ms": p.wall_ms,
+                              "kernels": p.kernels}
+                       for what, p in profs.items()}}
+    print(f"[realdata] (c) grid_search, {len(lrs)} candidates, 1 epoch at "
+          f"B={RD_WAVENET_B} ({out['steps']} vmapped steps, {wall:.2f} s): "
+          f"{results}; each candidate vs trained alone rel "
+          f"{[f'{e:.2e}' for e in errs]} (bound {RD_GRID_REL}); vmapped "
+          f"step {v_ms:.3f} ms vs {len(lrs)} x single {s_ms:.3f} ms = "
+          f"{len(lrs) * s_ms:.3f} ms; launches {counts} [{card}]")
+    require(max(errs) < RD_GRID_REL, f"(c) grid candidates differ: {errs}")
+    require(counts["iir_sosfilt"] == 1, f"(c) launches {counts}")
+    return out
+
+
+def phase_realdata(card: str, dev) -> dict:
+    """The real-data training paths at full width, from a synthetic HMS
+    tree in numpy form (``_write_numpy_tree``: RD_IDS eeg_ids × RD_ROWS
+    rows, no pandas):
+
+    (a) ``entry.train_multimodal(data_root=...)``, bf16 and float32
+        (``_rd_multimodal``);
+    (b) ``entry.train_wavenet``: fold 0 of 5, one epoch at B=16 of the full
+        ``DilatedInceptionWaveNet``; the magic-8 transform (#1) timed for
+        the RD_IDS windows;
+    (c) ``entry.grid_search`` (``_rd_grid``);
+    (d) ``entry.train_diffeeg(data_root=...)``: two steps at K=4 off the
+        host library's queue.
+
+    Then the host library's ``gather_multimodal`` and ``NativeBatchQueue``
+    bitwise against their numpy versions on the tree.  Each path's launch
+    counts are set to 0 just before it and read just after; #1 runs once a
+    256-window chunk in (b), (c) and (d), #2 once a preprocessed batch in
+    (a).  Prints the ``{"realdata": ...}`` line; returns the launches by
+    kernel name summed over the paths."""
+    import tempfile
+
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        config as C, data, entry, runtime)
+    reset, read = _counters()
+    t_phase = time.perf_counter()
+    rec = {"eeg_ids": RD_IDS, "rows": RD_IDS * RD_ROWS, "card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = f"{tmp}/hms"
+        t0 = time.perf_counter()
+        _write_numpy_tree(tree, RD_SEED)
+        rec["tree_s"] = time.perf_counter() - t0
+        print(f"[realdata] tree in numpy form: {RD_IDS} eeg_ids x {RD_ROWS} "
+              f"rows, {RD_EEG_LEN}-sample recordings cropped to 10000, "
+              f"(400, {RD_SPEC_T}) planes, written in {rec['tree_s']:.2f} s")
+        t_paths = time.perf_counter()
+
+        # (a) -----------------------------------------------------------------
+        rec["a"] = {prog: _rd_multimodal(card, dev, tree, f"{tmp}/a", dtype,
+                                         reset, read)
+                    for prog, dtype in (("bf16", torch.bfloat16),
+                                        ("float32", None))}
+
+        # (b) -----------------------------------------------------------------
+        reset()
+        t0 = time.perf_counter()
+        with _StepClock() as clock:
+            oof, scores = entry.train_wavenet(
+                tree, f"{tree}/cache", device=dev, epochs=1,
+                batch_size=RD_WAVENET_B, seed=RD_SEED, one_fold=True)
+        wall = time.perf_counter() - t0
+        counts = read()
+        steps = clock.ms()
+        raw = data.wavenet_arrays(C.PathsConfig.at(tree), f"{tree}/cache")
+        x_ms = cuda_ms(lambda: entry.transform_windows(
+            raw["x"], entry.WAVENET_TRANSFORM, dev), 3)
+        x = entry.transform_windows(raw["x"], entry.WAVENET_TRANSFORM, dev)
+        y = raw["y"]
+        rec["b"] = {"steps": len(steps), "step_ms": steps,
+                    "step_ms_after_first": float(np.mean(steps[1:])),
+                    "transform_ms": x_ms, "fold_score": scores[0],
+                    "wall_s": wall, "launches": counts}
+        print(f"[realdata] (b) train_wavenet, fold 0 of {C.N_FOLDS}, 1 epoch "
+              f"at B={RD_WAVENET_B}: {len(steps)} steps, "
+              f"{rec['b']['step_ms_after_first']:.3f} ms a step after the "
+              f"first ({steps[0]:.3f}); fold kldiv {scores[0]:.4f}; the "
+              f"magic-8 transform of {RD_IDS} windows {x_ms:.3f} ms; "
+              f"{wall:.2f} s in all; launches {counts} [{card}]")
+        require(np.isfinite(scores[0]) and np.isfinite(oof).all()
+                and x.shape == (RD_IDS, 2000, 8),
+                "(b) train_wavenet: not finite or wrong shape")
+        require(counts["iir_sosfilt"] == 1
+                and counts["iir_sosfilt_rolldec"] == 0,
+                f"(b) launches {counts}")
+
+        # (c) -----------------------------------------------------------------
+        rec["c"] = _rd_grid(card, dev, tree, x, y, reset, read)
+
+        # (d) -----------------------------------------------------------------
+        cfg = dataclasses.replace(C.DiffEEGConfig(),
+                                  gradient_accumulate_every=4)
+        reset()
+        t0 = time.perf_counter()
+        tr, hist = entry.train_diffeeg(f"{tree}/cache", device=dev, cfg=cfg,
+                                       steps=2, seed=RD_SEED, data_root=tree)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read()
+        rec["d"] = {"losses": hist["loss"], "wall_s": wall,
+                    "launches": counts}
+        print(f"[realdata] (d) train_diffeeg, K=4, B={cfg.batch_size}, 2 "
+              f"steps: losses {hist['loss']}, {wall:.2f} s with the "
+              f"transform; launches {counts} [{card}]")
+        require(len(hist["loss"]) == 2 and all(np.isfinite(hist["loss"]))
+                and tr.state.step == 2, "(d) train_diffeeg")
+        require(counts["iir_sosfilt"] == 1, f"(d) launches {counts}")
+        del tr
+
+        # the host library against numpy on the tree ------------------------
+        src, tr_idx, _ = entry.multimodal_fold0(tree, f"{tree}/cache",
+                                                RD_SEED,
+                                                npy_dir=f"{tree}/npy")
+        rows = tr_idx[:C.TrainerConfig().batch_size]
+        lib = src.gather(rows)
+        plain = src.gather(rows, gather=runtime.gather_multimodal_numpy)
+        same_g = all(np.array_equal(lib[k], plain[k])
+                     for k in ("eeg", "spec", "y"))
+        store = src._eeg_stack.copy()
+        store[3, 2, 100:400] = np.nan
+        store[9, 0, :] = np.nan
+        q = [{k: v.copy() for k, v in b.items()} for b in
+             runtime.NativeBatchQueue(store, src.y[:len(store)], 64,
+                                      seed=RD_SEED, pop_ring=12)]
+        ref = list(runtime.batch_queue_numpy(store, src.y[:len(store)], 64,
+                                             seed=RD_SEED))
+        same_q = len(q) == len(ref) and all(
+            np.array_equal(a[k], b[k]) for a, b in zip(q, ref)
+            for k in ("x", "y"))
+        print(f"[realdata] host library vs numpy on the tree: "
+              f"gather_multimodal of {len(rows)} rows bitwise {same_g}; "
+              f"NativeBatchQueue ({len(q)} batches of 64 over {len(store)} "
+              f"windows with NaN runs) bitwise {same_q}")
+        require(same_g and same_q, "host library differs from numpy")
+        rec["paths_s"] = time.perf_counter() - t_paths
+    rec["phase_s"] = time.perf_counter() - t_phase
+    launches = {
+        "iir_sosfilt": sum(rec[p]["launches"]["iir_sosfilt"]
+                           for p in ("b", "c", "d")),
+        "iir_sosfilt_rolldec": sum(rec["a"][p]["launches"]
+                                   ["iir_sosfilt_rolldec"]
+                                   for p in ("bf16", "float32"))}
+    rec["launches"] = launches
+    print(f"[realdata] phase {rec['phase_s']:.1f} s: tree {rec['tree_s']:.1f}"
+          f" s, paths and holds {rec['paths_s']:.1f} s")
+    print(json.dumps({"realdata": rec}, default=float))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2144,6 +2613,8 @@ def main() -> int:
     done("convprobe")
     diffusion_launches = phase_diffusion(card, dev)
     done("diffusion")
+    realdata_launches = phase_realdata(card, dev)
+    done("realdata")
 
     xai_tpu = "multimodal_brain_pattern_identification_xai_tpu"
     src = {"iir_sosfilt": (f"{PKG}/csrc/iir.cu",
@@ -2200,6 +2671,8 @@ def main() -> int:
             k["train_launches"] = train_launches[k["name"]]
         if k["name"] in diffusion_launches:
             k["diffusion_launches"] = diffusion_launches[k["name"]]
+        if k["name"] in realdata_launches:
+            k["realdata_launches"] = realdata_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,14 @@ input-gradient XAI on the served model (``xai``, ``entry.
 explain_entry``), the multimodal training path (``train``, ``data``,
 ``entry.train_entry`` and ``entry.train_multimodal``) and the DiffEEG
 diffusion path (``diffusion``, ``entry.train_diffeeg`` and
-``entry.generate``) run on an NVIDIA
+``entry.generate``) and the real-data paths (``data.hms``, the C++ host
+loader in ``runtime``, ``models.DilatedInceptionWaveNet``,
+``entry.train_wavenet`` and ``entry.grid_search``) run on an NVIDIA
 Hopper card through hand-written CUDA kernels (``csrc/``); every kernel has
 a plain PyTorch version beside it that CPU tensors take.
-Imports ``torch``, numpy and scipy only (pandas in ``data.dummy_metadata``).
+Imports ``torch``, numpy and scipy only; pandas only in the parquet
+readers and the fixtures that write parquet or frames (``data.loader``,
+``data.dummy``), when they are called.
 """
 
 from __future__ import annotations

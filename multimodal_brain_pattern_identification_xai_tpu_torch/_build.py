@@ -1,11 +1,13 @@
-"""Build and load the package's CUDA kernels.
+"""Build and load the package's CUDA kernels and its C++ host library.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), loaded
 with ``ctypes``.  Builds happen at first use, into ``_build/`` beside this
 file (listed in ``.gitignore``); the library's file name carries a hash of
 its source and of the headers in ``csrc/``, so an edited source or
-header is rebuilt.  Nothing here runs at import.
+header is rebuilt.  The host library (``runtime/hostloader.cpp``, no
+CUDA) builds the same way with ``g++`` (:func:`load_host`).  Nothing here
+runs at import.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
+              "-pthread")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -94,6 +98,38 @@ def load(name: str) -> ctypes.CDLL:
             if lib is None:
                 lib = ctypes.CDLL(str(_target(name)))
                 _libs[name] = lib
+    return lib
+
+
+def load_host(src: Path) -> ctypes.CDLL:
+    """The loaded library of the C++ host source ``src``, built with
+    ``g++ HOST_FLAGS`` into ``_build/`` at first use; the file name carries
+    a hash of the source and the flags, so an edited source is rebuilt.
+    Raises with the compiler's message when it cannot be built."""
+    key = str(src)
+    with _lock:
+        lib = _libs.get(key)
+        if lib is not None:
+            return lib
+        h = hashlib.sha256(src.read_bytes())
+        h.update(" ".join(HOST_FLAGS).encode())
+        out = BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
+        if not out.exists():
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError(f"g++ not found: {src.name} cannot be "
+                                   f"built")
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.run([gxx, *HOST_FLAGS, str(src), "-o", tmp],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(f"g++ failed on {src.name}:\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)
+        lib = _libs[key] = ctypes.CDLL(str(out))
     return lib
 
 

@@ -185,6 +185,28 @@ class DiffEEGConfig:
     amp: bool = False
 
 
+#: Cross-validation folds of the real-data training commands.
+N_FOLDS: int = 5
+
+
+@dataclass(frozen=True)
+class PathsConfig:
+    """The HMS dataset's locations: ``train.csv``, the EEG parquet
+    directory and the spectrogram parquet directory (the JAX package's
+    ``PathsConfig`` with ``${data_root}`` resolved)."""
+    data_root: str
+    train_csv: str
+    train_eegs: str
+    train_spectr: str
+
+    @classmethod
+    def at(cls, data_root: str) -> "PathsConfig":
+        """The dataset's standard layout under ``data_root``."""
+        return cls(data_root, f"{data_root}/train.csv",
+                   f"{data_root}/train_eegs/",
+                   f"{data_root}/train_spectrograms/")
+
+
 def feature_to_index(columns: Sequence[str] = EEG_COLUMNS) -> Dict[str, int]:
     """Channel-name → row-index map."""
     return {name: i for i, name in enumerate(columns)}

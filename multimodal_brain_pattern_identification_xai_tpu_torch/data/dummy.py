@@ -1,6 +1,7 @@
 """Synthetic fixtures (counterpart of the JAX package's ``data/dummy.py``,
-numpy): raw-signal generators for tests and the training entry, and a
-``train.csv``-shaped frame."""
+numpy): raw-signal generators for tests and the training entry, a
+``train.csv``-shaped frame and a miniature HMS tree on disk (both need
+pandas, imported in them only)."""
 
 from __future__ import annotations
 
@@ -54,3 +55,50 @@ def dummy_metadata(rng: np.random.Generator, n: int = 60):
         "expert_consensus": [classes[i % 6] for i in range(n)],
         **{col: rng.integers(0, 10, n) for col in C.TGT_VOTE_COLS},
     })
+
+
+def write_synthetic_hms_tree(root: str, rng: np.random.Generator,
+                             n_eeg_ids: int = 6, rows_per_eeg: int = 2,
+                             eeg_len: int = 12_000,
+                             spec_len: int = 320) -> str:
+    """Write a miniature HMS dataset in the Kaggle on-disk schema under
+    ``root``: ``train.csv`` + ``train_eegs/{eeg_id}.parquet`` (the
+    ``EEG_COLUMNS``) + ``train_spectrograms/{spectrogram_id}.parquet``
+    (time + 400 columns), ``rows_per_eeg`` rows an ``eeg_id``, each id's
+    votes leaning to its consensus class.  The same files, drawn in the
+    same order, as the JAX package's fixture.  Needs pandas (imported here
+    only).  Returns ``root``."""
+    import os
+
+    import pandas as pd
+
+    eeg_dir = os.path.join(root, "train_eegs")
+    spec_dir = os.path.join(root, "train_spectrograms")
+    os.makedirs(eeg_dir, exist_ok=True)
+    os.makedirs(spec_dir, exist_ok=True)
+
+    rows = []
+    classes = list(C.CLASSES)
+    for i in range(n_eeg_ids):
+        eeg_id, spec_id, patient = 1000 + i, 2000 + i, 100 + i // 2
+        eeg = synthetic_raw_eeg(1, rng, n_points=eeg_len)[0].T  # (T, 20)
+        pd.DataFrame(eeg, columns=list(C.EEG_COLUMNS)).to_parquet(
+            os.path.join(eeg_dir, f"{eeg_id}.parquet"))
+        spec = rng.random((spec_len, 400)).astype(np.float32) * 10
+        sdf = pd.DataFrame(spec, columns=[f"LL_{k}" for k in range(400)])
+        sdf.insert(0, "time", np.arange(spec_len, dtype=np.float32) * 2)
+        sdf.to_parquet(os.path.join(spec_dir, f"{spec_id}.parquet"))
+        for r in range(rows_per_eeg):
+            votes = rng.integers(0, 8, 6)
+            votes[i % 6] += 8            # consensus and votes agree
+            rows.append({
+                "eeg_id": eeg_id, "eeg_sub_id": r,
+                "eeg_label_offset_seconds": float(r * 2),
+                "spectrogram_id": spec_id, "spectrogram_sub_id": r,
+                "spectrogram_label_offset_seconds": float(r * 4),
+                "label_id": i * 10 + r, "patient_id": patient,
+                "expert_consensus": classes[i % 6],
+                **{col: int(v) for col, v in zip(C.TGT_VOTE_COLS, votes)},
+            })
+    pd.DataFrame(rows).to_csv(os.path.join(root, "train.csv"), index=False)
+    return root

@@ -13,9 +13,13 @@ into one captured CUDA graph (the counterpart of ``jax.jit``).
 for attribution (``xai``), float32 and eager.  :func:`train_entry` is the
 JAX bench's training program (one step: preprocess, forward, loss,
 backward, Adam) and :func:`train_multimodal` the JAX CLI's
-``train-multimodal --demo`` loop.  :func:`train_diffeeg` and
-:func:`generate` are the JAX CLI's ``train-diffeeg`` and ``generate``.
-Runs on CUDA unless the caller passes ``device="cpu"``.
+``train-multimodal`` loop, on its ``--demo`` arrays or, with
+``data_root``, on an HMS dataset tree.  :func:`train_wavenet` and
+:func:`grid_search` are the JAX CLI's ``train-wavenet`` (cross-validated
+``DilatedInceptionWaveNet``) and ``grid-search`` on such a tree.
+:func:`train_diffeeg` and :func:`generate` are the JAX CLI's
+``train-diffeeg`` and ``generate``.  Runs on CUDA unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -252,24 +256,58 @@ DEMO_ROWS, DEMO_POINTS, DEMO_PLANE = 24, 2000, (80, 60)
 DEMO_SIGNAL = C.SignalConfig(fixed_length=600, image_size=DEMO_PLANE)
 
 
+def multimodal_fold0(data_root: str, ckpt_dir: str, seed: int = 0,
+                     n_folds: int = C.N_FOLDS, limit: Optional[int] = None,
+                     workers: int = 8, npy_dir: Optional[str] = None):
+    """``train-multimodal``'s real data: ``data.multimodal_source`` over
+    the tree under ``data_root`` (window cache in ``ckpt_dir``,
+    spectrograms from ``npy_dir`` where given) and fold 0 of the
+    stratified ``n_folds`` split on the expert consensus.  Returns
+    ``(source, train rows, validation rows)``."""
+    from .data import multimodal_source
+    from .train import stratified_kfold
+    src = multimodal_source(C.PathsConfig.at(data_root), cache_dir=ckpt_dir,
+                            n_workers=workers, npy_dir=npy_dir, limit=limit)
+    labels = np.asarray([C.NAME2LABEL[c]
+                         for c in src.meta["expert_consensus"]])
+    tr_idx, va_idx = stratified_kfold(labels, n_splits=n_folds, seed=seed)[0]
+    return src, tr_idx, va_idx
+
+
 def train_multimodal(ckpt_dir: str,
                      device: Optional[Union[str, torch.device]] = None,
-                     epochs: int = 3, batch_size: int = 8, seed: int = 0,
-                     augment: bool = False, resume: bool = False,
+                     epochs: int = 3, batch_size: Optional[int] = None,
+                     seed: int = 0, augment: bool = False,
+                     resume: bool = False,
                      dtype: Optional[torch.dtype] = None,
-                     epoch_callbacks: Optional[list] = None):
-    """The JAX CLI's ``train-multimodal --demo`` loop over synthetic
-    arrays (``data.dummy``): 24 rows of raw EEG (20, 2000) with NaNs and
-    80×60 spectrogram planes, one-hot targets, the model on 600-sample
-    windows, every row in both splits.  Each train batch (shuffled with
-    ``seed + epoch``, prefetched to the device) is mirrored when
-    ``augment``, preprocessed on the device (NaN route), and augmented by
-    ``spectrogram_augment`` against the in-batch pool with draws keyed on
-    (``seed + 1``, epoch, batch); then ``Trainer.train_eval`` with Adam at
-    the configured learning rate, checkpoints under
-    ``<ckpt_dir>/multimodal`` and ``resume``.  Returns ``(trainer,
-    best_kldiv)``.  The per-epoch LIME snapshots of the JAX command wait
-    for the LIME port (pass ``epoch_callbacks`` instead)."""
+                     epoch_callbacks: Optional[list] = None,
+                     data_root: Optional[str] = None,
+                     n_folds: int = C.N_FOLDS, limit: Optional[int] = None,
+                     workers: int = 8, npy_dir: Optional[str] = None,
+                     loggers: Optional[list] = None):
+    """The JAX CLI's ``train-multimodal`` loop.
+
+    Without ``data_root`` (``--demo``): 24 rows of synthetic raw EEG (20,
+    2000) with NaNs and 80×60 spectrogram planes (``data.dummy``), one-hot
+    targets, the model on 600-sample windows, every row in both splits,
+    batches of 8 (or ``batch_size``), preprocessed on the NaN route.
+
+    With ``data_root``, an HMS dataset tree: fold 0 of
+    :func:`multimodal_fold0`, batches of ``TrainerConfig().batch_size``
+    (256, or ``batch_size``) gathered by the host library
+    (``MultimodalSource.batches``; on the card into two reused buffers,
+    with synced transfers), the full-width model, the finite route
+    (the cache's windows are NaN-repaired).
+
+    Each train batch (shuffled with ``seed + epoch``, prefetched to the
+    device) is mirrored when ``augment``, preprocessed on the device, and
+    augmented by ``spectrogram_augment`` against the in-batch pool with
+    draws keyed on (``seed + 1``, epoch, batch); then
+    ``Trainer.train_eval`` with Adam at the configured learning rate,
+    checkpoints under ``<ckpt_dir>/multimodal``, ``resume``, ``loggers``
+    (``log_loss(loss, step)`` on the first batch of every 50).  Returns
+    ``(trainer, best_kldiv)``.  The per-epoch LIME snapshots of the JAX
+    command wait for the LIME port (pass ``epoch_callbacks`` instead)."""
     from .data import (batch_iterator, prefetch_to_device, synthetic_raw_eeg,
                        synthetic_raw_spectrogram)
     from .ops import mirror_eeg, spectrogram_augment
@@ -278,17 +316,37 @@ def train_multimodal(ckpt_dir: str,
     from .train.steps import fold_in
 
     dev = resolve_device(device)
-    rng = np.random.default_rng(seed)
-    raw_eeg = synthetic_raw_eeg(DEMO_ROWS, rng, n_points=DEMO_POINTS)
-    raw_spec = synthetic_raw_spectrogram(DEMO_ROWS, rng, shape=DEMO_PLANE)
-    y = np.eye(6, dtype=np.float32)[np.arange(DEMO_ROWS) % 6]
-    arrays = {"eeg": raw_eeg, "spec": raw_spec, "y": y}
+    if data_root is None:
+        rng = np.random.default_rng(seed)
+        raw_eeg = synthetic_raw_eeg(DEMO_ROWS, rng, n_points=DEMO_POINTS)
+        raw_spec = synthetic_raw_spectrogram(DEMO_ROWS, rng, shape=DEMO_PLANE)
+        y = np.eye(6, dtype=np.float32)[np.arange(DEMO_ROWS) % 6]
+        arrays = {"eeg": raw_eeg, "spec": raw_spec, "y": y}
+        bs = batch_size or 8
+        signal, finite, kern_length = DEMO_SIGNAL, False, 16
 
-    def raw_batches(shuffle: bool, epoch: int = 0):
-        return prefetch_to_device(
-            batch_iterator(arrays, batch_size, shuffle=shuffle,
-                           seed=seed + (epoch if shuffle else 0)),
-            device=dev)
+        def raw_batches(shuffle: bool, epoch: int = 0):
+            return prefetch_to_device(
+                batch_iterator(arrays, bs, shuffle=shuffle,
+                               seed=seed + (epoch if shuffle else 0)),
+                device=dev)
+    else:
+        src, tr_idx, va_idx = multimodal_fold0(data_root, ckpt_dir, seed,
+                                               n_folds, limit, workers,
+                                               npy_dir)
+        bs = batch_size or C.TrainerConfig().batch_size
+        signal, finite, kern_length = C.SignalConfig(), True, 64
+        # on the card the host gathers into two reused buffers, which the
+        # synced transfers make safe; on the CPU a tensor shares its array
+        reuse = dev.type == "cuda"
+
+        def raw_batches(shuffle: bool, epoch: int = 0):
+            return prefetch_to_device(
+                src.batches(tr_idx if shuffle else va_idx, bs,
+                            shuffle=shuffle,
+                            seed=seed + (epoch if shuffle else 0),
+                            drop_last=shuffle, reuse_buffers=reuse),
+                device=dev, sync_transfers=reuse)
 
     aug_key = torch.Generator().manual_seed(seed + 1)
 
@@ -296,28 +354,159 @@ def train_multimodal(ckpt_dir: str,
         ep_key = fold_in(aug_key, epoch, torch.device("cpu"))
         for i, b in enumerate(raw_batches(True, epoch)):
             eeg = mirror_eeg(b["eeg"]) if augment else b["eeg"]
-            pb = preprocess_batch(eeg, b["spec"], b["y"], DEMO_SIGNAL,
-                                  assume_finite=False)
+            pb = preprocess_batch(eeg, b["spec"], b["y"], signal,
+                                  assume_finite=finite)
             s, yb = spectrogram_augment(fold_in(ep_key, i, dev), pb["spec"],
                                         pb["y"], pb["spec"], pb["y"])
             yield {"eeg": pb["eeg"], "spec": s, "y": yb}
 
     def val_iter():
         for b in raw_batches(False):
-            yield preprocess_batch(b["eeg"], b["spec"], b["y"], DEMO_SIGNAL,
-                                   assume_finite=False)
+            yield preprocess_batch(b["eeg"], b["spec"], b["y"], signal,
+                                   assume_finite=finite)
 
-    model = build_train_model(samples=DEMO_SIGNAL.fixed_length,
-                              kern_length=16, dtype=dtype)
+    model = build_train_model(samples=signal.fixed_length,
+                              kern_length=kern_length, dtype=dtype)
     initialize_kaiming_weights(model, torch.Generator().manual_seed(seed))
     state = create_train_state(model.to(dev),
                                make_optimizer(C.TrainerConfig().lr))
     cfg = TrainerConfig(epochs=epochs, seed=seed, resume=resume,
                         hyperparams={"optimizer": "adam"})
     trainer = Trainer(state, cfg, ckpt_dir=f"{ckpt_dir}/multimodal",
-                      epoch_callbacks=epoch_callbacks)
+                      epoch_callbacks=epoch_callbacks, loggers=loggers)
     _, best, _ = trainer.train_eval(train_iter, val_iter)
     return trainer, best
+
+
+# ---------------------------------------------------------------------------
+# the WaveNet: cross-validated training and the grid search
+
+#: ``train-wavenet``'s and ``grid-search``'s transform: the Chris-magic-8
+#: bipolar channels, lowpass (the IIR kernel on the card), ÷5, clip, scale
+WAVENET_TRANSFORM = C.EEGTransformConfig(apply_chris_magic_ch8=True,
+                                         n_feats=8)
+#: ``grid-search``'s default grid
+DEFAULT_GRID = {"lr": [1e-3, 3e-3, 1e-2]}
+
+
+def transform_windows(raw: np.ndarray, tcfg: C.EEGTransformConfig,
+                      device: Union[str, torch.device],
+                      chunk: int = 256) -> np.ndarray:
+    """``eeg_transform`` with ``tcfg`` over raw (N, L, C) µV windows,
+    ``chunk`` windows a call on ``device`` → (N, L', C') float32 on the
+    host."""
+    from .ops import eeg_transform
+    outs = []
+    with torch.no_grad():
+        for s in range(0, len(raw), chunk):
+            a = torch.as_tensor(raw[s:s + chunk], dtype=torch.float32)
+            outs.append(eeg_transform(a.to(device), tcfg).cpu().numpy())
+    return np.concatenate(outs)
+
+
+def wavenet_training_set(data_root: str, ckpt_dir: str,
+                         device: Union[str, torch.device],
+                         limit: Optional[int] = None, workers: int = 8
+                         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``train-wavenet``'s and ``grid-search``'s data from the tree under
+    ``data_root``: ``data.wavenet_arrays`` (window cache in ``ckpt_dir``),
+    then :data:`WAVENET_TRANSFORM` on ``device``.  Returns ``(x (N, 2000,
+    8), y (N, 6) soft targets, groups (N,) patient ids)``."""
+    from .data import wavenet_arrays
+    src = wavenet_arrays(C.PathsConfig.at(data_root), cache_dir=ckpt_dir,
+                         n_workers=workers, limit=limit)
+    x = transform_windows(src["x"], WAVENET_TRANSFORM, device)
+    return x, src["y"].astype(np.float32), src["groups"]
+
+
+def wavenet_model(seed: int = 42) -> torch.nn.Module:
+    """The full ``DilatedInceptionWaveNet()`` (blocks of 12/8/4/1 layers,
+    widths 16/32/64/64) on the CPU with weights drawn from ``seed``
+    (:func:`..models.seeded_state_dict`)."""
+    from .models import DilatedInceptionWaveNet
+    model = DilatedInceptionWaveNet()
+    model.load_state_dict(seeded_state_dict(model, seed))
+    return model
+
+
+def train_wavenet(data_root: str, ckpt_dir: str,
+                  device: Optional[Union[str, torch.device]] = None,
+                  epochs: int = 3, batch_size: int = 16, seed: int = 42,
+                  n_folds: int = C.N_FOLDS, one_fold: bool = False,
+                  resume: bool = False, limit: Optional[int] = None,
+                  workers: int = 8, loggers: Optional[list] = None):
+    """The JAX CLI's ``train-wavenet``: :func:`wavenet_training_set`, then
+    the patient-grouped ``n_folds`` split and ``train.run_cv`` (fold 0
+    only with ``one_fold``): each fold trains :func:`wavenet_model` with
+    Adam under a cosine schedule with 10 warm-up steps to
+    ``TrainerConfig().lr``, batches of ``batch_size`` shuffled with
+    ``seed + epoch``, checkpoints under ``<ckpt_dir>/wavenet_fold{k}``.
+    The out-of-fold predictions go to ``<ckpt_dir>/oof.npy``.  Returns
+    ``(oof, fold scores)``.  The JAX command's ``--augment-dir`` (generated
+    windows merged into the set) is not ported."""
+    from .data import batch_iterator
+    from .train import (Trainer, TrainerConfig, cosine_schedule_with_warmup,
+                        create_train_state, group_kfold, make_optimizer,
+                        run_cv)
+
+    dev = resolve_device(device)
+    x, y, groups = wavenet_training_set(data_root, ckpt_dir, dev, limit,
+                                        workers)
+    splits = group_kfold(groups, n_splits=n_folds)
+    lr = C.TrainerConfig().lr
+
+    def make_loaders(tr, va):
+        def train_loader(epoch: int = 0):
+            return batch_iterator({"x": x[tr], "y": y[tr]}, batch_size,
+                                  shuffle=True, seed=seed + epoch)
+
+        def val_loader():
+            return batch_iterator({"x": x[va], "y": y[va]}, batch_size,
+                                  drop_last=False)
+        return train_loader, val_loader
+
+    def make_trainer(fold: int):
+        state = create_train_state(wavenet_model(seed).to(dev),
+                                   make_optimizer(lr), seed=seed)
+        cfg = TrainerConfig(
+            epochs=epochs, seed=seed, resume=resume,
+            hyperparams={"optimizer": "adam"},
+            lr_schedule=cosine_schedule_with_warmup(
+                10, epochs * max(1, len(x) // batch_size), lr))
+        return Trainer(state, cfg, ckpt_dir=f"{ckpt_dir}/wavenet_fold{fold}",
+                       loggers=loggers)
+
+    oof, scores = run_cv(make_trainer, make_loaders, splits, len(x),
+                         one_fold_only=one_fold)
+    np.save(f"{ckpt_dir}/oof.npy", oof)
+    return oof, scores
+
+
+def grid_search(data_root: str, ckpt_dir: str,
+                device: Optional[Union[str, torch.device]] = None,
+                grid: Optional[Dict[str, Sequence[float]]] = None,
+                epochs: int = 2, batch_size: int = 16, seed: int = 42,
+                limit: Optional[int] = None, workers: int = 8):
+    """The JAX CLI's ``grid-search``: :func:`wavenet_training_set` (window
+    cache in ``ckpt_dir``), then ``train.parallel_grid_search`` of the full
+    ``DilatedInceptionWaveNet()`` over ``grid`` (default
+    :data:`DEFAULT_GRID`) with the KLDiv loss, every candidate in one
+    vmapped step (candidate g's weights drawn from ``seed + g``),
+    ``epochs`` passes over batches of ``batch_size`` shuffled with
+    ``seed``.  Returns ``(best, ranked results)``."""
+    from .data import batch_iterator
+    from .train import kldiv_with_logits, parallel_grid_search
+
+    dev = resolve_device(device)
+    x, y, _ = wavenet_training_set(data_root, ckpt_dir, dev, limit, workers)
+
+    def batches():
+        return batch_iterator({"x": x, "y": y}, batch_size, shuffle=True,
+                              seed=seed)
+
+    return parallel_grid_search(
+        wavenet_model(seed), (torch.as_tensor(x[:2]).to(dev),), batches,
+        grid or DEFAULT_GRID, kldiv_with_logits, epochs=epochs, seed=seed)
 
 
 # ---------------------------------------------------------------------------
@@ -356,16 +545,10 @@ def diffeeg_training_windows(raw: np.ndarray,
     channels and no magic-8 montage (the order-4 lowpass is the IIR kernel
     on the card), ``chunk`` windows a call on ``device`` → (N, C', L/5)
     float32 on the host."""
-    from .ops import eeg_transform
     tcfg = C.EEGTransformConfig(apply_chris_magic_ch8=False,
                                 n_feats=len(C.EEG_FEATURES))
-    outs = []
-    with torch.no_grad():
-        for s in range(0, len(raw), chunk):
-            a = torch.as_tensor(raw[s:s + chunk, :, :len(C.EEG_FEATURES)],
-                                dtype=torch.float32).to(device)
-            outs.append(eeg_transform(a, tcfg).cpu().numpy())
-    return np.ascontiguousarray(np.concatenate(outs).transpose(0, 2, 1))
+    x = transform_windows(raw[..., :len(C.EEG_FEATURES)], tcfg, device, chunk)
+    return np.ascontiguousarray(x.transpose(0, 2, 1))
 
 
 def train_diffeeg(ckpt_dir: str,
@@ -375,7 +558,8 @@ def train_diffeeg(ckpt_dir: str,
                   cfg: Optional[C.DiffEEGConfig] = None,
                   steps: Optional[int] = None,
                   batch_size: Optional[int] = None, seed: int = 42,
-                  resume: bool = False):
+                  resume: bool = False, data_root: Optional[str] = None,
+                  limit: Optional[int] = None, workers: int = 8):
     """The JAX CLI's ``train-diffeeg``: a :class:`..train.DiffEEGTrainer`
     with step checkpoints under ``<ckpt_dir>/diffeeg``, resumed from the
     latest when ``resume``, run to ``steps`` (default ``cfg.min_steps``).
@@ -394,11 +578,21 @@ def train_diffeeg(ckpt_dir: str,
     (``runtime.NativeBatchQueue`` with ``seed + epoch``, a resumed run
     skipping the micro-batches already consumed), or, with fewer windows
     than a batch, micro-batch i drawn with replacement by
-    ``default_rng((seed, i))``; the first four validation batches."""
+    ``default_rng((seed, i))``; the first four validation batches.
+    ``data_root`` (an HMS dataset tree, in place of ``raw`` and ``y``)
+    reads them with ``data.wavenet_arrays`` (window cache in ``ckpt_dir``,
+    the first ``limit`` ids when given)."""
     from .runtime import NativeBatchQueue
     from .train import DiffEEGTrainer
 
     dev = resolve_device(device)
+    if data_root is not None:
+        if raw is not None:
+            raise ValueError("pass raw windows or a data_root, not both")
+        from .data import wavenet_arrays
+        src = wavenet_arrays(C.PathsConfig.at(data_root), cache_dir=ckpt_dir,
+                             n_workers=workers, limit=limit)
+        raw, y = src["x"], src["y"]
     rng = np.random.default_rng(seed)
     if raw is None:
         if cfg is not None:

@@ -9,7 +9,10 @@ models' (``conv1.weight``, ``batchnorm1.*``, ``depthwiseConv.weight``,
 ``blockN.convM.*``, ``blockN.bn.*``, ``fc1.*``, …); for ``DiffEEG`` and
 ``DiffEEGLegacy`` (``{"params"}`` only) ``step_embedding_mlp.{0,2,4}``,
 ``spectrogram_upsample1`` / ``spectrogram_upconv{1,2}``,
-``res_block{i}.*``, ….
+``res_block{i}.*``, …; for ``DilatedInceptionWaveNet`` (``{"params"}``)
+``wave_module.{i}.in_conv``, ``wave_module.{i}.gated_tcns.{l}.{filt,
+gate}.filters.{j}``, ``wave_module.{i}.skip_convs.{l}`` and
+``output.{0,2}``.
 """
 
 from __future__ import annotations
@@ -139,19 +142,50 @@ def _diffeeg_legacy(p: Mapping) -> Dict[str, np.ndarray]:
     return sd
 
 
+def _conv_w(sd: Dict[str, np.ndarray], dst: str, p: Mapping) -> None:
+    """flax Conv kernel (1, k, I, O) over the width → torch Conv1d weight
+    (O, I, k)."""
+    sd[f"{dst}.weight"] = _np(p["kernel"])[0].transpose(2, 1, 0)
+    sd[f"{dst}.bias"] = _np(p["bias"])
+
+
+def _numbered(p: Mapping, prefix: str) -> int:
+    return sum(1 for k in p if k.startswith(prefix))
+
+
+def _wavenet(p: Mapping) -> Dict[str, np.ndarray]:
+    sd: Dict[str, np.ndarray] = {}
+    for i in range(_numbered(p, "wave_block_")):
+        blk, dst = p[f"wave_block_{i}"], f"wave_module.{i}"
+        _conv_w(sd, f"{dst}.in_conv", blk["in_conv"])
+        for layer in range(_numbered(blk, "gated_tcn_")):
+            tcn = blk[f"gated_tcn_{layer}"]
+            for part in ("filt", "gate"):
+                convs = sorted(tcn[part], key=lambda k: int(k[len("conv_k"):]))
+                for j, name in enumerate(convs):
+                    _conv_w(sd, f"{dst}.gated_tcns.{layer}.{part}.filters.{j}",
+                            tcn[part][name])
+            _conv_w(sd, f"{dst}.skip_convs.{layer}", blk[f"skip_conv_{layer}"])
+    _dense(sd, "output.0", p["output_0"])
+    _dense(sd, "output.2", p["output_2"])
+    return sd
+
+
 def jax_variables_to_state_dict(variables: Mapping[str, Any]
                                 ) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` for a flax variable tree of
     ``EEGNetAttentionRegularized``, ``SpectrogramCNN`` or
-    ``MultimodalModel`` (``{"params", "batch_stats"}``), or of ``DiffEEG``
-    or ``DiffEEGLegacy`` (``{"params"}``), detected from the tree's
-    top-level names."""
+    ``MultimodalModel`` (``{"params", "batch_stats"}``), or of ``DiffEEG``,
+    ``DiffEEGLegacy`` or ``DilatedInceptionWaveNet`` (``{"params"}``),
+    detected from the tree's top-level names."""
     p = variables["params"]
     s = variables.get("batch_stats", {})
     if "spectrogram_upsample1" in p:
         sd = _diffeeg(p)
     elif "spectrogram_upconv1" in p:
         sd = _diffeeg_legacy(p)
+    elif "wave_block_0" in p:
+        sd = _wavenet(p)
     elif "eeg_model" in p:
         sd = {f"eeg_model.{k}": v for k, v in
               _eegnet_attention(p["eeg_model"], s["eeg_model"]).items()}

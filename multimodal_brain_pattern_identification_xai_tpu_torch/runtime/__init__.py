@@ -1,5 +1,8 @@
 """Host-side batch assembly (counterpart of the JAX package's
-``runtime/``): the numpy window gather and epoch batch queue."""
+``runtime/``): the C++ host library's window and multimodal gathers and
+its epoch batch queue, with plain numpy versions beside them."""
 
-from .loader import (NativeBatchQueue, gather_windows,  # noqa: F401
-                     gather_windows_into)
+from .loader import (NativeBatchQueue, batch_queue_numpy,  # noqa: F401
+                     epoch_order, gather_multimodal, gather_multimodal_numpy,
+                     gather_windows, gather_windows_into,
+                     gather_windows_numpy)

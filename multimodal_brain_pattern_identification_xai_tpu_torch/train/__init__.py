@@ -1,8 +1,8 @@
 """Training layer (counterpart of the JAX package's ``train/``): losses,
 metrics, learning-rate schedules, the optimizer and train state, train and
 eval steps with the NaN sentinel, the epoch-loop trainer, checkpoints,
-cross-validation, checkpoint analysis and the DiffEEG diffusion
-trainer."""
+cross-validation, checkpoint analysis, the DiffEEG diffusion trainer and
+the vmapped grid search."""
 
 from .losses import (kldiv_with_logits, kldiv_with_log_probs,  # noqa: F401
                      cross_entropy_with_logits, l2_regularization)
@@ -23,3 +23,5 @@ from .cv import (group_kfold, stratified_kfold, run_cv,  # noqa: F401
 from .init import initialize_kaiming_weights  # noqa: F401
 from .analyze import analyze_checkpoints  # noqa: F401
 from .diffeeg_trainer import DiffEEGTrainer  # noqa: F401
+from .grid_search import (init_candidates, make_grid_step,  # noqa: F401
+                          parallel_grid_search)

@@ -118,7 +118,7 @@ class Optimizer:
         if self.name == "sgd":
             u = g
         else:
-            t = out["count"].float()
+            t = out["count"].to(g.dtype)     # float64 moments: exact
             mu = (1 - B1) * g + B1 * state["mu"]
             nu = (1 - B2) * g ** 2 + B2 * state["nu"]
             mu_hat = mu / (1 - torch.pow(B1, t))

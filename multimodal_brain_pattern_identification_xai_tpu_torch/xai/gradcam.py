@@ -28,9 +28,10 @@ def grad_cam(model: nn.Module, x: torch.Tensor,
     max-normalised per sample.
 
     Args:
-        model: a module with ``features(x)`` → (B, C, H', W') and
+        model: a module with ``features(x)`` → (B', C, H', W') and
             ``head(A)`` → log-probs (``EEGNetAttentionRegularized``,
-            ``SpectrogramCNN``).
+            ``SpectrogramCNN``) or logits (``DilatedInceptionWaveNet``,
+            whose map has B' = 8·B rows, one a montage channel).
         x: (B, ...) model input (NCHW).
         target: (B,) class indices; default the argmax.
         upsample_to: optional (H, W) bilinear resize of the cam.

@@ -685,3 +685,83 @@ def test_prefetch_to_device_pinned(dev, sync):
         seen.append((b["i"], float(b["x"].float().mean())))
         torch.cuda.current_stream().synchronize()
     assert seen == [(i, float(i)) for i in range(6)]
+
+
+def _mm_store(seed=0, u=5, b=6):
+    rng = np.random.default_rng(seed)
+    eeg = (rng.standard_normal((u, 20, 10_000)) * 40).astype(np.float32)
+    lens = rng.integers(200, 400, u).astype(np.int64)
+    buf = rng.random((int(lens.sum()), 400)).astype(np.float32)
+    off = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    return eeg, buf, off, lens
+
+
+def test_native_gather_into_pinned_buffers_feeds_prefetch(dev):
+    """The host library gathers each batch into one of two pinned host
+    buffers (numpy views of pinned tensors), and ``prefetch_to_device(
+    sync_transfers=True)`` lands it on the card before the next gather
+    overwrites the other slot: every batch on the card equals the numpy
+    gather of its rows, bitwise."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch.data import (
+        prefetch_to_device)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.runtime import (
+        gather_multimodal, gather_multimodal_numpy)
+    eeg, buf, off, lens = _mm_store()
+    rng = np.random.default_rng(1)
+    B = 6
+    draws = [(rng.integers(0, 5, B), rng.integers(0, 5, B),
+              rng.integers(0, 200, B)) for _ in range(5)]
+    ring = [(torch.empty((B, 20, 10_000), pin_memory=True).numpy(),
+             torch.empty((B, 400, 300), pin_memory=True).numpy())
+            for _ in range(2)]
+
+    def source():
+        for k, (ei, si, crop) in enumerate(draws):
+            e, s = gather_multimodal(eeg, ei, buf, off, lens, si, crop,
+                                     out=ring[k % 2])
+            yield {"eeg": e, "spec": s, "k": k}
+
+    n = 0
+    for b in prefetch_to_device(source(), device=dev, sync_transfers=True):
+        ei, si, crop = draws[b["k"]]
+        want = gather_multimodal_numpy(eeg, ei, buf, off, lens, si, crop)
+        assert b["eeg"].device.type == "cuda"
+        assert torch.equal(b["eeg"].cpu(), torch.from_numpy(want[0]))
+        assert torch.equal(b["spec"].cpu(), torch.from_numpy(want[1]))
+        n += 1
+    assert n == len(draws)
+
+
+def test_multimodal_source_ring_feeds_prefetch(dev, tmp_path):
+    """``MultimodalSource.batches(reuse_buffers=True)`` (the host library
+    into a two-slot ring) through ``prefetch_to_device(sync_transfers=
+    True)``, the real-data training path's feed, from an in-memory window
+    cache and ``.npy`` spectrograms (no pandas): every batch on the card
+    equals the numpy gather's batch without reuse."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import data
+    from multimodal_brain_pattern_identification_xai_tpu_torch.runtime import (
+        gather_multimodal_numpy)
+    eeg, buf, off, lens = _mm_store(2)
+    cache = data.EEGRecordCache("")
+    for i in range(5):
+        cache[100 + i] = eeg[i].T
+        np.save(tmp_path / f"{200 + i}.npy", buf[off[i]:off[i] + lens[i]].T)
+    rows = 14
+    meta = data.ColumnTable({
+        "eeg_id": 100 + np.arange(rows) % 5,
+        "spectrogram_id": 200 + np.arange(rows) % 5,
+        "spectrogram_label_offset_seconds": np.arange(rows) * 37.0,
+        "expert_consensus": np.array([C.CLASSES[i % 6] for i in range(rows)],
+                                     object)})
+    src = data.MultimodalSource(meta, cache, data.SpectrogramStore(
+        "", npy_dir=str(tmp_path)))
+    kw = dict(shuffle=True, seed=3)
+    want = list(src.batches(np.arange(rows), 4,
+                            gather=gather_multimodal_numpy, **kw))
+    got = list(data.prefetch_to_device(
+        src.batches(np.arange(rows), 4, reuse_buffers=True, **kw),
+        device=dev, sync_transfers=True))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        for k in ("eeg", "spec", "y"):
+            assert torch.equal(g[k].cpu(), torch.from_numpy(w[k])), k

@@ -334,11 +334,12 @@ def test_evaluate_uses_ema_params():
 
 @pytest.mark.parametrize("shuffle,ring", [(True, 0), (True, 3), (False, 0)])
 def test_native_batch_queue_matches_jax(monkeypatch, shuffle, ring):
-    """The same batches, in the same order, as the JAX queue's numpy path
-    (NaNs repaired with the channel's float32 ``nanmean``, the last partial
-    batch dropped), exactly; its native path repairs with a float64 mean,
-    within 1e-6 of the repaired values and equal elsewhere.  A ring
-    buffer cycles its arrays."""
+    """The same batches, in the same order, as the JAX queue's native
+    library (NaNs repaired with the channel's float64 mean, the last
+    partial batch dropped), exactly: the port's queue runs its own copy of
+    that library.  The JAX queue's numpy path repairs with a float32
+    ``nanmean``, within 1e-6 of the repaired values and equal elsewhere.
+    A ring buffer cycles its arrays."""
     rng = np.random.default_rng(0)
     x = rng.standard_normal((23, 3, 16)).astype(np.float32)
     x[4, 1, 2:5] = np.nan
@@ -351,15 +352,15 @@ def test_native_batch_queue_matches_jax(monkeypatch, shuffle, ring):
 
     native = batches(jrt.NativeBatchQueue(x, y, 4, **kw))
     monkeypatch.setattr(jrt.loader, "_load_lib", lambda: None)
-    want = batches(jrt.NativeBatchQueue(x, y, 4, **kw))
+    plain = batches(jrt.NativeBatchQueue(x, y, 4, **kw))
     q = NativeBatchQueue(x, y, 4, **kw)
     got = batches(q)
-    assert len(q) == len(got) == len(want) == len(native) == 5
-    for a, b, c in zip(got, want, native):
-        np.testing.assert_array_equal(a["x"], b["x"])
-        np.testing.assert_array_equal(a["y"], b["y"])
+    assert len(q) == len(got) == len(plain) == len(native) == 5
+    for a, b, c in zip(got, plain, native):
+        np.testing.assert_array_equal(a["x"], c["x"])
         np.testing.assert_array_equal(a["y"], c["y"])
-        np.testing.assert_allclose(a["x"], c["x"], rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(a["y"], b["y"])
+        np.testing.assert_allclose(a["x"], b["x"], rtol=0, atol=1e-6)
     if ring:
         assert len({id(b["x"]) for b in q}) == ring
 

@@ -64,12 +64,51 @@ def test_port_runs_with_jax_blocked():
         "import DiffEEGTrainer\n"
         "from multimodal_brain_pattern_identification_xai_tpu_torch.ops "
         "import stft_log1p_interp\n"
+        "from multimodal_brain_pattern_identification_xai_tpu_torch.data "
+        "import hms\n"
+        "from multimodal_brain_pattern_identification_xai_tpu_torch.models "
+        "import wavenet\n"
+        "from multimodal_brain_pattern_identification_xai_tpu_torch.train "
+        "import grid_search\n"
+        "from multimodal_brain_pattern_identification_xai_tpu_torch.runtime "
+        "import loader\n"
+        "loader._lib()\n"
         "fwd, args = entry(device='cpu', batch=2, assume_finite=True)\n"
         "out = fwd(*args)\n"
         "assert out.shape == (2, 6) and bool(torch.isfinite(out).all())\n"
         "print('ok')\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_port_imports_with_pandas_blocked(tmp_path):
+    """The card's machine has no pandas: with pandas, pyarrow and JAX
+    blocked, every module of the port imports, ``train.csv`` reads into
+    its column table and the host library builds and gathers."""
+    csv = tmp_path / "train.csv"
+    csv.write_text("eeg_id,patient_id,expert_consensus\n5,1,GPD\n7,1,LPD\n")
+    code = (
+        "import importlib, pkgutil, sys\n"
+        f"for m in {FORBIDDEN + ('pandas', 'pyarrow')!r}: "
+        "sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "import multimodal_brain_pattern_identification_xai_tpu_torch as pkg\n"
+        "for info in pkgutil.walk_packages(pkg.__path__,\n"
+        "                                   pkg.__name__ + '.'):\n"
+        "    importlib.import_module(info.name)\n"
+        "from multimodal_brain_pattern_identification_xai_tpu_torch import "
+        "data, runtime\n"
+        f"meta = data.load_train_metadata({str(csv)!r})\n"
+        "assert meta['eeg_id'].tolist() == [5, 7]\n"
+        "x = np.ones((3, 2, 8), np.float32)\n"
+        "assert runtime.gather_windows(x, np.array([2, 0])).shape == "
+        "(2, 2, 8)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -85,14 +124,16 @@ def test_entry_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["train_entry", "train_multimodal",
-                                  "train_diffeeg", "generate"])
+                                  "train_diffeeg", "generate",
+                                  "train_wavenet", "grid_search"])
 def test_train_entries_without_cuda_raise(monkeypatch, tmp_path, name):
     """The training and generation entry points resolve to the card too:
     without one they raise before building anything, unless
     ``device="cpu"`` is given."""
     from multimodal_brain_pattern_identification_xai_tpu_torch import entry
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    args = (str(tmp_path),) if name != "train_entry" else ()
+    args = {"train_entry": (), "train_wavenet": (str(tmp_path),) * 2,
+            "grid_search": (str(tmp_path),) * 2}.get(name, (str(tmp_path),))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         getattr(entry, name)(*args)
     assert not any(tmp_path.iterdir())

@@ -29,7 +29,7 @@ from multimodal_brain_pattern_identification_xai_tpu_torch.entry import (
     DEMO_SIGNAL, train_entry, train_multimodal)
 from multimodal_brain_pattern_identification_xai_tpu_torch.ops import augment
 from multimodal_brain_pattern_identification_xai_tpu_torch.runtime import (
-    gather_windows, gather_windows_into)
+    gather_windows, gather_windows_into, gather_windows_numpy)
 
 SAMPLES = 64
 
@@ -361,7 +361,8 @@ def test_trainer_schedule_steers_lr_and_mesh_is_not_ported():
 
 def test_gather_windows_repairs_nans():
     """``out[i] = src[idx[i]]`` with each channel's NaNs set to the
-    channel's mean (0 for an all-NaN channel), against a plain loop."""
+    channel's mean (0 for an all-NaN channel), against a plain loop; the
+    host library's gather and its numpy version agree bitwise."""
     rng = np.random.default_rng(6)
     src = rng.standard_normal((5, 4, 50)).astype(np.float32)
     src[1, 2, 7:9] = np.nan
@@ -372,9 +373,9 @@ def test_gather_windows_repairs_nans():
         for ch in w:
             bad = np.isnan(ch)
             ch[bad] = 0.0 if bad.all() else np.mean(ch[~bad])
-    with pytest.warns(RuntimeWarning):
-        got = gather_windows(src, idx)
+    got = gather_windows(src, idx)
     np.testing.assert_allclose(got, want, rtol=1e-6)
+    np.testing.assert_array_equal(got, gather_windows_numpy(src, idx))
     with pytest.raises(ValueError):
         gather_windows_into(src, idx, np.empty((4, 4, 49), np.float32))
 
