@@ -110,12 +110,26 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
               0 at B=256 in bf16 and float32, its first step's loss held
               to the same step on the numpy gather's batch; (b)
               ``entry.train_wavenet``, one fold, one epoch at B=16; (c)
-              ``entry.grid_search``, 3 candidates in one vmapped step, each
-              held against the candidate trained alone; (d)
+              ``entry.grid_search``, 3 candidates a grid step, each held
+              against the candidate trained alone, the grid step within
+              1.1x of 3 single steps; (d)
               ``entry.train_diffeeg(data_root=...)``, two steps at K=4;
               the host library's gather and queue bitwise against numpy;
               ms a step, windows/s, the host gather, peak memory, and a
               ``{"realdata": ...}`` line.
+14. zoo      — on phase 13's tree: (a) the 10 zoo models no other phase
+              runs (all but the serving pair, the WaveNet and the DiffEEG
+              denoisers), at full width, B=4, against the CPU, and a forward's time and peak memory at
+              B=64; (b) ``entry.train_branch("eeg")`` for all 8 EEG archs
+              (B=256) and (c) ``train_branch("spectrogram")`` for all 4
+              spectrogram archs (B=64), one epoch of fold 0 each: ms a
+              step, training windows/s, peak memory; (d)
+              ``train_multimodal(data_root=..., init_from=...)`` from the
+              default archs' checkpoints, its model at the first step
+              bitwise equal to them; (e) rollout of the ViT and the EEG
+              transformer against the CPU; (f) ``retrain_on_top_channels``
+              (N=5, 2 epochs) ranked by gradient SHAP of (b)'s model; a
+              ``{"zoo": ...}`` line.
 
 Output: a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, then the
 last line ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` are
@@ -124,7 +138,8 @@ the main path's (phase 4; phase 5 for the wide kernel), and for
 ``routes_launches`` holds each path of phase 7 apart, ``train_launches``
 (IIR rows) phase 10's training path, ``diffusion_launches``
 (``iir_sosfilt``) phase 12's ``train_diffeeg`` run, ``realdata_launches``
-(IIR rows) phase 13's four paths summed.  Needs one card; imports
+(IIR rows) phase 13's four paths summed, ``zoo_launches`` (IIR rows) phase
+14's paths summed.  Needs one card; imports
 nothing of JAX.
 """
 
@@ -138,6 +153,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -220,10 +236,10 @@ DIFF_METRIC_REL, PEARSON_ATOL = 1e-3, 1e-5
 # eeg_ids × RD_ROWS rows (the Kaggle train.csv has about 6 rows an id),
 # RD_EEG_LEN-sample recordings cropped to 10,000, (400, RD_SPEC_T)
 # spectrogram planes; the WaveNet's batch; the grid's candidates against
-# the same candidate trained alone (vmapped grouped convs against single
-# ones, 16 Adam steps, float32 with TF32 off)
+# the same candidate trained alone (16 Adam steps, float32 with TF32 off);
+# a grid step of 3 candidates against 3 single steps
 RD_IDS, RD_ROWS, RD_EEG_LEN, RD_SPEC_T = 256, 5, 12_000, 340
-RD_WAVENET_B, RD_SEED, RD_GRID_REL = 16, 42, 1e-4
+RD_WAVENET_B, RD_SEED, RD_GRID_REL, RD_GRID_RATIO = 16, 42, 1e-4, 1.1
 # epochs of (a) a program: the bf16 run is long enough for a steady-state
 # rate over many steps (4 steps an epoch), the f32 one only checks
 RD_EPOCHS = {"bf16": 5, "float32": 1}
@@ -1426,7 +1442,6 @@ def phase_train(card: str, dev) -> dict:
       route, bf16 on the NaN route.
 
     Returns the training path's launches by kernel name."""
-    import tempfile
 
     from multimodal_brain_pattern_identification_xai_tpu_torch.entry import (
         preprocess_batch, train_entry, train_multimodal)
@@ -1886,8 +1901,6 @@ def phase_diffusion(card: str, dev) -> dict:
         step, the conditioning gathered and dense, the metrics.
 
     Returns #1's launches in (d)'s first run, by kernel name."""
-    import tempfile
-
     from multimodal_brain_pattern_identification_xai_tpu_torch import (
         config as C, entry)
     from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
@@ -2355,9 +2368,9 @@ def _rd_multimodal(card: str, dev, tree: str, work: str, dtype, reset,
 def _rd_grid(card: str, dev, tree: str, x, y, reset, read) -> dict:
     """(c) ``grid_search`` with the default grid (3 learning rates), one
     epoch at B=16: each candidate's final loss against the same candidate
-    trained alone with the port's Adam (RD_GRID_REL); a vmapped step's
-    time beside a single step's, and each one's device busy time and top
-    kernels (profiler)."""
+    trained alone with the port's Adam (RD_GRID_REL); a grid step's time
+    beside a single step's, held to RD_GRID_RATIO times the 3 single
+    steps, and each one's device busy time and top kernels (profiler)."""
     from multimodal_brain_pattern_identification_xai_tpu_torch import (
         entry, profiling, train)
     from multimodal_brain_pattern_identification_xai_tpu_torch.data import (
@@ -2383,25 +2396,25 @@ def _rd_grid(card: str, dev, tree: str, x, y, reset, read) -> dict:
         got = next(r["loss"] for r in results
                    if abs(r["lr"] - lr) <= 1e-6 * lr)
         errs.append(abs(got - float(m["loss"])) / abs(float(m["loss"])))
-    # a vmapped step of the 3 candidates beside one candidate's step
+    # a grid step of the 3 candidates beside one candidate's step
     model = entry.wavenet_model(RD_SEED).to(dev)
     params, opt = train.init_candidates(model, len(lrs), RD_SEED)
-    vstep = train.make_grid_step(model, train.kldiv_with_logits, 0)
+    gstep = train.make_grid_step(model, train.kldiv_with_logits, 0)
     hp = torch.tensor([[lr] for lr in lrs], device=dev)
     bx = torch.from_numpy(x[:RD_WAVENET_B]).to(dev)
     by = torch.from_numpy(y[:RD_WAVENET_B]).to(dev)
     box = [params, opt]
 
-    def vmapped():
-        box[0], box[1], _ = vstep(box[0], box[1], hp, bx, by)
-    v_ms = cuda_ms(vmapped, 3)
+    def grid():
+        box[0], box[1], _ = gstep(box[0], box[1], hp, bx, by)
+    g_ms = cuda_ms(grid, 3)
     single = train.create_train_state(model, train.make_optimizer(1e-3))
     one = train.make_train_step()
     s_ms = cuda_ms(lambda: one(single, {"x": bx, "y": by}), 5)
-    # where a step's time goes: one candidate's step and the vmapped step
+    # where a step's time goes: one candidate's step and the grid step
     profs = {"single": profiling.profile_kernels(
         lambda: one(single, {"x": bx, "y": by}), reps=2, warmup=0),
-        "vmapped": profiling.profile_kernels(vmapped, reps=1, warmup=0)}
+        "grid": profiling.profile_kernels(grid, reps=1, warmup=0)}
     for what, prof in profs.items():
         ops = sorted(prof.kernel_ms.items(), key=lambda kv: -kv[1])[:5]
         print(f"[realdata] (c) {what} WaveNet step, B={RD_WAVENET_B}, "
@@ -2409,25 +2422,30 @@ def _rd_grid(card: str, dev, tree: str, x, y, reset, read) -> dict:
               f"wall, {prof.kernels:.0f} kernels; top: "
               + "; ".join(f"{n[:90]} x{prof.kernel_calls[n]:.0f} "
                           f"{v:.3f} ms" for n, v in ops))
+    ratio = g_ms / (len(lrs) * s_ms)
     out = {"results": results, "best": best, "candidate_rel": errs,
-           "vmapped_step_ms": v_ms, "single_step_ms": s_ms,
+           "grid_step_ms": g_ms, "single_step_ms": s_ms,
+           "grid_over_single_steps": ratio,
            "steps": len(x) // RD_WAVENET_B, "wall_s": wall,
            "launches": counts,
            "profile": {what: {"busy_ms": p.busy_ms, "wall_ms": p.wall_ms,
                               "kernels": p.kernels}
                        for what, p in profs.items()}}
     print(f"[realdata] (c) grid_search, {len(lrs)} candidates, 1 epoch at "
-          f"B={RD_WAVENET_B} ({out['steps']} vmapped steps, {wall:.2f} s): "
+          f"B={RD_WAVENET_B} ({out['steps']} grid steps, {wall:.2f} s): "
           f"{results}; each candidate vs trained alone rel "
-          f"{[f'{e:.2e}' for e in errs]} (bound {RD_GRID_REL}); vmapped "
-          f"step {v_ms:.3f} ms vs {len(lrs)} x single {s_ms:.3f} ms = "
-          f"{len(lrs) * s_ms:.3f} ms; launches {counts} [{card}]")
+          f"{[f'{e:.2e}' for e in errs]} (bound {RD_GRID_REL}); grid "
+          f"step {g_ms:.3f} ms vs {len(lrs)} x single {s_ms:.3f} ms = "
+          f"{len(lrs) * s_ms:.3f} ms ({ratio:.3f}x, bound "
+          f"{RD_GRID_RATIO}x); launches {counts} [{card}]")
     require(max(errs) < RD_GRID_REL, f"(c) grid candidates differ: {errs}")
+    require(ratio <= RD_GRID_RATIO,
+            f"(c) the grid step takes {ratio:.3f}x {len(lrs)} single steps")
     require(counts["iir_sosfilt"] == 1, f"(c) launches {counts}")
     return out
 
 
-def phase_realdata(card: str, dev) -> dict:
+def phase_realdata(card: str, dev, tmp: str) -> dict:
     """The real-data training paths at full width, from a synthetic HMS
     tree in numpy form (``_write_numpy_tree``: RD_IDS eeg_ids × RD_ROWS
     rows, no pandas):
@@ -2445,112 +2463,110 @@ def phase_realdata(card: str, dev) -> dict:
     bitwise against their numpy versions on the tree.  Each path's launch
     counts are set to 0 just before it and read just after; #1 runs once a
     256-window chunk in (b), (c) and (d), #2 once a preprocessed batch in
-    (a).  Prints the ``{"realdata": ...}`` line; returns the launches by
-    kernel name summed over the paths."""
-    import tempfile
-
+    (a).  The tree is written under ``tmp`` (``tmp/hms``), where phase 14
+    reads it again.  Prints the ``{"realdata": ...}`` line; returns the
+    launches by kernel name summed over the paths."""
     from multimodal_brain_pattern_identification_xai_tpu_torch import (
         config as C, data, entry, runtime)
     reset, read = _counters()
     t_phase = time.perf_counter()
     rec = {"eeg_ids": RD_IDS, "rows": RD_IDS * RD_ROWS, "card": card}
-    with tempfile.TemporaryDirectory() as tmp:
-        tree = f"{tmp}/hms"
-        t0 = time.perf_counter()
-        _write_numpy_tree(tree, RD_SEED)
-        rec["tree_s"] = time.perf_counter() - t0
-        print(f"[realdata] tree in numpy form: {RD_IDS} eeg_ids x {RD_ROWS} "
-              f"rows, {RD_EEG_LEN}-sample recordings cropped to 10000, "
-              f"(400, {RD_SPEC_T}) planes, written in {rec['tree_s']:.2f} s")
-        t_paths = time.perf_counter()
+    tree = f"{tmp}/hms"
+    t0 = time.perf_counter()
+    _write_numpy_tree(tree, RD_SEED)
+    rec["tree_s"] = time.perf_counter() - t0
+    print(f"[realdata] tree in numpy form: {RD_IDS} eeg_ids x {RD_ROWS} "
+          f"rows, {RD_EEG_LEN}-sample recordings cropped to 10000, "
+          f"(400, {RD_SPEC_T}) planes, written in {rec['tree_s']:.2f} s")
+    t_paths = time.perf_counter()
 
-        # (a) -----------------------------------------------------------------
-        rec["a"] = {prog: _rd_multimodal(card, dev, tree, f"{tmp}/a", dtype,
-                                         reset, read)
-                    for prog, dtype in (("bf16", torch.bfloat16),
-                                        ("float32", None))}
+    # (a) -----------------------------------------------------------------
+    rec["a"] = {prog: _rd_multimodal(card, dev, tree, f"{tmp}/a", dtype,
+                                     reset, read)
+                for prog, dtype in (("bf16", torch.bfloat16),
+                                    ("float32", None))}
 
-        # (b) -----------------------------------------------------------------
-        reset()
-        t0 = time.perf_counter()
-        with _StepClock() as clock:
-            oof, scores = entry.train_wavenet(
-                tree, f"{tree}/cache", device=dev, epochs=1,
-                batch_size=RD_WAVENET_B, seed=RD_SEED, one_fold=True)
-        wall = time.perf_counter() - t0
-        counts = read()
-        steps = clock.ms()
-        raw = data.wavenet_arrays(C.PathsConfig.at(tree), f"{tree}/cache")
-        x_ms = cuda_ms(lambda: entry.transform_windows(
-            raw["x"], entry.WAVENET_TRANSFORM, dev), 3)
-        x = entry.transform_windows(raw["x"], entry.WAVENET_TRANSFORM, dev)
-        y = raw["y"]
-        rec["b"] = {"steps": len(steps), "step_ms": steps,
-                    "step_ms_after_first": float(np.mean(steps[1:])),
-                    "transform_ms": x_ms, "fold_score": scores[0],
-                    "wall_s": wall, "launches": counts}
-        print(f"[realdata] (b) train_wavenet, fold 0 of {C.N_FOLDS}, 1 epoch "
-              f"at B={RD_WAVENET_B}: {len(steps)} steps, "
-              f"{rec['b']['step_ms_after_first']:.3f} ms a step after the "
-              f"first ({steps[0]:.3f}); fold kldiv {scores[0]:.4f}; the "
-              f"magic-8 transform of {RD_IDS} windows {x_ms:.3f} ms; "
-              f"{wall:.2f} s in all; launches {counts} [{card}]")
-        require(np.isfinite(scores[0]) and np.isfinite(oof).all()
-                and x.shape == (RD_IDS, 2000, 8),
-                "(b) train_wavenet: not finite or wrong shape")
-        require(counts["iir_sosfilt"] == 1
-                and counts["iir_sosfilt_rolldec"] == 0,
-                f"(b) launches {counts}")
+    # (b) -----------------------------------------------------------------
+    reset()
+    t0 = time.perf_counter()
+    with _StepClock() as clock:
+        oof, scores = entry.train_wavenet(
+            tree, f"{tree}/cache", device=dev, epochs=1,
+            batch_size=RD_WAVENET_B, seed=RD_SEED, one_fold=True)
+    wall = time.perf_counter() - t0
+    counts = read()
+    steps = clock.ms()
+    raw = data.wavenet_arrays(C.PathsConfig.at(tree), f"{tree}/cache")
+    x_ms = cuda_ms(lambda: entry.transform_windows(
+        raw["x"], entry.WAVENET_TRANSFORM, dev), 3)
+    x = entry.transform_windows(raw["x"], entry.WAVENET_TRANSFORM, dev)
+    y = raw["y"]
+    rec["b"] = {"steps": len(steps), "step_ms": steps,
+                "step_ms_after_first": float(np.mean(steps[1:])),
+                "transform_ms": x_ms, "fold_score": scores[0],
+                "wall_s": wall, "launches": counts}
+    print(f"[realdata] (b) train_wavenet, fold 0 of {C.N_FOLDS}, 1 epoch "
+          f"at B={RD_WAVENET_B}: {len(steps)} steps, "
+          f"{rec['b']['step_ms_after_first']:.3f} ms a step after the "
+          f"first ({steps[0]:.3f}); fold kldiv {scores[0]:.4f}; the "
+          f"magic-8 transform of {RD_IDS} windows {x_ms:.3f} ms; "
+          f"{wall:.2f} s in all; launches {counts} [{card}]")
+    require(np.isfinite(scores[0]) and np.isfinite(oof).all()
+            and x.shape == (RD_IDS, 2000, 8),
+            "(b) train_wavenet: not finite or wrong shape")
+    require(counts["iir_sosfilt"] == 1
+            and counts["iir_sosfilt_rolldec"] == 0,
+            f"(b) launches {counts}")
 
-        # (c) -----------------------------------------------------------------
-        rec["c"] = _rd_grid(card, dev, tree, x, y, reset, read)
+    # (c) -----------------------------------------------------------------
+    rec["c"] = _rd_grid(card, dev, tree, x, y, reset, read)
 
-        # (d) -----------------------------------------------------------------
-        cfg = dataclasses.replace(C.DiffEEGConfig(),
-                                  gradient_accumulate_every=4)
-        reset()
-        t0 = time.perf_counter()
-        tr, hist = entry.train_diffeeg(f"{tree}/cache", device=dev, cfg=cfg,
-                                       steps=2, seed=RD_SEED, data_root=tree)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = read()
-        rec["d"] = {"losses": hist["loss"], "wall_s": wall,
-                    "launches": counts}
-        print(f"[realdata] (d) train_diffeeg, K=4, B={cfg.batch_size}, 2 "
-              f"steps: losses {hist['loss']}, {wall:.2f} s with the "
-              f"transform; launches {counts} [{card}]")
-        require(len(hist["loss"]) == 2 and all(np.isfinite(hist["loss"]))
-                and tr.state.step == 2, "(d) train_diffeeg")
-        require(counts["iir_sosfilt"] == 1, f"(d) launches {counts}")
-        del tr
+    # (d) -----------------------------------------------------------------
+    cfg = dataclasses.replace(C.DiffEEGConfig(),
+                              gradient_accumulate_every=4)
+    reset()
+    t0 = time.perf_counter()
+    tr, hist = entry.train_diffeeg(f"{tree}/cache", device=dev, cfg=cfg,
+                                   steps=2, seed=RD_SEED, data_root=tree)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read()
+    rec["d"] = {"losses": hist["loss"], "wall_s": wall,
+                "launches": counts}
+    print(f"[realdata] (d) train_diffeeg, K=4, B={cfg.batch_size}, 2 "
+          f"steps: losses {hist['loss']}, {wall:.2f} s with the "
+          f"transform; launches {counts} [{card}]")
+    require(len(hist["loss"]) == 2 and all(np.isfinite(hist["loss"]))
+            and tr.state.step == 2, "(d) train_diffeeg")
+    require(counts["iir_sosfilt"] == 1, f"(d) launches {counts}")
+    del tr
 
-        # the host library against numpy on the tree ------------------------
-        src, tr_idx, _ = entry.multimodal_fold0(tree, f"{tree}/cache",
-                                                RD_SEED,
-                                                npy_dir=f"{tree}/npy")
-        rows = tr_idx[:C.TrainerConfig().batch_size]
-        lib = src.gather(rows)
-        plain = src.gather(rows, gather=runtime.gather_multimodal_numpy)
-        same_g = all(np.array_equal(lib[k], plain[k])
-                     for k in ("eeg", "spec", "y"))
-        store = src._eeg_stack.copy()
-        store[3, 2, 100:400] = np.nan
-        store[9, 0, :] = np.nan
-        q = [{k: v.copy() for k, v in b.items()} for b in
-             runtime.NativeBatchQueue(store, src.y[:len(store)], 64,
-                                      seed=RD_SEED, pop_ring=12)]
-        ref = list(runtime.batch_queue_numpy(store, src.y[:len(store)], 64,
-                                             seed=RD_SEED))
-        same_q = len(q) == len(ref) and all(
-            np.array_equal(a[k], b[k]) for a, b in zip(q, ref)
-            for k in ("x", "y"))
-        print(f"[realdata] host library vs numpy on the tree: "
-              f"gather_multimodal of {len(rows)} rows bitwise {same_g}; "
-              f"NativeBatchQueue ({len(q)} batches of 64 over {len(store)} "
-              f"windows with NaN runs) bitwise {same_q}")
-        require(same_g and same_q, "host library differs from numpy")
-        rec["paths_s"] = time.perf_counter() - t_paths
+    # the host library against numpy on the tree ------------------------
+    src, tr_idx, _ = entry.multimodal_fold0(tree, f"{tree}/cache",
+                                            RD_SEED,
+                                            npy_dir=f"{tree}/npy")
+    rows = tr_idx[:C.TrainerConfig().batch_size]
+    lib = src.gather(rows)
+    plain = src.gather(rows, gather=runtime.gather_multimodal_numpy)
+    same_g = all(np.array_equal(lib[k], plain[k])
+                 for k in ("eeg", "spec", "y"))
+    store = src._eeg_stack.copy()
+    store[3, 2, 100:400] = np.nan
+    store[9, 0, :] = np.nan
+    q = [{k: v.copy() for k, v in b.items()} for b in
+         runtime.NativeBatchQueue(store, src.y[:len(store)], 64,
+                                  seed=RD_SEED, pop_ring=12)]
+    ref = list(runtime.batch_queue_numpy(store, src.y[:len(store)], 64,
+                                         seed=RD_SEED))
+    same_q = len(q) == len(ref) and all(
+        np.array_equal(a[k], b[k]) for a, b in zip(q, ref)
+        for k in ("x", "y"))
+    print(f"[realdata] host library vs numpy on the tree: "
+          f"gather_multimodal of {len(rows)} rows bitwise {same_g}; "
+          f"NativeBatchQueue ({len(q)} batches of 64 over {len(store)} "
+          f"windows with NaN runs) bitwise {same_q}")
+    require(same_g and same_q, "host library differs from numpy")
+    rec["paths_s"] = time.perf_counter() - t_paths
     rec["phase_s"] = time.perf_counter() - t_phase
     launches = {
         "iir_sosfilt": sum(rec[p]["launches"]["iir_sosfilt"]
@@ -2563,6 +2579,279 @@ def phase_realdata(card: str, dev) -> dict:
           f" s, paths and holds {rec['paths_s']:.1f} s")
     print(json.dumps({"realdata": rec}, default=float))
     return launches
+
+
+# Zoo (phase 14): the 10 models of the zoo beyond the serving pair, at full
+# width: forwards at ZOO_B against the CPU (float32, TF32 off) and timed at
+# ZOO_TIME_B; branch pretraining at B=256 (EEG) and ZOO_SPEC_B
+# (spectrograms), one epoch of fold 0 each; rollout card vs CPU;
+# retrain_on_top_channels on ZOO_RETRAIN_ROWS windows
+ZOO_EEG = ("eegnet", "eegnet_attention_deep", "eegnet_residual",
+           "eegnet_residual_lstm", "eegnet_transformer",
+           "eeg_seizure_detection", "deepconvnet")
+ZOO_SPEC = ("spectrogram_vit", "efficientnet_b0", "efficientnetv2_b2")
+ZOO_B, ZOO_TIME_B, ZOO_SPEC_B = 4, 64, 64
+ZOO_ROLLOUT_ATOL = 1e-4
+ZOO_RETRAIN_N, ZOO_RETRAIN_ROWS, ZOO_SHAP_ROWS = 5, 256, 16
+
+
+def _zoo_forward(card: str, dev, name: str) -> dict:
+    """(a) ``build(name)`` at full width with seeded weights: log-probs at
+    ZOO_B on the card against the CPU (LOGP_ATOL), a forward's time at
+    ZOO_TIME_B and the peak memory around it; (e) for the models with
+    attention layers, ``rollout_from_model`` on the card against the CPU
+    (ZOO_ROLLOUT_ATOL)."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import models
+    from multimodal_brain_pattern_identification_xai_tpu_torch.xai import (
+        rollout)
+    model = models.build(name)
+    model.load_state_dict(models.seeded_state_dict(model, RD_SEED))
+    model.eval()
+    shape = (1, 37, 3000) if name in ZOO_EEG else (3, 400, 300)
+    x = signal((ZOO_B, *shape), 1.0, RD_SEED, "cpu")
+    with torch.no_grad():
+        want = model(x)
+    attn = name in ("spectrogram_vit", "eegnet_transformer")
+    want_roll = rollout.rollout_from_model(model, x) if attn else None
+    model.to(dev)
+    with torch.no_grad():
+        got = model(x.to(dev)).cpu()
+    err = max_abs(got, want)
+    out = {"max_abs_err": err, "shape": list(got.shape)}
+    if attn:
+        roll = rollout.rollout_from_model(model, x.to(dev)).cpu()
+        out["rollout_max_abs_err"] = max_abs(roll, want_roll)
+        out["rollout_shape"] = list(roll.shape)
+    xb = signal((ZOO_TIME_B, *shape), 1.0, RD_SEED + 1, dev)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out["ms_b64"] = cuda_ms(lambda: model(xb), 3)
+    out["peak_gib"] = peak_gib()
+    out["params_m"] = sum(p.numel() for p in model.parameters()) / 1e6
+    print(f"[zoo] (a) {name}: {out['params_m']:.2f} M parameters; B={ZOO_B} "
+          f"log-probs vs CPU max abs {err:.3e} (bound {LOGP_ATOL})"
+          + (f"; (e) rollout {out['rollout_shape']} vs CPU max abs "
+             f"{out['rollout_max_abs_err']:.3e} (bound {ZOO_ROLLOUT_ATOL})"
+             if attn else "")
+          + f"; forward at B={ZOO_TIME_B} {out['ms_b64']:.3f} ms, peak "
+          f"{out['peak_gib']:.2f} GiB [{card}]")
+    require(torch.isfinite(got).all() and got.shape == (ZOO_B, 6)
+            and err < LOGP_ATOL, f"(a) {name}: log-probs differ by {err}")
+    if attn:
+        require(out["rollout_max_abs_err"] < ZOO_ROLLOUT_ATOL,
+                f"(e) {name}: rollout differs by {out['rollout_max_abs_err']}")
+    del model, xb
+    torch.cuda.empty_cache()
+    return out
+
+
+def _workdir(tree: str, path: str) -> str:
+    """A checkpoint directory that reads the tree's window cache."""
+    if not os.path.isdir(path):
+        os.makedirs(path)
+        os.symlink(f"{tree}/cache/eeg_cache.npz", f"{path}/eeg_cache.npz")
+    return path
+
+
+def _zoo_branch(card: str, dev, tree: str, ckpt: str, which: str, arch: str,
+                n_val_rows: int, reset, read) -> dict:
+    """(b)/(c) one epoch of ``train_branch(which, arch=arch)`` on fold 0
+    (B=256 for EEG, ZOO_SPEC_B for spectrograms): ms a step, training
+    windows/s from step 2's start to the last step's end (host gather,
+    copies and preprocessing included), peak memory, a finite best kldiv;
+    #2 once a preprocessed EEG batch (steps + 2 validation passes), #1
+    never."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        config as C, entry)
+    bs = C.TrainerConfig().batch_size if which == "eeg" else ZOO_SPEC_B
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    with _StepClock() as clock:
+        hist, best = entry.train_branch(
+            which, _workdir(tree, ckpt), arch=arch, device=dev, epochs=1,
+            batch_size=bs, seed=RD_SEED, data_root=tree,
+            npy_dir=f"{tree}/npy")
+    wall = time.perf_counter() - t0
+    counts = read()
+    steps = clock.ms()
+    n = len(steps)
+    span = clock.span_ms(1, -1)
+    n_val = -(-n_val_rows // bs)
+    out = {"batch": bs, "steps": n, "step_ms": steps,
+           "step_ms_after_first": float(np.mean(steps[1:])),
+           "train_windows_per_s": bs * (n - 1) / span * 1e3,
+           "peak_gib": peak_gib(), "best_kldiv": best,
+           "train_loss": hist["train_loss"], "wall_s": wall,
+           "launches": counts}
+    tag = "(b)" if which == "eeg" else "(c)"
+    print(f"[zoo] {tag} train_branch {which} {arch}, B={bs}, 1 epoch: {n} "
+          f"steps, {out['step_ms_after_first']:.3f} ms a step after the "
+          f"first ({steps[0]:.3f}); {out['train_windows_per_s']:.1f} "
+          f"training windows/s over steps 2-{n}; peak "
+          f"{out['peak_gib']:.2f} GiB; best kldiv {best:.4f}; {wall:.2f} s; "
+          f"launches {counts} [{card}]")
+    require(np.isfinite(best) and all(np.isfinite(hist["train_loss"])),
+            f"{tag} {arch}: a loss is not finite")
+    with open(f"{ckpt}/{which}/ARCH") as f:
+        require(f.read().strip() == arch, f"{tag} {arch}: ARCH")
+    want = n + 2 * n_val if which == "eeg" else 0
+    require(counts["iir_sosfilt_rolldec"] == want
+            and counts["iir_sosfilt"] == 0,
+            f"{tag} {arch}: launches {counts}, {n} steps, {n_val} "
+            "validation batches (evaluated at the epoch's end and from the "
+            "best checkpoint)")
+    torch.cuda.empty_cache()
+    return out
+
+
+class _FirstStepState:
+    """The model's state dict (on the CPU) as the epoch trainer's first
+    train step receives it: ``train.trainer.make_train_step`` is wrapped
+    while the context is open."""
+
+    def __enter__(self):
+        from multimodal_brain_pattern_identification_xai_tpu_torch.train import (
+            trainer)
+        self.state, self._mod = {}, trainer
+        self._orig = trainer.make_train_step
+
+        def make(**kw):
+            inner = self._orig(**kw)
+
+            def step(state, *args, **kwargs):
+                if not self.state:
+                    self.state.update({k: v.detach().cpu().clone() for k, v
+                                       in state.model.state_dict().items()})
+                return inner(state, *args, **kwargs)
+            return step
+        trainer.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.make_train_step = self._orig
+
+
+def phase_zoo(card: str, dev, tmp: str) -> dict:
+    """The rest of the model zoo and branch pretraining at full width, on
+    phase 13's tree (``tmp/hms``):
+
+    (a) the 10 ``REGISTRY`` models no other phase runs (all but the
+        serving pair, the WaveNet and the DiffEEG denoisers): card vs CPU,
+        timed (``_zoo_forward``);
+    (b) ``entry.train_branch("eeg")`` for all 8 EEG archs and
+    (c) ``train_branch("spectrogram")`` for all 4 spectrogram archs
+        (``_zoo_branch``); the default archs write to one directory;
+    (d) ``train_multimodal(data_root=..., init_from=...)`` from that
+        directory, one epoch: the model at the first step bitwise equal to
+        the branches' best checkpoints;
+    (e) rollout of the ViT and the EEG transformer (in (a));
+    (f) ``retrain_on_top_channels`` (N = 5, 2 epochs) on ZOO_RETRAIN_ROWS
+        preprocessed windows, ranked by gradient SHAP of (b)'s default
+        model.
+
+    Each path's launch counts are set to 0 just before it and read just
+    after.  Prints the ``{"zoo": ...}`` line; returns the launches by
+    kernel name summed over the phase."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        config as C, entry, train, xai)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
+        hms_eeg_preprocess)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.xai import (
+        channel_select)
+    reset, read = _counters()
+    t_phase = time.perf_counter()
+    tree, work = f"{tmp}/hms", f"{tmp}/zoo"
+    handoff = f"{work}/handoff"
+    rec = {"card": card, "a": {}, "b": {}, "c": {}}
+
+    # (a), (e) ------------------------------------------------------------
+    for name in ZOO_EEG + ZOO_SPEC:
+        rec["a"][name] = _zoo_forward(card, dev, name)
+    rec["a_s"] = time.perf_counter() - t_phase
+
+    # (b), (c) ------------------------------------------------------------
+    src, tr_idx, va_idx = entry.multimodal_fold0(
+        tree, _workdir(tree, handoff), RD_SEED, npy_dir=f"{tree}/npy")
+    for which, key in (("eeg", "b"), ("spectrogram", "c")):
+        for arch in entry.BRANCH_ARCHS[which]:
+            ckpt = (handoff if arch == entry.BRANCH_DEFAULT[which]
+                    else f"{work}/{arch}")
+            rec[key][arch] = _zoo_branch(card, dev, tree, ckpt, which, arch,
+                                         len(va_idx), reset, read)
+
+    # (d) ------------------------------------------------------------------
+    reset()
+    t0 = time.perf_counter()
+    with _FirstStepState() as first:
+        tr, best = entry.train_multimodal(
+            _workdir(tree, f"{work}/mm"), device=dev, epochs=1,
+            seed=RD_SEED, data_root=tree, npy_dir=f"{tree}/npy",
+            init_from=handoff)
+    counts = read()
+    same = {}
+    for which, sub in (("eeg", "eeg_model"),
+                       ("spectrogram", "spectrogram_model")):
+        branch = train.CheckpointManager(f"{handoff}/{which}").load(
+            "best-kldiv")["model"]
+        same[which] = bool(branch) and all(
+            torch.equal(first.state[f"{sub}.{k}"], v.cpu())
+            for k, v in branch.items())
+    rec["d"] = {"best_kldiv": best, "steps": tr.state.step,
+                "grafted_bitwise": same, "wall_s": time.perf_counter() - t0,
+                "launches": counts}
+    print(f"[zoo] (d) train_multimodal(init_from=...), 1 epoch at B=256: "
+          f"{tr.state.step} steps, best kldiv {best:.4f}, the model at the "
+          f"first step equal to the branches' best checkpoints {same}; "
+          f"{rec['d']['wall_s']:.2f} s; launches {counts} [{card}]")
+    require(all(same.values()) and np.isfinite(best),
+            f"(d) the graft differs from the branch checkpoints: {same}")
+    require(counts["iir_sosfilt_rolldec"] > 0 and counts["iir_sosfilt"] == 0,
+            f"(d) launches {counts}")
+    del tr
+
+    # (f) ------------------------------------------------------------------
+    reset()
+    t0 = time.perf_counter()
+    raw = src.gather(tr_idx[:ZOO_RETRAIN_ROWS], want=("eeg",))
+    with torch.no_grad():
+        x = hms_eeg_preprocess(torch.from_numpy(raw["eeg"]).to(dev),
+                               assume_finite=True)
+    model = entry.branch_model("eeg").to(dev)
+    model.load_state_dict(train.CheckpointManager(f"{handoff}/eeg").load(
+        "best-kldiv")["model"])
+    model.eval()
+    sv = xai.gradient_shap_values(
+        model, x[:ZOO_SHAP_ROWS], x[ZOO_SHAP_ROWS:4 * ZOO_SHAP_ROWS],
+        torch.Generator(device=dev).manual_seed(RD_SEED), nsamples=8)
+    report = channel_select.retrain_on_top_channels(
+        x.cpu().numpy(), raw["y"], sv.cpu().numpy(),
+        n_channels=ZOO_RETRAIN_N, epochs=2, batch_size=32, seed=RD_SEED,
+        device=dev)
+    counts = read()
+    rec["f"] = {**report, "wall_s": time.perf_counter() - t0,
+                "launches": counts}
+    print(f"[zoo] (f) retrain_on_top_channels, N={ZOO_RETRAIN_N}, 2 epochs "
+          f"on {ZOO_RETRAIN_ROWS} windows (gradient SHAP of (b)'s "
+          f"{entry.BRANCH_DEFAULT['eeg']} on {ZOO_SHAP_ROWS}): top channels "
+          f"{[channel_select.channel_names_37()[i] for i in report['top_channels']]}"
+          f", fresh {report['fresh']}, retrained {report['retrained']}; "
+          f"{rec['f']['wall_s']:.2f} s; launches {counts} [{card}]")
+    require(len(report["top_channels"]) == ZOO_RETRAIN_N
+            and np.isfinite(report["best_kldiv"])
+            and all(np.isfinite(v) for v in report["retrained"].values()),
+            f"(f) retrain: {report}")
+    require(counts["iir_sosfilt_rolldec"] == 1, f"(f) launches {counts}")
+    del model, x, sv
+
+    rec["launches"] = {k: rec["d"]["launches"][k] + rec["f"]["launches"][k]
+                       + sum(r["launches"][k] for part in ("b", "c")
+                             for r in rec[part].values())
+                       for k in ("iir_sosfilt", "iir_sosfilt_rolldec")}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[zoo] phase {rec['phase_s']:.1f} s: forwards {rec['a_s']:.1f} s")
+    print(json.dumps({"zoo": rec}, default=float))
+    return rec["launches"]
 
 
 def main() -> int:
@@ -2613,8 +2902,12 @@ def main() -> int:
     done("convprobe")
     diffusion_launches = phase_diffusion(card, dev)
     done("diffusion")
-    realdata_launches = phase_realdata(card, dev)
-    done("realdata")
+    # phases 13 and 14 share one synthetic HMS tree, written once
+    with tempfile.TemporaryDirectory() as tmp:
+        realdata_launches = phase_realdata(card, dev, tmp)
+        done("realdata")
+        zoo_launches = phase_zoo(card, dev, tmp)
+        done("zoo")
 
     xai_tpu = "multimodal_brain_pattern_identification_xai_tpu"
     src = {"iir_sosfilt": (f"{PKG}/csrc/iir.cu",
@@ -2673,6 +2966,8 @@ def main() -> int:
             k["diffusion_launches"] = diffusion_launches[k["name"]]
         if k["name"] in realdata_launches:
             k["realdata_launches"] = realdata_launches[k["name"]]
+        if k["name"] in zoo_launches:
+            k["zoo_launches"] = zoo_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

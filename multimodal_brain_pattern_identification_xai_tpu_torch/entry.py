@@ -14,7 +14,9 @@ for attribution (``xai``), float32 and eager.  :func:`train_entry` is the
 JAX bench's training program (one step: preprocess, forward, loss,
 backward, Adam) and :func:`train_multimodal` the JAX CLI's
 ``train-multimodal`` loop, on its ``--demo`` arrays or, with
-``data_root``, on an HMS dataset tree.  :func:`train_wavenet` and
+``data_root``, on an HMS dataset tree (``init_from``: the branch
+checkpoints of :func:`train_branch`, the JAX CLI's ``train-eeg`` /
+``train-spectrogram``, grafted in first).  :func:`train_wavenet` and
 :func:`grid_search` are the JAX CLI's ``train-wavenet`` (cross-validated
 ``DilatedInceptionWaveNet``) and ``grid-search`` on such a tree.
 :func:`train_diffeeg` and :func:`generate` are the JAX CLI's
@@ -274,6 +276,63 @@ def multimodal_fold0(data_root: str, ckpt_dir: str, seed: int = 0,
     return src, tr_idx, va_idx
 
 
+def _multimodal_data(ckpt_dir: str, dev: torch.device, seed: int,
+                     batch_size: Optional[int], data_root: Optional[str],
+                     n_folds: int, limit: Optional[int], workers: int,
+                     npy_dir: Optional[str],
+                     want: Sequence[str] = ("eeg", "spec")):
+    """The data of ``train-multimodal`` and the branch-pretraining
+    commands (the JAX CLI's ``_multimodal_data``): ``(raw_batches,
+    signal, finite route, EEGNet kern_length)``, where
+    ``raw_batches(shuffle, epoch=0)`` yields raw batches of the ``want``
+    modalities and ``y`` on ``dev``: the training rows shuffled with
+    ``seed + epoch`` (whole batches) or the validation rows in order.
+
+    Without ``data_root`` (``--demo``): 24 rows of synthetic raw EEG (20,
+    2000) with NaNs and 80×60 spectrogram planes (``data.dummy``), one-hot
+    targets, every row in both splits, batches of 8 (or ``batch_size``),
+    600-sample windows with a 16-tap temporal kernel, the NaN route.  With
+    ``data_root``: fold 0 of :func:`multimodal_fold0`, batches of
+    ``TrainerConfig().batch_size`` (256, or ``batch_size``) gathered by
+    the host library (``MultimodalSource.batches``; on the card into two
+    reused buffers, with synced transfers), the full-width signal and the
+    finite route (the cache's windows are NaN-repaired)."""
+    from .data import (batch_iterator, prefetch_to_device, synthetic_raw_eeg,
+                       synthetic_raw_spectrogram)
+
+    if data_root is None:
+        rng = np.random.default_rng(seed)
+        raw_eeg = synthetic_raw_eeg(DEMO_ROWS, rng, n_points=DEMO_POINTS)
+        raw_spec = synthetic_raw_spectrogram(DEMO_ROWS, rng, shape=DEMO_PLANE)
+        y = np.eye(6, dtype=np.float32)[np.arange(DEMO_ROWS) % 6]
+        arrays = {k: v for k, v in (("eeg", raw_eeg), ("spec", raw_spec))
+                  if k in want}
+        arrays["y"] = y
+        bs = batch_size or 8
+
+        def raw_batches(shuffle: bool, epoch: int = 0):
+            return prefetch_to_device(
+                batch_iterator(arrays, bs, shuffle=shuffle,
+                               seed=seed + (epoch if shuffle else 0)),
+                device=dev)
+        return raw_batches, DEMO_SIGNAL, False, 16
+
+    src, tr_idx, va_idx = multimodal_fold0(data_root, ckpt_dir, seed,
+                                           n_folds, limit, workers, npy_dir)
+    bs = batch_size or C.TrainerConfig().batch_size
+    # on the card the host gathers into two reused buffers, which the
+    # synced transfers make safe; on the CPU a tensor shares its array
+    reuse = dev.type == "cuda"
+
+    def raw_batches(shuffle: bool, epoch: int = 0):
+        return prefetch_to_device(
+            src.batches(tr_idx if shuffle else va_idx, bs, shuffle=shuffle,
+                        seed=seed + (epoch if shuffle else 0),
+                        drop_last=shuffle, reuse_buffers=reuse, want=want),
+            device=dev, sync_transfers=reuse)
+    return raw_batches, C.SignalConfig(), True, 64
+
+
 def train_multimodal(ckpt_dir: str,
                      device: Optional[Union[str, torch.device]] = None,
                      epochs: int = 3, batch_size: Optional[int] = None,
@@ -284,20 +343,12 @@ def train_multimodal(ckpt_dir: str,
                      data_root: Optional[str] = None,
                      n_folds: int = C.N_FOLDS, limit: Optional[int] = None,
                      workers: int = 8, npy_dir: Optional[str] = None,
-                     loggers: Optional[list] = None):
+                     loggers: Optional[list] = None,
+                     init_from: Optional[str] = None):
     """The JAX CLI's ``train-multimodal`` loop.
 
-    Without ``data_root`` (``--demo``): 24 rows of synthetic raw EEG (20,
-    2000) with NaNs and 80×60 spectrogram planes (``data.dummy``), one-hot
-    targets, the model on 600-sample windows, every row in both splits,
-    batches of 8 (or ``batch_size``), preprocessed on the NaN route.
-
-    With ``data_root``, an HMS dataset tree: fold 0 of
-    :func:`multimodal_fold0`, batches of ``TrainerConfig().batch_size``
-    (256, or ``batch_size``) gathered by the host library
-    (``MultimodalSource.batches``; on the card into two reused buffers,
-    with synced transfers), the full-width model, the finite route
-    (the cache's windows are NaN-repaired).
+    The data (demo without ``data_root``, else fold 0 of the HMS tree under
+    it) are :func:`_multimodal_data`'s, the model on its signal.
 
     Each train batch (shuffled with ``seed + epoch``, prefetched to the
     device) is mirrored when ``augment``, preprocessed on the device, and
@@ -305,48 +356,21 @@ def train_multimodal(ckpt_dir: str,
     draws keyed on (``seed + 1``, epoch, batch); then
     ``Trainer.train_eval`` with Adam at the configured learning rate,
     checkpoints under ``<ckpt_dir>/multimodal``, ``resume``, ``loggers``
-    (``log_loss(loss, step)`` on the first batch of every 50).  Returns
-    ``(trainer, best_kldiv)``.  The per-epoch LIME snapshots of the JAX
+    (``log_loss(loss, step)`` on the first batch of every 50).
+    ``init_from`` grafts the best branch checkpoints that
+    :func:`train_branch` wrote under that directory into the model before
+    the first step (:func:`init_from_branches`).  Returns ``(trainer,
+    best_kldiv)``.  The per-epoch LIME snapshots of the JAX
     command wait for the LIME port (pass ``epoch_callbacks`` instead)."""
-    from .data import (batch_iterator, prefetch_to_device, synthetic_raw_eeg,
-                       synthetic_raw_spectrogram)
     from .ops import mirror_eeg, spectrogram_augment
     from .train import (Trainer, TrainerConfig, create_train_state,
                         initialize_kaiming_weights, make_optimizer)
     from .train.steps import fold_in
 
     dev = resolve_device(device)
-    if data_root is None:
-        rng = np.random.default_rng(seed)
-        raw_eeg = synthetic_raw_eeg(DEMO_ROWS, rng, n_points=DEMO_POINTS)
-        raw_spec = synthetic_raw_spectrogram(DEMO_ROWS, rng, shape=DEMO_PLANE)
-        y = np.eye(6, dtype=np.float32)[np.arange(DEMO_ROWS) % 6]
-        arrays = {"eeg": raw_eeg, "spec": raw_spec, "y": y}
-        bs = batch_size or 8
-        signal, finite, kern_length = DEMO_SIGNAL, False, 16
-
-        def raw_batches(shuffle: bool, epoch: int = 0):
-            return prefetch_to_device(
-                batch_iterator(arrays, bs, shuffle=shuffle,
-                               seed=seed + (epoch if shuffle else 0)),
-                device=dev)
-    else:
-        src, tr_idx, va_idx = multimodal_fold0(data_root, ckpt_dir, seed,
-                                               n_folds, limit, workers,
-                                               npy_dir)
-        bs = batch_size or C.TrainerConfig().batch_size
-        signal, finite, kern_length = C.SignalConfig(), True, 64
-        # on the card the host gathers into two reused buffers, which the
-        # synced transfers make safe; on the CPU a tensor shares its array
-        reuse = dev.type == "cuda"
-
-        def raw_batches(shuffle: bool, epoch: int = 0):
-            return prefetch_to_device(
-                src.batches(tr_idx if shuffle else va_idx, bs,
-                            shuffle=shuffle,
-                            seed=seed + (epoch if shuffle else 0),
-                            drop_last=shuffle, reuse_buffers=reuse),
-                device=dev, sync_transfers=reuse)
+    raw_batches, signal, finite, kern_length = _multimodal_data(
+        ckpt_dir, dev, seed, batch_size, data_root, n_folds, limit, workers,
+        npy_dir)
 
     aug_key = torch.Generator().manual_seed(seed + 1)
 
@@ -368,6 +392,8 @@ def train_multimodal(ckpt_dir: str,
     model = build_train_model(samples=signal.fixed_length,
                               kern_length=kern_length, dtype=dtype)
     initialize_kaiming_weights(model, torch.Generator().manual_seed(seed))
+    if init_from is not None:
+        init_from_branches(model, init_from)
     state = create_train_state(model.to(dev),
                                make_optimizer(C.TrainerConfig().lr))
     cfg = TrainerConfig(epochs=epochs, seed=seed, resume=resume,
@@ -376,6 +402,158 @@ def train_multimodal(ckpt_dir: str,
                       epoch_callbacks=epoch_callbacks, loggers=loggers)
     _, best, _ = trainer.train_eval(train_iter, val_iter)
     return trainer, best
+
+
+# ---------------------------------------------------------------------------
+# branch pretraining and the handoff into the multimodal model
+
+#: the zoo models that take each branch's input (``--arch`` of
+#: ``train-eeg`` / ``train-spectrogram``), and each branch's default: the
+#: multimodal model's own branch
+BRANCH_ARCHS = {
+    "eeg": ("eegnet", "eegnet_attention_deep",
+            "eegnet_attention_regularized", "eegnet_residual",
+            "eegnet_residual_lstm", "eegnet_transformer",
+            "eeg_seizure_detection", "deepconvnet"),
+    "spectrogram": ("spectrogram_cnn", "spectrogram_vit", "efficientnet_b0",
+                    "efficientnetv2_b2"),
+}
+BRANCH_DEFAULT = {"eeg": "eegnet_attention_regularized",
+                  "spectrogram": "spectrogram_cnn"}
+
+
+def _check_arch(which: str, arch: Optional[str]) -> str:
+    """``arch`` (default: the multimodal model's branch), validated against
+    the branch's list with the JAX CLI's message."""
+    if which not in BRANCH_ARCHS:
+        raise ValueError(f"unknown branch {which!r}; choose from "
+                         f"{tuple(BRANCH_ARCHS)}")
+    arch = arch or BRANCH_DEFAULT[which]
+    if arch not in BRANCH_ARCHS[which]:
+        raise ValueError(f"--arch {arch!r} is not a {which}-branch model; "
+                         f"choose from {BRANCH_ARCHS[which]}")
+    return arch
+
+
+def branch_model(which: str, arch: Optional[str] = None,
+                 signal: C.SignalConfig = C.SignalConfig(),
+                 kern_length: int = 64, seed: int = 42) -> torch.nn.Module:
+    """The model ``train_branch`` trains, on the CPU: ``build(arch)`` with
+    the keyword arguments it takes of ``samples`` = the signal's window and
+    ``kern_length`` (EEG) or ``image_size`` (spectrogram), with the
+    weights torch draws at construction from ``seed`` (uniform in
+    ±1/√fan_in on the convs and dense layers: the scale of flax's
+    LeCun-normal default, which the JAX CLI's branch models start from)."""
+    import inspect
+
+    from .models import REGISTRY
+
+    cls = REGISTRY[_check_arch(which, arch)]
+    offered = ({"samples": signal.fixed_length, "kern_length": kern_length}
+               if which == "eeg" else {"image_size": signal.image_size})
+    params = inspect.signature(cls).parameters
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return cls(**{k: v for k, v in offered.items() if k in params})
+
+
+def train_branch(which: str, ckpt_dir: str, arch: Optional[str] = None,
+                 device: Optional[Union[str, torch.device]] = None,
+                 epochs: int = 3, batch_size: Optional[int] = None,
+                 seed: int = 42, data_root: Optional[str] = None,
+                 augment: bool = False, resume: bool = False,
+                 n_folds: int = C.N_FOLDS, limit: Optional[int] = None,
+                 workers: int = 8, npy_dir: Optional[str] = None,
+                 loggers: Optional[list] = None):
+    """The JAX CLI's ``train-eeg`` / ``train-spectrogram`` (``which`` =
+    ``"eeg"`` or ``"spectrogram"``): one modality's model trained alone.
+
+    ``arch`` (a :data:`BRANCH_ARCHS` name; default
+    :data:`BRANCH_DEFAULT`, the multimodal model's branch) is checked before any data work.  The data are
+    :func:`_multimodal_data`'s with only this modality gathered; each train
+    batch is mirrored when ``augment`` (EEG), then preprocessed on the
+    device (``hms_eeg_preprocess`` on the demo's NaN route or the real
+    data's finite route; ``hms_spectrogram_preprocess``).  The model is
+    :func:`branch_model`'s; ``Trainer.train_eval`` with Adam at
+    ``TrainerConfig().lr``, the L2 term at λ = 1e-3 and
+    ``ReduceLROnPlateau`` on the validation loss; checkpoints under
+    ``<ckpt_dir>/<which>``, where the run then writes ``ARCH`` (the arch's
+    name) for :func:`init_from_branches`.  Returns ``(history,
+    best_kldiv)``.  Training curves are not plotted."""
+    from .ops import (hms_eeg_preprocess, hms_spectrogram_preprocess,
+                      mirror_eeg)
+    from .train import (ReduceLROnPlateau, Trainer, TrainerConfig,
+                        create_train_state, make_optimizer)
+
+    arch = _check_arch(which, arch)
+    dev = resolve_device(device)
+    key = "eeg" if which == "eeg" else "spec"
+    raw_batches, signal, finite, kern_length = _multimodal_data(
+        ckpt_dir, dev, seed, batch_size, data_root, n_folds, limit, workers,
+        npy_dir, want=(key,))
+
+    @torch.no_grad()
+    def pp(raw: torch.Tensor) -> torch.Tensor:
+        if which == "eeg":
+            return hms_eeg_preprocess(raw, signal=signal,
+                                      assume_finite=finite)
+        return hms_spectrogram_preprocess(raw, signal=signal)
+
+    def train_iter(epoch: int = 0):
+        for b in raw_batches(True, epoch):
+            raw = mirror_eeg(b[key]) if augment and which == "eeg" else b[key]
+            yield {"x": pp(raw), "y": b["y"]}
+
+    def val_iter():
+        for b in raw_batches(False):
+            yield {"x": pp(b[key]), "y": b["y"]}
+
+    lr = C.TrainerConfig().lr
+    model = branch_model(which, arch, signal, kern_length, seed)
+    state = create_train_state(model.to(dev), make_optimizer(lr))
+    cfg = TrainerConfig(epochs=epochs, seed=seed, resume=resume,
+                        l2_lambda=1e-3, hyperparams={"optimizer": "adam"},
+                        plateau=ReduceLROnPlateau(lr))
+    trainer = Trainer(state, cfg, ckpt_dir=f"{ckpt_dir}/{which}",
+                      loggers=loggers)
+    _, best, _ = trainer.train_eval(train_iter, val_iter)
+    with open(os.path.join(ckpt_dir, which, "ARCH"), "w") as f:
+        f.write(arch + "\n")
+    return trainer.history, best
+
+
+def init_from_branches(model: MultimodalModel, init_dir: str
+                       ) -> MultimodalModel:
+    """Graft the best checkpoints of :func:`train_branch` under
+    ``init_dir`` (``eeg/`` and ``spectrogram/``) into ``model``'s
+    ``eeg_model`` and ``spectrogram_model``: parameters and BatchNorm
+    statistics.  A branch pretrained with another arch than the
+    multimodal model's raises ``ValueError``; a missing branch directory
+    warns and is skipped.  Returns ``model``."""
+    import warnings
+
+    from .train import CheckpointManager
+
+    for which, sub in (("eeg", "eeg_model"),
+                       ("spectrogram", "spectrogram_model")):
+        ckpt_dir = os.path.join(init_dir, which)
+        if not os.path.isdir(ckpt_dir):
+            warnings.warn(f"no {which} branch checkpoint under {init_dir}")
+            continue
+        marker = os.path.join(ckpt_dir, "ARCH")
+        expected = BRANCH_DEFAULT[which]
+        if os.path.exists(marker):
+            with open(marker) as f:
+                arch = f.read().strip()
+            if arch != expected:
+                raise ValueError(
+                    f"--init-from: the {which} branch under {ckpt_dir} was "
+                    f"pretrained with --arch {arch}, but the multimodal "
+                    f"model's {which} branch is {expected}; repretrain "
+                    f"without --arch for the handoff")
+        best = CheckpointManager(ckpt_dir).load("best-kldiv")["model"]
+        getattr(model, sub).load_state_dict(best)
+    return model
 
 
 # ---------------------------------------------------------------------------
@@ -490,8 +668,9 @@ def grid_search(data_root: str, ckpt_dir: str,
     """The JAX CLI's ``grid-search``: :func:`wavenet_training_set` (window
     cache in ``ckpt_dir``), then ``train.parallel_grid_search`` of the full
     ``DilatedInceptionWaveNet()`` over ``grid`` (default
-    :data:`DEFAULT_GRID`) with the KLDiv loss, every candidate in one
-    vmapped step (candidate g's weights drawn from ``seed + g``),
+    :data:`DEFAULT_GRID`) with the KLDiv loss, every candidate through
+    one step over the stacked candidates (candidate g's weights drawn from
+    ``seed + g``),
     ``epochs`` passes over batches of ``batch_size`` shuffled with
     ``seed``.  Returns ``(best, ranked results)``."""
     from .data import batch_iterator

@@ -245,3 +245,95 @@ class SpectrogramBlock(nn.Module):
             identity = bilinear_resize(identity, x.shape[2:])
             identity = _conv(self.conv1x1, identity)
         return x + identity
+
+
+class MultiheadSelfAttention(nn.Module):
+    """Multi-head self-attention with ``nn.MultiheadAttention``'s keys
+    (``in_proj_weight`` (3D, D) packing q, k, v; ``in_proj_bias``;
+    ``out_proj``), batch-first, the counterpart of flax's
+    ``MultiHeadDotProductAttention(qkv_features=D)``: softmax(q·kᵀ/√d_h)
+    per head, made explicitly so the per-head weights (B, H, L, L) come
+    back beside the output (attention rollout reads them).  In training
+    mode the weights pass a :class:`Dropout` of rate ``dropout``.
+    Returns ``(output (B, L, D), weights (B, H, L, L))``."""
+
+    def __init__(self, dim: int, n_heads: int, dropout: float = 0.0):
+        super().__init__()
+        if dim % n_heads:
+            raise ValueError(f"width {dim} is not a multiple of {n_heads} "
+                             "heads")
+        self.n_heads = n_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
+        self.out_proj = nn.Linear(dim, dim)
+        self.dropout = Dropout(dropout)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def l2_extra(self) -> list:
+        """The packed q/k/v kernel, which the L2 term covers as flax's
+        ``query``/``key``/``value`` kernels."""
+        return [self.in_proj_weight]
+
+    def forward(self, x: torch.Tensor):
+        b, n, dim = x.shape
+        h = self.n_heads
+        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        q, k, v = qkv.view(b, n, 3, h, dim // h).permute(2, 0, 3, 1, 4)
+        scores = (q * (dim // h) ** -0.5) @ k.transpose(-2, -1)
+        weights = torch.softmax(scores, dim=-1)               # (B, H, L, L)
+        out = self.dropout(weights) @ v                       # (B, H, L, d_h)
+        out = self.out_proj(out.transpose(1, 2).reshape(b, n, dim))
+        return out, weights
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Post-LN transformer encoder layer with torch's defaults and key
+    names (``self_attn``, ``linear1``, ``linear2``, ``norm1``, ``norm2``):
+    ReLU feed-forward of ``dim_feedforward``, LayerNorm eps 1e-5,
+    batch-first (B, L, D), dropout on the attention weights, the two
+    residual branches and the feed-forward's hidden layer."""
+
+    def __init__(self, d_model: int, n_heads: int,
+                 dim_feedforward: int = 2048, dropout: float = 0.5):
+        super().__init__()
+        self.self_attn = MultiheadSelfAttention(d_model, n_heads, dropout)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.dropout = Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, _ = self.self_attn(x)
+        x = self.norm1(x + self.dropout(a))
+        h = self.linear2(self.dropout(F.relu(self.linear1(x))))
+        return self.norm2(x + self.dropout(h))
+
+
+class LSTM(nn.LSTM):
+    """One-layer ``nn.LSTM(batch_first=True)`` over (B, T, D) from a zero
+    state, returning the whole sequence (B, T, H·dirs): the counterpart of
+    flax's ``nn.RNN(OptimizedLSTMCell)`` (gates i, f, g, o; flax's one
+    bias a gate sits in ``bias_hh``, and ``bias_ih`` is zero when the
+    weights come from flax).  :class:`BiLSTM` is its bidirectional form,
+    the two directions' states (each in input order) concatenated."""
+
+    def __init__(self, input_size: int, hidden: int,
+                 bidirectional: bool = False):
+        super().__init__(input_size, hidden, batch_first=True,
+                         bidirectional=bidirectional)
+
+    def l2_extra(self) -> list:
+        """The input and hidden kernels (flax's ``ii``…``ho`` kernels)."""
+        return [p for n, p in self.named_parameters()
+                if n.startswith("weight_")]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x)[0]
+
+
+class BiLSTM(LSTM):
+    """Bidirectional :class:`LSTM`, (B, T, 2H)."""
+
+    def __init__(self, input_size: int, hidden: int):
+        super().__init__(input_size, hidden, bidirectional=True)

@@ -2,7 +2,7 @@
 metrics, learning-rate schedules, the optimizer and train state, train and
 eval steps with the NaN sentinel, the epoch-loop trainer, checkpoints,
 cross-validation, checkpoint analysis, the DiffEEG diffusion trainer and
-the vmapped grid search."""
+the grid search."""
 
 from .losses import (kldiv_with_logits, kldiv_with_log_probs,  # noqa: F401
                      cross_entropy_with_logits, l2_regularization)

@@ -43,9 +43,17 @@ def l2_weights(model: nn.Module) -> list:
     and ``nn.Linear`` (the flax ``kernel`` leaves; the attention's query,
     key and value and the fusion head's ``fc1``/``fc2`` included).  The
     BatchNorm affine, every bias and the buffers are left out; selected by
-    module type, since BatchNorm's scale is a ``weight`` too."""
-    return [m.weight for m in model.modules()
-            if isinstance(m, (nn.Conv2d, nn.Linear))]
+    module type, since BatchNorm's scale is a ``weight`` too.  A module
+    with other kernels names them in ``l2_extra()`` (the packed attention
+    kernel, the LSTM's kernels, the ViT's positional embedding: flax's
+    ``kernel`` and ``embedding`` leaves)."""
+    out = []
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            out.append(m.weight)
+        if hasattr(m, "l2_extra"):
+            out.extend(m.l2_extra())
+    return out
 
 
 def l2_regularization(model: nn.Module, lam: float) -> torch.Tensor:

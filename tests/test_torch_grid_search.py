@@ -1,8 +1,9 @@
-"""The port's vmapped grid search against the JAX package's: the step over
-stacked candidates (``make_grid_step``) from carried weights against optax
-``inject_hyperparams(adam)`` vmapped over the same candidates (float64 on
-both sides, rel 1e-5), and ``parallel_grid_search``'s ranked output, which
-has the JAX function's shape."""
+"""The port's grid search against the JAX package's: the step over stacked
+candidates (``make_grid_step``, a loop over the candidates) from carried
+weights against optax ``inject_hyperparams(adam)`` vmapped over the same
+candidates (float64 on both sides, rel 1e-5) and bitwise against each
+candidate's ``make_train_step``, and ``parallel_grid_search``'s ranked
+output, which has the JAX function's shape."""
 
 import jax
 import jax.numpy as jnp
@@ -116,7 +117,7 @@ def test_parallel_grid_search_ranks_and_has_jax_shape():
     of the grid values and ``loss``, the keys and order of the JAX
     function's, ranked by the last step's loss, the best first; each
     candidate's loss is the one it reaches trained alone with the port's
-    Adam (rel 1e-4: one vmapped conv against four)."""
+    Adam (rel 1e-4)."""
     x, y = _data(4, seed=1)
     grid = {"lr": [1e-3, 1e-2], "gamma": [0.5, 0.9]}
 
@@ -150,3 +151,40 @@ def test_parallel_grid_search_ranks_and_has_jax_shape():
         got = next(r for r in results
                    if (r["lr"], r["gamma"]) == pytest.approx((lr, g)))
         assert got["loss"] == pytest.approx(float(metrics["loss"]), rel=1e-4)
+
+
+@pytest.mark.parametrize("lr_col", [0, None])
+def test_grid_step_is_the_train_step_per_candidate(lr_col):
+    """The step over the stacked candidates runs each candidate through
+    the arithmetic of ``train.make_train_step``: three candidates, two
+    steps, each candidate's losses, parameters and Adam state bitwise equal
+    to the same candidate trained alone at its learning rate (the
+    optimizer's 1e-3 when ``lr_col`` is None); the stacks given to a step
+    are left as they were."""
+    x, y = _data(8, seed=2)
+    hp = np.array([[1e-3], [3e-3], [1e-2]], np.float32)
+    port = tm.DilatedInceptionWaveNet(**SMALL)
+    params, opt = tt.init_candidates(port, 3, seed=5)
+    step = tt.make_grid_step(port, tt.kldiv_with_logits, lr_col=lr_col)
+    batches = [(torch.from_numpy(x[s:s + 4]), torch.from_numpy(y[s:s + 4]))
+               for s in (0, 4)]
+    losses = []
+    for bx, by in batches:
+        kept = {n: v.clone() for n, v in params.items()}
+        new, opt, loss = step(params, opt, torch.from_numpy(hp), bx, by)
+        assert all(torch.equal(params[n], kept[n]) for n in params)
+        params = new
+        losses.append(loss)
+    for g in range(3):
+        m = tm.DilatedInceptionWaveNet(**SMALL)
+        m.load_state_dict(tm.seeded_state_dict(m, 5 + g))
+        lr = hp[g, 0] if lr_col is not None else 1e-3
+        state = tt.create_train_state(m, tt.make_optimizer(lr))
+        one = tt.make_train_step()
+        for k, (bx, by) in enumerate(batches):
+            state, metrics = one(state, {"x": bx, "y": by})
+            assert torch.equal(losses[k][g], metrics["loss"])
+        for name, prm in m.named_parameters():
+            assert torch.equal(params[name][g], prm.detach()), name
+        for key in ("mu", "nu", "count"):
+            assert torch.equal(opt[key][g], state.opt_state[key]), key

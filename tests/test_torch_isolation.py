@@ -72,6 +72,13 @@ def test_port_runs_with_jax_blocked():
         "import grid_search\n"
         "from multimodal_brain_pattern_identification_xai_tpu_torch.runtime "
         "import loader\n"
+        "from multimodal_brain_pattern_identification_xai_tpu_torch.models "
+        "import REGISTRY, build, deepconvnet, efficientnet, eegnet, vit\n"
+        "from multimodal_brain_pattern_identification_xai_tpu_torch.xai "
+        "import channel_select, rollout\n"
+        "from multimodal_brain_pattern_identification_xai_tpu_torch.entry "
+        "import train_branch, init_from_branches\n"
+        "assert len(REGISTRY) == 15\n"
         "loader._lib()\n"
         "fwd, args = entry(device='cpu', batch=2, assume_finite=True)\n"
         "out = fwd(*args)\n"
