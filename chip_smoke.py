@@ -130,6 +130,18 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
               transformer against the CPU; (f) ``retrain_on_top_channels``
               (N=5, 2 epochs) ranked by gradient SHAP of (b)'s model; a
               ``{"zoo": ...}`` line.
+15. cli      — the command line in-process (``cli.main``) on phase 13's
+              tree at full width: (a) ``train-multimodal --epochs 1
+              --one-fold --lime-every 1``, then ``predict`` over every row
+              at B=256 with ``--fused-spec 2`` and ``0``, both held against
+              ``entry.make_forward`` of the best checkpoint (1e-3, argmax
+              where the top two are apart), rows/s end to end, the
+              forward's ms a batch, the LIME snapshot's ms; (b) ``predict
+              --eval``; (c) ``xai --fused-spec 2 --limit 8``, LIME's ridge
+              weights against the unfused branch, each method's ms; (d)
+              ``sanity-check --epochs 5``, ``dump-config`` where PyYAML
+              imports, the "plot skipped" lines without matplotlib; a
+              ``{"cli": ...}`` line.
 
 Output: a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, then the
 last line ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` are
@@ -139,7 +151,8 @@ the main path's (phase 4; phase 5 for the wide kernel), and for
 (IIR rows) phase 10's training path, ``diffusion_launches``
 (``iir_sosfilt``) phase 12's ``train_diffeeg`` run, ``realdata_launches``
 (IIR rows) phase 13's four paths summed, ``zoo_launches`` (IIR rows) phase
-14's paths summed.  Needs one card; imports
+14's paths summed, ``cli_launches`` (every row) phase 15's commands
+summed.  Needs one card; imports
 nothing of JAX.
 """
 
@@ -148,6 +161,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import logging
 import os
 import re
 import shutil
@@ -196,6 +210,7 @@ GRAPH_ATOL = 1e-6
 # reach the output damped by the weights
 BF16_PLAIN_REL = 1e-2
 DUTY_REL = 1e-4                  # duty kernel vs plain (exact bf16 products)
+SUSTAIN_MAX_S = 30.0             # longest wait for an SM clock reading
 # Training step at full width, B=4, card vs CPU (float32, TF32 off; both
 # also against the CPU in float64).  float32 itself is this far from
 # float64 here (CPU, one step; BatchNorm's E[x²] − E[x]² cancels at 200x150
@@ -1592,12 +1607,15 @@ def phase_train(card: str, dev) -> dict:
 
 
 def _sustained(fn, ms: float):
-    """``fn``'s mean device time (CUDA events) over ~1 s of back-to-back
-    launches (``ms`` each, a first estimate), and the SM clock (MHz)
-    nvidia-smi reports meanwhile: the median of the readings a polling
-    thread finished before the launches drained.  Under a sustained
-    tensor-core load the card may hold its clock below the maximum to stay
-    within its power limit, so time and clock come from one window."""
+    """``fn``'s mean device time (CUDA events) over back-to-back launches
+    (``ms`` each, a first estimate), and the SM clock (MHz) nvidia-smi
+    reports meanwhile: the median of the readings a polling thread finished
+    before the launches drained, and how many there were.  The launches go
+    in rounds of ~1 s until at least one reading has finished (one
+    nvidia-smi call may itself take a second or more), for at most
+    ``SUSTAIN_MAX_S``.  Under a sustained tensor-core load the card may
+    hold its clock below the maximum to stay within its power limit, so
+    time and clock come from one window."""
     samples, busy = [], threading.Event()
 
     def poll():
@@ -1614,16 +1632,25 @@ def _sustained(fn, ms: float):
     busy.set()
     thread = threading.Thread(target=poll)
     thread.start()
+    t0, n, done = time.perf_counter(), 0, 0
     start.record()
-    for _ in range(reps):
-        fn()
+    while True:
+        for _ in range(reps):
+            fn()
+        n += reps
+        torch.cuda.synchronize()
+        done = len(samples)
+        waited = time.perf_counter() - t0
+        if (done > 0 and waited >= 1.0) or waited > SUSTAIN_MAX_S:
+            break
     end.record()
     torch.cuda.synchronize()
-    done = len(samples)
     busy.clear()
     thread.join()
-    require(done > 0, "no SM clock reading while the duty kernel ran")
-    return start.elapsed_time(end) / reps, float(np.median(samples[:done]))
+    require(done > 0, f"no SM clock reading in {waited:.1f} s of the duty "
+            "kernel's launches")
+    return (start.elapsed_time(end) / n, float(np.median(samples[:done])),
+            done)
 
 
 def phase_convprobe(card: str, dev) -> dict:
@@ -1633,8 +1660,8 @@ def phase_convprobe(card: str, dev) -> dict:
     counted; then each shape's time and TFLOP/s beside its bounds by
     operations and by shared memory (at the SM clock read during its run),
     the plain version, and the R library products as one CUDA graph (and
-    eagerly).  A shape's ms is the mean over ~1 s of back-to-back launches,
-    with the SM clock read in that window (:func:`_sustained`)."""
+    eagerly).  A shape's ms is the mean over at least ~1 s of back-to-back
+    launches, with the SM clock read in that window (:func:`_sustained`)."""
     from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
         cuda_duty)
     n, r_check, r_run = 16384, 4, 512
@@ -1671,7 +1698,7 @@ def phase_convprobe(card: str, dev) -> dict:
     tot = dict(err=0.0, **{key: 0.0 for key in keys}, shapes=[])
     for (co, k), (w, p, err, e) in ops.items():
         run = lambda: cuda_duty.duty(w, p, r_run)
-        ms, mhz = _sustained(run, cuda_ms(run, 3))
+        ms, mhz, readings = _sustained(run, cuda_ms(run, 3))
         plain_ms = cuda_ms(lambda: cuda_duty._plain_duty(w, p, r_run), 5)
         mm = lambda: torch.mm(w, p, out_dtype=torch.float32)
         lib_ms = r_run * graph_ms(mm, r_run)
@@ -1685,11 +1712,13 @@ def phase_convprobe(card: str, dev) -> dict:
               f"{r_check} (bound {DUTY_REL}); R={r_run}: {ms:.4f} ms = "
               f"{flops / ms / 1e9:.2f} TFLOP/s ({b_ms / ms:.4f} of 989); "
               f"bound {b_ms:.4f} ms by operations, {s_ms:.4f} ms by shared "
-              f"memory at {mhz:.0f} MHz SM clock; plain f32 {plain_ms:.4f} "
-              f"ms; torch.mm bf16->f32 x R as one graph {lib_ms:.4f} ms, "
+              f"memory at {mhz:.0f} MHz SM clock ({readings} readings); "
+              f"plain f32 {plain_ms:.4f} ms; torch.mm bf16->f32 x R as one "
+              f"graph {lib_ms:.4f} ms, "
               f"eager {lib_eager_ms:.4f} ms [{card}]")
         shape = dict(co=co, k=k, ms=ms, tflops=flops / ms / 1e9,
                      bound_ms=b_ms, smem_bound_ms=s_ms, sm_clock_mhz=mhz,
+                     sm_clock_readings=readings,
                      plain_ms=plain_ms, library_ms=lib_ms,
                      library_eager_ms=lib_eager_ms, max_abs_err=err)
         tot["shapes"].append(shape)
@@ -2853,6 +2882,309 @@ def phase_zoo(card: str, dev, tmp: str) -> dict:
     print(json.dumps({"zoo": rec}, default=float))
     return rec["launches"]
 
+# The command line (phase 15), in-process through ``cli.main`` on phase
+# 13's tree at full width: float32 with TF32 off.  Fused against unfused
+# predictions and both against ``entry.make_forward`` of the same weights
+# within CLI_PROB_ATOL in every probability; the argmax equal wherever the
+# top two differ by more than CLI_ARGMAX_GAP; LIME's ridge weights with
+# the branch fused against unfused within CLI_LIME_REL of the largest
+# |weight|.  The probabilities pass five spectrogram blocks of float32
+# convolutions in other algorithms (the fused kernel's 3xTF32 against
+# cuDNN), ~1e-6 apart on the card (phase 4 holds log-probs to 1e-3).
+CLI_PROB_ATOL, CLI_ARGMAX_GAP, CLI_LIME_REL = 1e-3, 2e-3, 1e-3
+CLI_BATCH = 256
+
+
+class _Recorder:
+    """Wrap ``getattr(obj, name)`` while the context is open, keeping every
+    call's arguments and result in ``calls``."""
+
+    def __init__(self, obj, name: str):
+        self.obj, self.name, self.calls = obj, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.obj, self.name)
+
+        def wrapped(*args, **kwargs):
+            out = self.orig(*args, **kwargs)
+            self.calls.append((args, kwargs, out))
+            return out
+        setattr(self.obj, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.orig)
+
+
+class _LogLines(logging.Handler):
+    """The records a logger emits while the context is open."""
+
+    def __init__(self, name: str):
+        super().__init__()
+        self.logger = logging.getLogger(name)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+
+
+def _cli(args: list, reset, read, echo: bool = True) -> tuple:
+    """``cli.main(args)`` with its standard output kept (and echoed), the
+    launch counts set to 0 just before and read just after.  Returns (the
+    output, the counts, the wall seconds); a non-zero exit fails."""
+    import contextlib
+    import io
+
+    from multimodal_brain_pattern_identification_xai_tpu_torch import cli
+    buf = io.StringIO()
+    reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read()
+    out = buf.getvalue()
+    for line in out.splitlines() if echo else ():
+        print(f"[cli]   | {line}")
+    require(rc == 0, f"cli {args[0]} exited {rc}")
+    return out, counts, wall
+
+
+def _read_predictions(path: str):
+    import csv
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    return rows[0], np.asarray([[float(v) for v in r[1:7]] for r in rows[1:]]
+                               ), [r[7] for r in rows[1:]]
+
+
+def phase_cli(card: str, dev, tmp: str) -> dict:
+    """The command line on phase 13's tree (``tmp/hms``; its window cache
+    and ``.npy`` planes linked into the checkpoint directory), at full
+    width, through ``cli.main``:
+
+    (a) ``train-multimodal --epochs 1 --one-fold --lime-every 1`` (fold 0:
+        4 steps at B=256 and one LIME snapshot of 150 perturbations), then
+        ``predict`` over every row at B=256 with ``--fused-spec 2`` and
+        ``--fused-spec 0``, both held against ``entry.make_forward`` of the
+        best checkpoint on the same rows; rows/s end to end, the forward's
+        ms a batch and the snapshot's ms;
+    (b) ``predict --eval`` and its metrics line;
+    (c) ``xai --fused-spec 2 --limit 8``: LIME's ridge weights against the
+        same ``lime_explain`` run with the branch unfused; each method's
+        ms (``xai_report.json``);
+    (d) ``sanity-check --epochs 5``; ``dump-config`` where PyYAML imports;
+        without matplotlib the "plot skipped" lines in place of the images.
+
+    Each command's launch counts are set to 0 just before it and read just
+    after (a captured graph's replays run no wrapper: a capture counts its
+    warm-up and captured calls).  Prints the ``{"cli": ...}`` line;
+    returns the launches by kernel name summed over the commands."""
+    import importlib.util
+
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        cli, config as C, entry, xai)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.train import (
+        CheckpointManager)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.xai import (
+        callbacks)
+    reset, read = _counters()
+    t_phase = time.perf_counter()
+    tree, work = f"{tmp}/hms", _workdir(f"{tmp}/hms", f"{tmp}/cli")
+    os.symlink(f"{tree}/npy", f"{work}/spectrograms_npy")
+    base = ["--ckpt-dir", work, "--set", f"paths.data_root={tree}",
+            "--seed", str(RD_SEED)]
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    rec, launches = {"card": card, "matplotlib": has_mpl}, []
+
+    # (a) -----------------------------------------------------------------
+    snap_ms = []
+    orig_call = callbacks.LimeEpochSnapshot.__call__
+
+    def timed_call(self, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig_call(self, *a)
+        torch.cuda.synchronize()
+        snap_ms.append((time.perf_counter() - t0) * 1e3)
+    callbacks.LimeEpochSnapshot.__call__ = timed_call
+    try:
+        with _LogLines(f"{PKG}.utils.plotting") as skipped:
+            out, counts, wall = _cli(["train-multimodal", *base, "--epochs",
+                                      "1", "--one-fold", "--lime-every", "1"],
+                                     reset, read)
+    finally:
+        callbacks.LimeEpochSnapshot.__call__ = orig_call
+    launches.append(counts)
+    rec["a_train"] = {"wall_s": wall, "lime_snapshot_ms": snap_ms,
+                      "launches": counts}
+    require("lime snapshots: 1" in out and len(snap_ms) == 1,
+            "(a) train-multimodal: no LIME snapshot")
+    require(has_mpl or any("multimodal_training_curves" in m
+                           for m in skipped.lines),
+            f"(a) no plot-skipped line: {skipped.lines}")
+
+    src, _, _ = entry.multimodal_fold0(tree, work, RD_SEED,
+                                       npy_dir=f"{tree}/npy")
+    n = len(src)
+    best = CheckpointManager(f"{work}/multimodal").load("best-kldiv")["model"]
+    model = entry.build_model()
+    model.load_state_dict(best)
+    ref_fwd = entry.make_forward(model.to(dev), assume_finite=True)
+    want = []
+    for b in src.batches(np.arange(n), CLI_BATCH, drop_last=False):
+        want.append(ref_fwd(torch.from_numpy(b["eeg"]).to(dev),
+                            torch.from_numpy(b["spec"]).to(dev)
+                            ).exp().cpu().numpy())
+    want = np.concatenate(want)
+    del model
+    got, rates = {}, {}
+    for fused in (2, 0):
+        out, counts, wall = _cli(["predict", *base, "--fused-spec",
+                                  str(fused)], reset, read)
+        launches.append(counts)
+        header, probs, names = _read_predictions(f"{work}/predictions.csv")
+        m = re.search(r"predict: (\d+) rows in ([\d.]+) s \(([\d.]+) rows/s"
+                      r".*forward ([\d.]+) ms a batch", out)
+        require(m is not None and int(m.group(1)) == n,
+                f"(a) predict --fused-spec {fused}: no rate line")
+        rates[fused] = {"rows_per_s": float(m.group(3)),
+                        "forward_ms_a_batch": float(m.group(4)),
+                        "loop_s": float(m.group(2)), "wall_s": wall,
+                        "launches": counts}
+        got[fused] = probs
+        require(header == ["eeg_id", *(f"p_{c}" for c in C.CLASSES),
+                           "predicted_class"] and probs.shape == (n, 6)
+                and np.isfinite(probs).all(),
+                f"(a) predict --fused-spec {fused}: {header} {probs.shape}")
+    top2 = np.sort(want, 1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > CLI_ARGMAX_GAP
+    errs = {f"fused{k}_vs_make_forward": float(np.abs(v - want).max())
+            for k, v in got.items()}
+    errs["fused2_vs_fused0"] = float(np.abs(got[2] - got[0]).max())
+    same_argmax = all(bool((v.argmax(1) == want.argmax(1))[clear].all())
+                      for v in got.values())
+    rec["a_predict"] = {**rates, "max_abs_err": errs,
+                        "argmax_equal_where_clear": same_argmax,
+                        "clear_rows": int(clear.sum())}
+    print(f"[cli] (a) train-multimodal (fold 0, 1 epoch, B={CLI_BATCH}, "
+          f"LIME snapshot {snap_ms[0]:.1f} ms) {rec['a_train']['wall_s']:.2f}"
+          f" s; predict over {n} rows at B={CLI_BATCH}: --fused-spec 2 "
+          f"{rates[2]['rows_per_s']:.1f} rows/s end to end, forward "
+          f"{rates[2]['forward_ms_a_batch']:.3f} ms a batch; --fused-spec 0 "
+          f"{rates[0]['rows_per_s']:.1f} rows/s, "
+          f"{rates[0]['forward_ms_a_batch']:.3f} ms; probabilities max abs "
+          f"{errs} (bound {CLI_PROB_ATOL}); argmax equal on the "
+          f"{int(clear.sum())} rows whose top two differ by > "
+          f"{CLI_ARGMAX_GAP}: {same_argmax} [{card}]")
+    require(max(errs.values()) < CLI_PROB_ATOL and same_argmax,
+            f"(a) predictions differ: {errs}, argmax {same_argmax}")
+
+    # (b) -----------------------------------------------------------------
+    with _LogLines(f"{PKG}.utils.plotting") as skipped:
+        out, counts, wall = _cli(["predict", *base, "--fused-spec", "2",
+                                  "--eval"], reset, read)
+    launches.append(counts)
+    m = re.search(r"eval over \d+ rows: .*", out)
+    require(m is not None, "(b) predict --eval: no metrics line")
+    rec["b"] = {"metrics": m.group(0), "wall_s": wall, "launches": counts}
+    require(has_mpl or any("confusion_matrix" in x for x in skipped.lines),
+            f"(b) no plot-skipped line: {skipped.lines}")
+
+    # (c) -----------------------------------------------------------------
+    # LIME's forwards: the model's share of its perturbed passes, timed
+    # inside the predict function the command builds
+    orig_pf, lime_models, model_ms = callbacks.spectrogram_predict_fn, [], []
+
+    def timed_pf(model, device):
+        lime_models.append(model)
+        inner = orig_pf(model, device)
+
+        def predict(batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(batch)
+            model_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return predict
+    callbacks.spectrogram_predict_fn = timed_pf
+    try:
+        with _Recorder(xai, "lime_explain") as lime:
+            out, counts, wall = _cli(["xai", *base, "--fused-spec", "2",
+                                      "--limit", "8"], reset, read)
+    finally:
+        callbacks.spectrogram_predict_fn = orig_pf
+    launches.append(counts)
+    with open(f"{work}/xai_report.json") as f:
+        report = json.load(f)
+    (_, img), kw, res = lime.calls[0]
+    fused_model = lime_models[0]
+    unfused = entry.build_model(fused_blocks=0)
+    unfused.load_state_dict(fused_model.state_dict())
+    unfused.to(dev).requires_grad_(False)
+    ref = xai.lime_explain(callbacks.spectrogram_predict_fn(unfused, dev),
+                           img, segments=kw["segments"],
+                           num_samples=kw["num_samples"], seed=kw["seed"])
+    scale = float(np.abs(ref["weights"]).max())
+    lime_err = float(np.abs(res["weights"] - ref["weights"]).max()) / scale
+    rec["c"] = {**report, "lime_weights_rel_err": lime_err,
+                "lime_label_unfused": ref["label"], "wall_s": wall,
+                "lime_model_ms": sum(model_ms), "launches": counts}
+    print(f"[cli] (c) xai --fused-spec 2 --limit 8: times (ms) "
+          f"{report['times_ms']}, of LIME's forwards the model's "
+          f"{sum(model_ms):.1f} ms ({len(model_ms)} calls, host images to "
+          f"probabilities); LIME label {res['label']} (unfused "
+          f"{ref['label']}), ridge weights fused vs unfused max abs "
+          f"{lime_err:.3e} of the largest (bound {CLI_LIME_REL}); "
+          f"{wall:.2f} s [{card}]")
+    require(lime_err < CLI_LIME_REL and res["label"] == ref["label"]
+            and report["explained"] == 8,
+            f"(c) LIME fused vs unfused: {lime_err}, labels {res['label']} "
+            f"{ref['label']}")
+    del unfused, fused_model, lime, lime_models
+
+    # (d) -----------------------------------------------------------------
+    with _LogLines(f"{PKG}.utils.plotting") as skipped:
+        out, counts, wall = _cli(["sanity-check", "--ckpt-dir", work,
+                                  "--epochs", "5"], reset, read)
+    mse = [float(v) for v in re.findall(r"mse ([\d.]+)", out)]
+    rec["d"] = {"sanity_mse": mse, "wall_s": wall}
+    require(len(mse) == 2 and all(np.isfinite(mse)) and mse[1] < mse[0],
+            f"(d) sanity-check: {mse}")
+    shots = [f"sanity_recon_epoch{e}" for e in (0, 4)]
+    require(all(os.path.exists(f"{work}/{s}.png") for s in shots) if has_mpl
+            else all(any(s in x for x in skipped.lines) for s in shots),
+            f"(d) sanity-check images: {skipped.lines}")
+    if importlib.util.find_spec("yaml") is not None:
+        out, _, _ = _cli(["dump-config", "--set",
+                          f"paths.data_root={tree}"], reset, read, echo=False)
+        require(f"data_root: {tree}" in out, "(d) dump-config")
+        rec["d"]["dump_config"] = "printed"
+    else:
+        rec["d"]["dump_config"] = "skipped: no PyYAML"
+    print(f"[cli] (d) sanity-check --epochs 5: mse {mse}; dump-config "
+          f"{rec['d']['dump_config']}; matplotlib "
+          f"{'present' if has_mpl else 'absent (plot-skipped lines held)'}")
+
+    # (e) -----------------------------------------------------------------
+    rec["launches"] = {k: sum(c[k] for c in launches) for k in launches[0]}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[cli] (e) launches over the commands {rec['launches']}; phase "
+          f"{rec['phase_s']:.1f} s")
+    print(json.dumps({"cli": rec}, default=float))
+    require(rec["launches"]["iir_sosfilt_rolldec"] > 0
+            and rec["launches"]["specblock_convpool"] > 0,
+            f"(e) launches {rec['launches']}")
+    return rec["launches"]
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2868,6 +3200,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     clock = [time.perf_counter()]
+    t_start = clock[0]
 
     def done(phase: str) -> None:
         now = time.perf_counter()
@@ -2908,6 +3241,8 @@ def main() -> int:
         done("realdata")
         zoo_launches = phase_zoo(card, dev, tmp)
         done("zoo")
+        cli_launches = phase_cli(card, dev, tmp)
+        done("cli")
 
     xai_tpu = "multimodal_brain_pattern_identification_xai_tpu"
     src = {"iir_sosfilt": (f"{PKG}/csrc/iir.cu",
@@ -2968,6 +3303,8 @@ def main() -> int:
             k["realdata_launches"] = realdata_launches[k["name"]]
         if k["name"] in zoo_launches:
             k["zoo_launches"] = zoo_launches[k["name"]]
+        k["cli_launches"] = cli_launches.get(k["name"], 0)
+    print(f"[time] total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

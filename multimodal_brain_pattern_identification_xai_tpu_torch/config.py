@@ -1,15 +1,20 @@
-"""Configuration subset of the ported slices.
+"""The typed configuration tree.
 
-A copy of the channel and class vocabulary, the preprocessing, augmentation,
-trainer and DiffEEG dataclasses of the JAX package's ``config.py`` (the port
-imports nothing from that package).  Values reproduce the reference's
-defaults.
+A copy of the JAX package's ``config.py`` (the port imports nothing from
+that package): the channel and class vocabulary, the preprocessing,
+augmentation, trainer, DiffEEG, path and mesh dataclasses, the root
+:class:`Config`, and its YAML loading with ``key.path=value`` overrides
+(:func:`load_config`, :func:`dump_yaml`).  Values reproduce the
+reference's defaults.  PyYAML is imported only to read or write a YAML
+file; overrides need no YAML.
 """
 
 from __future__ import annotations
 
+import ast
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 #: Raw parquet column order, incl. EKG.
 EEG_COLUMNS: Tuple[str, ...] = (
@@ -191,20 +196,170 @@ N_FOLDS: int = 5
 
 @dataclass(frozen=True)
 class PathsConfig:
-    """The HMS dataset's locations: ``train.csv``, the EEG parquet
-    directory and the spectrogram parquet directory (the JAX package's
-    ``PathsConfig`` with ``${data_root}`` resolved)."""
-    data_root: str
-    train_csv: str
-    train_eegs: str
-    train_spectr: str
+    """The HMS dataset's and the run's locations: ``train.csv``, the EEG
+    parquet directory and the spectrogram parquet directory under
+    ``data_root`` (``${data_root}`` is resolved by :func:`load_config`),
+    and the artifact directories."""
+    data_root: str = "/data/hms"
+    train_csv: str = "${data_root}/train.csv"
+    train_eegs: str = "${data_root}/train_eegs/"
+    train_spectr: str = "${data_root}/train_spectrograms/"
+    checkpoint_dir: str = "checkpoints"
+    log_dir: str = "logs"
+    plot_dir: str = "plots"
 
     @classmethod
     def at(cls, data_root: str) -> "PathsConfig":
-        """The dataset's standard layout under ``data_root``."""
-        return cls(data_root, f"{data_root}/train.csv",
-                   f"{data_root}/train_eegs/",
-                   f"{data_root}/train_spectrograms/")
+        """The dataset's standard layout under ``data_root``, resolved."""
+        return cls(data_root=data_root, train_csv=f"{data_root}/train.csv",
+                   train_eegs=f"{data_root}/train_eegs/",
+                   train_spectr=f"{data_root}/train_spectrograms/")
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh axes of the parallel programs (data only: nothing of
+    the port uses it before the parallel slice)."""
+    data: int = -1                    # -1 → all remaining devices
+    model: int = 1                    # tensor-parallel axis
+    seq: int = 1                      # sequence-parallel axis
+
+
+@dataclass(frozen=True)
+class Config:
+    """Root config object."""
+    seed: int = 42
+    debug: bool = False
+    augment: bool = False
+    validation_frac: float = 0.4
+    n_folds: int = N_FOLDS
+    paths: PathsConfig = field(default_factory=PathsConfig)
+    signal: SignalConfig = field(default_factory=SignalConfig)
+    bandpass: BandpassConfig = field(default_factory=BandpassConfig)
+    eeg_transform: EEGTransformConfig = field(
+        default_factory=EEGTransformConfig)
+    hms: HMSPreprocessConfig = field(default_factory=HMSPreprocessConfig)
+    trainer: TrainerConfig = field(default_factory=TrainerConfig)
+    diffeeg: DiffEEGConfig = field(default_factory=DiffEEGConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+
+    # the vocabulary, kept on the object so callers need no globals
+    classes: Tuple[str, ...] = CLASSES
+    eeg_columns: Tuple[str, ...] = EEG_COLUMNS
+    eeg_features: Tuple[str, ...] = EEG_FEATURES
+    map_features: Tuple[Tuple[str, str], ...] = MAP_FEATURES
+
+    @property
+    def n_classes(self) -> int:
+        return len(self.classes)
+
+    @property
+    def n_model_channels(self) -> int:
+        """Channels the HMS EEG models see: 19 scalp + 18 bipolar = 37."""
+        return len(self.eeg_features) + len(self.map_features)
+
+
+# ---------------------------------------------------------------------------
+# YAML / command-line loading
+
+def _interp(value: Any, root: Dict[str, Any]) -> Any:
+    """``${key}`` string interpolation from the document's top-level
+    string values."""
+    if isinstance(value, str):
+        for k, v in root.items():
+            if isinstance(v, str):
+                value = value.replace("${%s}" % k, v)
+    return value
+
+
+def _deep_tuple(v: Any) -> Any:
+    if isinstance(v, (list, tuple)):
+        return tuple(_deep_tuple(x) for x in v)
+    return v
+
+
+def _update_dataclass(obj: Any, updates: Dict[str, Any]) -> Any:
+    """Recursively apply a dict of overrides onto a (frozen) dataclass."""
+    if not dataclasses.is_dataclass(obj):
+        return updates
+    kwargs = {}
+    for f in dataclasses.fields(obj):
+        if f.name in updates:
+            cur = getattr(obj, f.name)
+            upd = updates[f.name]
+            if dataclasses.is_dataclass(cur) and isinstance(upd, dict):
+                kwargs[f.name] = _update_dataclass(cur, upd)
+            elif isinstance(cur, tuple) and isinstance(upd, list):
+                # YAML has no tuples: keep tuple-typed fields (vocabulary,
+                # montage pairs, image_size) hashable on reload
+                kwargs[f.name] = _deep_tuple(upd)
+            else:
+                kwargs[f.name] = upd
+    return dataclasses.replace(obj, **kwargs)
+
+
+def dump_yaml(cfg: Config) -> str:
+    """A :class:`Config` as YAML that :func:`load_config` reads back, the
+    paths under ``data_root`` written as ``${data_root}/...`` so that a
+    reloaded file follows a ``paths.data_root`` override.  Needs PyYAML."""
+    import yaml
+
+    def clean(o: Any) -> Any:
+        if dataclasses.is_dataclass(o):
+            return {f.name: clean(getattr(o, f.name))
+                    for f in dataclasses.fields(o)}
+        if isinstance(o, (list, tuple)):
+            return [clean(x) for x in o]
+        return o
+
+    doc = clean(cfg)
+    root = doc["paths"].get("data_root", "")
+    if root:
+        for k, v in doc["paths"].items():
+            if k != "data_root" and isinstance(v, str) \
+                    and v.startswith(root):
+                doc["paths"][k] = "${data_root}" + v[len(root):]
+    return yaml.safe_dump(doc, sort_keys=False, width=78)
+
+
+def load_config(path: Optional[str] = None,
+                overrides: Optional[Sequence[str]] = None) -> Config:
+    """A :class:`Config`: the defaults, then the YAML file at ``path``
+    (needs PyYAML), then ``key.subkey=value`` overrides (Python literals,
+    YAML's ``true``/``false``, else the string), then ``${data_root}``
+    resolved in the path fields."""
+    cfg = Config()
+    if path is not None:
+        import yaml
+        with open(path) as f:
+            raw = yaml.safe_load(f) or {}
+        flat = {k: v for k, v in raw.items() if isinstance(v, str)}
+        raw = {k: _interp(v, flat) for k, v in raw.items()}
+        cfg = _update_dataclass(cfg, raw)
+    for ov in overrides or ():
+        key, _, val = ov.partition("=")
+        try:
+            pyval: Any = ast.literal_eval(val)
+        except (ValueError, SyntaxError):
+            # ``--set diffeeg.amp=false`` must not become the truthy
+            # string "false"
+            pyval = {"true": True, "false": False}.get(val.lower(), val)
+        parts = key.split(".")
+        d: Dict[str, Any] = {parts[-1]: pyval}
+        for p in reversed(parts[:-1]):
+            d = {p: d}
+        cfg = _update_dataclass(cfg, d)
+    # after the overrides, so that ``paths.data_root=...`` moves every
+    # derived path
+    paths = cfg.paths
+    resolved = {
+        f.name: getattr(paths, f.name).replace("${data_root}",
+                                               paths.data_root)
+        for f in dataclasses.fields(paths)
+        if isinstance(getattr(paths, f.name), str)
+    }
+    return dataclasses.replace(cfg, paths=dataclasses.replace(
+        paths, **resolved))
 
 
 def feature_to_index(columns: Sequence[str] = EEG_COLUMNS) -> Dict[str, int]:

@@ -16,12 +16,14 @@ backward, Adam) and :func:`train_multimodal` the JAX CLI's
 ``train-multimodal`` loop, on its ``--demo`` arrays or, with
 ``data_root``, on an HMS dataset tree (``init_from``: the branch
 checkpoints of :func:`train_branch`, the JAX CLI's ``train-eeg`` /
-``train-spectrogram``, grafted in first).  :func:`train_wavenet` and
-:func:`grid_search` are the JAX CLI's ``train-wavenet`` (cross-validated
-``DilatedInceptionWaveNet``) and ``grid-search`` on such a tree.
+``train-spectrogram``, grafted in first; ``lime_every``: the per-epoch
+LIME snapshots).  :func:`train_wavenet` and :func:`grid_search` are the
+JAX CLI's ``train-wavenet`` (cross-validated ``DilatedInceptionWaveNet``)
+and ``grid-search`` on such a tree or on given arrays.
 :func:`train_diffeeg` and :func:`generate` are the JAX CLI's
-``train-diffeeg`` and ``generate``.  Runs on CUDA unless the caller passes
-``device="cpu"``.
+``train-diffeeg`` and ``generate``, :func:`sanity_check` its
+``sanity-check``.  The command line (``cli``) wraps them all.  Runs on
+CUDA unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -48,15 +50,17 @@ CAPTURE_WARMUP = 2
 
 
 def build_model(samples: int = 3000, kern_length: int = 64,
-                dtype: Optional[torch.dtype] = None) -> MultimodalModel:
+                dtype: Optional[torch.dtype] = None,
+                fused_blocks: int = FUSED_BLOCKS) -> MultimodalModel:
     """The serving model in eval mode, on the CPU, default-initialised
     (load weights with ``load_state_dict``): the EEGNet stem reassociated
-    for inference, spectrogram blocks 1-2 fused, and the spectrogram branch
-    in ``dtype`` (None: float32; the parameters are float32 either way)."""
+    for inference, spectrogram blocks 1 to ``fused_blocks`` fused (the
+    command line's ``--fused-spec``), and the spectrogram branch in
+    ``dtype`` (None: float32; the parameters are float32 either way)."""
     model = MultimodalModel(
         EEGNetAttentionRegularized(samples=samples, kern_length=kern_length,
                                    fused_inference=True),
-        SpectrogramCNN(fused_blocks=FUSED_BLOCKS, dtype=dtype))
+        SpectrogramCNN(fused_blocks=fused_blocks, dtype=dtype))
     return model.eval()
 
 
@@ -258,17 +262,25 @@ DEMO_ROWS, DEMO_POINTS, DEMO_PLANE = 24, 2000, (80, 60)
 DEMO_SIGNAL = C.SignalConfig(fixed_length=600, image_size=DEMO_PLANE)
 
 
-def multimodal_fold0(data_root: str, ckpt_dir: str, seed: int = 0,
-                     n_folds: int = C.N_FOLDS, limit: Optional[int] = None,
-                     workers: int = 8, npy_dir: Optional[str] = None):
+def _paths(data_root: Union[str, C.PathsConfig]) -> C.PathsConfig:
+    """A dataset tree's paths: given, or the standard layout under a
+    directory."""
+    return (data_root if isinstance(data_root, C.PathsConfig)
+            else C.PathsConfig.at(data_root))
+
+
+def multimodal_fold0(data_root: Union[str, C.PathsConfig], ckpt_dir: str,
+                     seed: int = 0, n_folds: int = C.N_FOLDS,
+                     limit: Optional[int] = None, workers: int = 8,
+                     npy_dir: Optional[str] = None):
     """``train-multimodal``'s real data: ``data.multimodal_source`` over
-    the tree under ``data_root`` (window cache in ``ckpt_dir``,
-    spectrograms from ``npy_dir`` where given) and fold 0 of the
-    stratified ``n_folds`` split on the expert consensus.  Returns
-    ``(source, train rows, validation rows)``."""
+    the tree under ``data_root`` (a directory, or a ``PathsConfig``;
+    window cache in ``ckpt_dir``, spectrograms from ``npy_dir`` where
+    given) and fold 0 of the stratified ``n_folds`` split on the expert
+    consensus.  Returns ``(source, train rows, validation rows)``."""
     from .data import multimodal_source
     from .train import stratified_kfold
-    src = multimodal_source(C.PathsConfig.at(data_root), cache_dir=ckpt_dir,
+    src = multimodal_source(_paths(data_root), cache_dir=ckpt_dir,
                             n_workers=workers, npy_dir=npy_dir, limit=limit)
     labels = np.asarray([C.NAME2LABEL[c]
                          for c in src.meta["expert_consensus"]])
@@ -277,16 +289,20 @@ def multimodal_fold0(data_root: str, ckpt_dir: str, seed: int = 0,
 
 
 def _multimodal_data(ckpt_dir: str, dev: torch.device, seed: int,
-                     batch_size: Optional[int], data_root: Optional[str],
+                     batch_size: Optional[int],
+                     data_root: Optional[Union[str, C.PathsConfig]],
                      n_folds: int, limit: Optional[int], workers: int,
                      npy_dir: Optional[str],
-                     want: Sequence[str] = ("eeg", "spec")):
+                     want: Sequence[str] = ("eeg", "spec"),
+                     signal: Optional[C.SignalConfig] = None):
     """The data of ``train-multimodal`` and the branch-pretraining
     commands (the JAX CLI's ``_multimodal_data``): ``(raw_batches,
-    signal, finite route, EEGNet kern_length)``, where
+    signal, finite route, EEGNet kern_length, first_val)``, where
     ``raw_batches(shuffle, epoch=0)`` yields raw batches of the ``want``
     modalities and ``y`` on ``dev``: the training rows shuffled with
-    ``seed + epoch`` (whole batches) or the validation rows in order.
+    ``seed + epoch`` (whole batches) or the validation rows in order; and
+    ``first_val()`` gives the first validation row's raw arrays (a batch
+    of one, numpy, both modalities).
 
     Without ``data_root`` (``--demo``): 24 rows of synthetic raw EEG (20,
     2000) with NaNs and 80×60 spectrogram planes (``data.dummy``), one-hot
@@ -295,8 +311,9 @@ def _multimodal_data(ckpt_dir: str, dev: torch.device, seed: int,
     ``data_root``: fold 0 of :func:`multimodal_fold0`, batches of
     ``TrainerConfig().batch_size`` (256, or ``batch_size``) gathered by
     the host library (``MultimodalSource.batches``; on the card into two
-    reused buffers, with synced transfers), the full-width signal and the
-    finite route (the cache's windows are NaN-repaired)."""
+    reused buffers, with synced transfers), ``signal`` (default the
+    full-width ``SignalConfig()``) and the finite route (the cache's
+    windows are NaN-repaired)."""
     from .data import (batch_iterator, prefetch_to_device, synthetic_raw_eeg,
                        synthetic_raw_spectrogram)
 
@@ -315,7 +332,10 @@ def _multimodal_data(ckpt_dir: str, dev: torch.device, seed: int,
                 batch_iterator(arrays, bs, shuffle=shuffle,
                                seed=seed + (epoch if shuffle else 0)),
                 device=dev)
-        return raw_batches, DEMO_SIGNAL, False, 16
+
+        def first_val():
+            return {"eeg": raw_eeg[:1], "spec": raw_spec[:1], "y": y[:1]}
+        return raw_batches, DEMO_SIGNAL, False, 16, first_val
 
     src, tr_idx, va_idx = multimodal_fold0(data_root, ckpt_dir, seed,
                                            n_folds, limit, workers, npy_dir)
@@ -330,7 +350,10 @@ def _multimodal_data(ckpt_dir: str, dev: torch.device, seed: int,
                         seed=seed + (epoch if shuffle else 0),
                         drop_last=shuffle, reuse_buffers=reuse, want=want),
             device=dev, sync_transfers=reuse)
-    return raw_batches, C.SignalConfig(), True, 64
+
+    def first_val():
+        return src.gather(va_idx[:1])
+    return raw_batches, signal or C.SignalConfig(), True, 64, first_val
 
 
 def train_multimodal(ckpt_dir: str,
@@ -344,7 +367,9 @@ def train_multimodal(ckpt_dir: str,
                      n_folds: int = C.N_FOLDS, limit: Optional[int] = None,
                      workers: int = 8, npy_dir: Optional[str] = None,
                      loggers: Optional[list] = None,
-                     init_from: Optional[str] = None):
+                     init_from: Optional[str] = None,
+                     signal: Optional[C.SignalConfig] = None,
+                     lime_every: int = 0):
     """The JAX CLI's ``train-multimodal`` loop.
 
     The data (demo without ``data_root``, else fold 0 of the HMS tree under
@@ -359,18 +384,25 @@ def train_multimodal(ckpt_dir: str,
     (``log_loss(loss, step)`` on the first batch of every 50).
     ``init_from`` grafts the best branch checkpoints that
     :func:`train_branch` wrote under that directory into the model before
-    the first step (:func:`init_from_branches`).  Returns ``(trainer,
-    best_kldiv)``.  The per-epoch LIME snapshots of the JAX
-    command wait for the LIME port (pass ``epoch_callbacks`` instead)."""
-    from .ops import mirror_eeg, spectrogram_augment
+    the first step (:func:`init_from_branches`).  ``data_root`` may be a
+    ``PathsConfig``; ``signal`` sets the real data's plane (default
+    ``SignalConfig()``).  ``lime_every`` = N > 0 appends the JAX
+    command's per-epoch LIME snapshot (``xai.LimeEpochSnapshot``, 40
+    segments, 150 perturbations, seeded with ``seed``) on the first
+    validation row's preprocessed spectrogram, every N epochs, overlays
+    under ``<ckpt_dir>/lime``; it runs after ``epoch_callbacks``.  Returns
+    ``(trainer, best_kldiv)``; the snapshot is
+    ``trainer.epoch_callbacks[-1]``."""
+    from .ops import (hms_spectrogram_preprocess, mirror_eeg,
+                      spectrogram_augment)
     from .train import (Trainer, TrainerConfig, create_train_state,
                         initialize_kaiming_weights, make_optimizer)
     from .train.steps import fold_in
 
     dev = resolve_device(device)
-    raw_batches, signal, finite, kern_length = _multimodal_data(
+    raw_batches, signal, finite, kern_length, first_val = _multimodal_data(
         ckpt_dir, dev, seed, batch_size, data_root, n_folds, limit, workers,
-        npy_dir)
+        npy_dir, signal=signal)
 
     aug_key = torch.Generator().manual_seed(seed + 1)
 
@@ -398,8 +430,17 @@ def train_multimodal(ckpt_dir: str,
                                make_optimizer(C.TrainerConfig().lr))
     cfg = TrainerConfig(epochs=epochs, seed=seed, resume=resume,
                         hyperparams={"optimizer": "adam"})
+    callbacks = list(epoch_callbacks or [])
+    if lime_every:
+        from .xai import LimeEpochSnapshot
+        with torch.no_grad():
+            sample = hms_spectrogram_preprocess(
+                torch.as_tensor(first_val()["spec"]).to(dev), signal=signal)
+        callbacks.append(LimeEpochSnapshot(
+            sample[0].cpu().numpy(), f"{ckpt_dir}/lime", every=lime_every,
+            n_segments=40, num_samples=150, seed=seed))
     trainer = Trainer(state, cfg, ckpt_dir=f"{ckpt_dir}/multimodal",
-                      epoch_callbacks=epoch_callbacks, loggers=loggers)
+                      epoch_callbacks=callbacks, loggers=loggers)
     _, best, _ = trainer.train_eval(train_iter, val_iter)
     return trainer, best
 
@@ -464,7 +505,8 @@ def train_branch(which: str, ckpt_dir: str, arch: Optional[str] = None,
                  augment: bool = False, resume: bool = False,
                  n_folds: int = C.N_FOLDS, limit: Optional[int] = None,
                  workers: int = 8, npy_dir: Optional[str] = None,
-                 loggers: Optional[list] = None):
+                 loggers: Optional[list] = None,
+                 signal: Optional[C.SignalConfig] = None):
     """The JAX CLI's ``train-eeg`` / ``train-spectrogram`` (``which`` =
     ``"eeg"`` or ``"spectrogram"``): one modality's model trained alone.
 
@@ -478,8 +520,9 @@ def train_branch(which: str, ckpt_dir: str, arch: Optional[str] = None,
     ``TrainerConfig().lr``, the L2 term at λ = 1e-3 and
     ``ReduceLROnPlateau`` on the validation loss; checkpoints under
     ``<ckpt_dir>/<which>``, where the run then writes ``ARCH`` (the arch's
-    name) for :func:`init_from_branches`.  Returns ``(history,
-    best_kldiv)``.  Training curves are not plotted."""
+    name) for :func:`init_from_branches`.  ``data_root`` and ``signal``
+    as in :func:`train_multimodal`.  Returns ``(history, best_kldiv)``;
+    the command line plots the curves."""
     from .ops import (hms_eeg_preprocess, hms_spectrogram_preprocess,
                       mirror_eeg)
     from .train import (ReduceLROnPlateau, Trainer, TrainerConfig,
@@ -488,9 +531,9 @@ def train_branch(which: str, ckpt_dir: str, arch: Optional[str] = None,
     arch = _check_arch(which, arch)
     dev = resolve_device(device)
     key = "eeg" if which == "eeg" else "spec"
-    raw_batches, signal, finite, kern_length = _multimodal_data(
+    raw_batches, signal, finite, kern_length, _ = _multimodal_data(
         ckpt_dir, dev, seed, batch_size, data_root, n_folds, limit, workers,
-        npy_dir, want=(key,))
+        npy_dir, want=(key,), signal=signal)
 
     @torch.no_grad()
     def pp(raw: torch.Tensor) -> torch.Tensor:
@@ -582,16 +625,17 @@ def transform_windows(raw: np.ndarray, tcfg: C.EEGTransformConfig,
     return np.concatenate(outs)
 
 
-def wavenet_training_set(data_root: str, ckpt_dir: str,
-                         device: Union[str, torch.device],
+def wavenet_training_set(data_root: Union[str, C.PathsConfig],
+                         ckpt_dir: str, device: Union[str, torch.device],
                          limit: Optional[int] = None, workers: int = 8
                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """``train-wavenet``'s and ``grid-search``'s data from the tree under
-    ``data_root``: ``data.wavenet_arrays`` (window cache in ``ckpt_dir``),
-    then :data:`WAVENET_TRANSFORM` on ``device``.  Returns ``(x (N, 2000,
-    8), y (N, 6) soft targets, groups (N,) patient ids)``."""
+    ``data_root`` (a directory or a ``PathsConfig``):
+    ``data.wavenet_arrays`` (window cache in ``ckpt_dir``), then
+    :data:`WAVENET_TRANSFORM` on ``device``.  Returns ``(x (N, 2000, 8),
+    y (N, 6) soft targets, groups (N,) patient ids)``."""
     from .data import wavenet_arrays
-    src = wavenet_arrays(C.PathsConfig.at(data_root), cache_dir=ckpt_dir,
+    src = wavenet_arrays(_paths(data_root), cache_dir=ckpt_dir,
                          n_workers=workers, limit=limit)
     x = transform_windows(src["x"], WAVENET_TRANSFORM, device)
     return x, src["y"].astype(np.float32), src["groups"]
@@ -607,29 +651,80 @@ def wavenet_model(seed: int = 42) -> torch.nn.Module:
     return model
 
 
-def train_wavenet(data_root: str, ckpt_dir: str,
+def load_generated_pools(augment_dir: str, length: int,
+                         device: Union[str, torch.device]
+                         ) -> Dict[int, np.ndarray]:
+    """``generate``'s ``generated_class_{c}.npy`` pools under
+    ``augment_dir`` ((M, 19, length) windows in the transformed 19-channel
+    space) mapped into the WaveNet's input space: the magic-8 bipolar
+    differences on ``device``, clipped at ±32 (the bound the real chain's
+    clip and scale guarantee).  A missing file or one of another shape is
+    skipped with a printed warning, as the JAX command does."""
+    from .ops import chris_magic_ch8
+    gen = {}
+    for c in range(C.N_CLASSES):
+        path = os.path.join(augment_dir, f"generated_class_{c}.npy")
+        if not os.path.exists(path):
+            print(f"warning: {path} missing")
+            continue
+        arr = np.load(path)
+        if arr.ndim != 3 or arr.shape[1] != len(C.EEG_FEATURES) \
+                or arr.shape[2] != length:
+            print(f"warning: {path} shape {arr.shape} does not match the "
+                  f"19-channel/{length}-pt transformed space; skipping")
+            continue
+        with torch.no_grad():
+            g8 = chris_magic_ch8(torch.as_tensor(
+                arr.transpose(0, 2, 1), dtype=torch.float32).to(device),
+                columns=C.EEG_FEATURES)
+        gen[c] = np.clip(g8.cpu().numpy(), -32.0, 32.0).astype(np.float32)
+    return gen
+
+
+def train_wavenet(data_root: Optional[Union[str, C.PathsConfig]],
+                  ckpt_dir: str,
                   device: Optional[Union[str, torch.device]] = None,
                   epochs: int = 3, batch_size: int = 16, seed: int = 42,
                   n_folds: int = C.N_FOLDS, one_fold: bool = False,
                   resume: bool = False, limit: Optional[int] = None,
-                  workers: int = 8, loggers: Optional[list] = None):
-    """The JAX CLI's ``train-wavenet``: :func:`wavenet_training_set`, then
+                  workers: int = 8, loggers: Optional[list] = None,
+                  raw: Optional[np.ndarray] = None,
+                  y: Optional[np.ndarray] = None,
+                  groups: Optional[np.ndarray] = None,
+                  augment_dir: Optional[str] = None):
+    """The JAX CLI's ``train-wavenet``: :func:`wavenet_training_set` (or,
+    with ``data_root`` None, ``raw`` (N, L, 19 or 20) µV windows with soft
+    labels ``y`` and patient ``groups`` through
+    :data:`WAVENET_TRANSFORM`), then, with ``augment_dir``, the generated
+    pools of :func:`load_generated_pools` merged in by
+    ``diffusion.augment_dataset_balanced`` (seeded with ``seed``), then
     the patient-grouped ``n_folds`` split and ``train.run_cv`` (fold 0
     only with ``one_fold``): each fold trains :func:`wavenet_model` with
     Adam under a cosine schedule with 10 warm-up steps to
     ``TrainerConfig().lr``, batches of ``batch_size`` shuffled with
     ``seed + epoch``, checkpoints under ``<ckpt_dir>/wavenet_fold{k}``.
     The out-of-fold predictions go to ``<ckpt_dir>/oof.npy``.  Returns
-    ``(oof, fold scores)``.  The JAX command's ``--augment-dir`` (generated
-    windows merged into the set) is not ported."""
+    ``(oof, fold scores)``."""
     from .data import batch_iterator
     from .train import (Trainer, TrainerConfig, cosine_schedule_with_warmup,
                         create_train_state, group_kfold, make_optimizer,
                         run_cv)
 
     dev = resolve_device(device)
-    x, y, groups = wavenet_training_set(data_root, ckpt_dir, dev, limit,
-                                        workers)
+    if data_root is not None:
+        x, y, groups = wavenet_training_set(data_root, ckpt_dir, dev, limit,
+                                            workers)
+    else:
+        x = transform_windows(raw, WAVENET_TRANSFORM, dev)
+        y = np.asarray(y, np.float32)
+    if augment_dir:
+        from .diffusion import augment_dataset_balanced
+        n_real = len(x)
+        x, y, groups = augment_dataset_balanced(
+            x, y, load_generated_pools(augment_dir, x.shape[1], dev),
+            seed=seed, groups=groups)
+        print(f"augmented dataset: {n_real} real + {len(x) - n_real} "
+              f"synthetic samples")
     splits = group_kfold(groups, n_splits=n_folds)
     lr = C.TrainerConfig().lr
 
@@ -660,31 +755,39 @@ def train_wavenet(data_root: str, ckpt_dir: str,
     return oof, scores
 
 
-def grid_search(data_root: str, ckpt_dir: str,
+def grid_search(data_root: Optional[Union[str, C.PathsConfig]],
+                ckpt_dir: str,
                 device: Optional[Union[str, torch.device]] = None,
                 grid: Optional[Dict[str, Sequence[float]]] = None,
                 epochs: int = 2, batch_size: int = 16, seed: int = 42,
-                limit: Optional[int] = None, workers: int = 8):
+                limit: Optional[int] = None, workers: int = 8,
+                x: Optional[np.ndarray] = None,
+                y: Optional[np.ndarray] = None,
+                model: Optional[torch.nn.Module] = None):
     """The JAX CLI's ``grid-search``: :func:`wavenet_training_set` (window
-    cache in ``ckpt_dir``), then ``train.parallel_grid_search`` of the full
-    ``DilatedInceptionWaveNet()`` over ``grid`` (default
-    :data:`DEFAULT_GRID`) with the KLDiv loss, every candidate through
-    one step over the stacked candidates (candidate g's weights drawn from
-    ``seed + g``),
-    ``epochs`` passes over batches of ``batch_size`` shuffled with
-    ``seed``.  Returns ``(best, ranked results)``."""
+    cache in ``ckpt_dir``; or, with ``data_root`` None, the transformed
+    windows ``x`` (N, L, 8) and soft labels ``y`` as given), then
+    ``train.parallel_grid_search`` of ``model`` (default the full
+    :func:`wavenet_model`) over ``grid`` (default :data:`DEFAULT_GRID`)
+    with the KLDiv loss, every candidate through one step over the stacked
+    candidates (candidate g's weights drawn from ``seed + g``), ``epochs``
+    passes over batches of ``batch_size`` shuffled with ``seed``.  Returns
+    ``(best, ranked results)``."""
     from .data import batch_iterator
     from .train import kldiv_with_logits, parallel_grid_search
 
     dev = resolve_device(device)
-    x, y, _ = wavenet_training_set(data_root, ckpt_dir, dev, limit, workers)
+    if data_root is not None:
+        x, y, _ = wavenet_training_set(data_root, ckpt_dir, dev, limit,
+                                       workers)
 
     def batches():
         return batch_iterator({"x": x, "y": y}, batch_size, shuffle=True,
                               seed=seed)
 
     return parallel_grid_search(
-        wavenet_model(seed), (torch.as_tensor(x[:2]).to(dev),), batches,
+        model if model is not None else wavenet_model(seed),
+        (torch.as_tensor(x[:2]).to(dev),), batches,
         grid or DEFAULT_GRID, kldiv_with_logits, epochs=epochs, seed=seed)
 
 
@@ -737,7 +840,8 @@ def train_diffeeg(ckpt_dir: str,
                   cfg: Optional[C.DiffEEGConfig] = None,
                   steps: Optional[int] = None,
                   batch_size: Optional[int] = None, seed: int = 42,
-                  resume: bool = False, data_root: Optional[str] = None,
+                  resume: bool = False,
+                  data_root: Optional[Union[str, C.PathsConfig]] = None,
                   limit: Optional[int] = None, workers: int = 8):
     """The JAX CLI's ``train-diffeeg``: a :class:`..train.DiffEEGTrainer`
     with step checkpoints under ``<ckpt_dir>/diffeeg``, resumed from the
@@ -758,9 +862,9 @@ def train_diffeeg(ckpt_dir: str,
     skipping the micro-batches already consumed), or, with fewer windows
     than a batch, micro-batch i drawn with replacement by
     ``default_rng((seed, i))``; the first four validation batches.
-    ``data_root`` (an HMS dataset tree, in place of ``raw`` and ``y``)
-    reads them with ``data.wavenet_arrays`` (window cache in ``ckpt_dir``,
-    the first ``limit`` ids when given)."""
+    ``data_root`` (an HMS dataset tree or its ``PathsConfig``, in place of
+    ``raw`` and ``y``) reads them with ``data.wavenet_arrays`` (window
+    cache in ``ckpt_dir``, the first ``limit`` ids when given)."""
     from .runtime import NativeBatchQueue
     from .train import DiffEEGTrainer
 
@@ -769,7 +873,7 @@ def train_diffeeg(ckpt_dir: str,
         if raw is not None:
             raise ValueError("pass raw windows or a data_root, not both")
         from .data import wavenet_arrays
-        src = wavenet_arrays(C.PathsConfig.at(data_root), cache_dir=ckpt_dir,
+        src = wavenet_arrays(_paths(data_root), cache_dir=ckpt_dir,
                              n_workers=workers, limit=limit)
         raw, y = src["x"], src["y"]
     rng = np.random.default_rng(seed)
@@ -878,3 +982,55 @@ def generate(ckpt_dir: str,
         paths[c] = os.path.join(out_dir, f"generated_class_{c}.npy")
         np.save(paths[c], out)
     return paths
+
+
+# ---------------------------------------------------------------------------
+# the sanity check
+
+def sanity_images(seed: int = 42, n: int = 256) -> np.ndarray:
+    """``sanity-check``'s synthetic digits: (n, 28, 28) float32 Gaussian
+    blobs at centres drawn uniformly in [6, 22)² by ``default_rng(seed)``
+    (the JAX command's numpy draws)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:28, 0:28]
+    centers = rng.uniform(6, 22, size=(n, 2))
+    imgs = np.exp(-(((yy[None] - centers[:, :1, None]) ** 2
+                     + (xx[None] - centers[:, 1:, None]) ** 2) / 18.0))
+    return imgs.astype(np.float32)
+
+
+def sanity_check(device: Optional[Union[str, torch.device]] = None,
+                 epochs: int = 50, seed: int = 42,
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 on_epoch: Optional[Callable] = None) -> list:
+    """The JAX CLI's ``sanity-check``: ``DiffEEGSanityCheck(784, 128)``
+    (weights ``state_dict``, default drawn from ``seed`` by
+    :func:`..models.seeded_state_dict`) trained as an autoencoder on
+    :func:`sanity_images`, full batch, by ``train.make_optimizer(1e-3)``
+    (optax's Adam), one step an epoch.  ``on_epoch(epoch, loss, model)``
+    is called after each step (the command plots reconstructions).
+    Returns the loss of every epoch, each before its step."""
+    from .models import DiffEEGSanityCheck
+    from .train import make_optimizer
+    from .train.state import assign_flat, flat
+
+    dev = resolve_device(device)
+    model = DiffEEGSanityCheck(input_dim=784, hidden=128)
+    model.load_state_dict(state_dict if state_dict is not None
+                          else seeded_state_dict(model, seed))
+    model.to(dev)
+    x = torch.as_tensor(sanity_images(seed)).to(dev)
+    params = list(model.parameters())
+    tx = make_optimizer(1e-3)
+    opt = tx.init([p.detach() for p in params])
+    losses = []
+    for epoch in range(epochs):
+        loss = torch.mean((model(x) - x) ** 2)
+        grads = torch.autograd.grad(loss, params)
+        with torch.no_grad():
+            new, opt = tx.update(flat(grads), flat(params), opt)
+            assign_flat(params, new)
+        losses.append(float(loss.detach()))
+        if on_epoch is not None:
+            on_epoch(epoch, losses[-1], model)
+    return losses

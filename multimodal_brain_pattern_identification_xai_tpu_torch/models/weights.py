@@ -375,6 +375,13 @@ def _wavenet(p: Mapping) -> Dict[str, np.ndarray]:
 
 
 #: REGISTRY name → exporter taking (params, batch_stats)
+def _sanity_check(p: Mapping) -> Dict[str, np.ndarray]:
+    sd: Dict[str, np.ndarray] = {}
+    for name in ("enc1", "enc2", "dec1", "dec2"):
+        _dense(sd, name, p[name])
+    return sd
+
+
 _BY_ARCH = {
     "eegnet": _eegnet,
     "eegnet_attention_deep": _eegnet_attention_deep,
@@ -391,6 +398,8 @@ _BY_ARCH = {
     "efficientnetv2_b2": _efficientnet_v2,
     "diffeeg": lambda p, s: _diffeeg(p),
     "diffeeg_legacy": lambda p, s: _diffeeg_legacy(p),
+    # not a REGISTRY model: the sanity check's autoencoder
+    "diffeeg_sanity_check": lambda p, s: _sanity_check(p),
 }
 
 
@@ -424,7 +433,7 @@ def jax_variables_to_state_dict(variables: Mapping[str, Any],
     BatchNorm).
 
     ``arch`` names the model by its ``REGISTRY`` name: every model of the
-    zoo.  Without it the model is detected from the tree's top-level
+    zoo, and ``"diffeeg_sanity_check"`` for ``DiffEEGSanityCheck``.  Without it the model is detected from the tree's top-level
     names, which tells apart only ``EEGNetAttentionRegularized`` (any tree
     with a ``stem``), ``SpectrogramCNN``, ``MultimodalModel``, ``DiffEEG``,
     ``DiffEEGLegacy`` and ``DilatedInceptionWaveNet``."""

@@ -144,3 +144,42 @@ def test_train_entries_without_cuda_raise(monkeypatch, tmp_path, name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         getattr(entry, name)(*args)
     assert not any(tmp_path.iterdir())
+
+
+def test_cli_without_cuda_exits_naming_the_device(monkeypatch, tmp_path,
+                                                  capsys):
+    """``predict --demo`` without a card and without ``--device cpu``
+    stops before any work, naming the device; it does not run on the
+    CPU."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import cli
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main(["predict", "--demo", "--ckpt-dir",
+                     str(tmp_path / "ck")]) != 0
+    err = capsys.readouterr().err
+    assert "no CUDA device" in err and "--device cpu" in err
+    assert not (tmp_path / "ck").exists()
+
+
+def test_cli_runs_with_jax_and_pandas_blocked(tmp_path):
+    """With jax, flax, the JAX package, pandas and pyarrow blocked, the
+    port's command line imports and ``predict --demo --device cpu``
+    writes its ``predictions.csv`` (the ``csv`` module, no pandas)."""
+    code = (
+        "import sys\n"
+        f"for m in {FORBIDDEN + ('pandas', 'pyarrow')!r}: "
+        "sys.modules[m] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from multimodal_brain_pattern_identification_xai_tpu_torch.cli "
+        "import main\n"
+        f"assert main(['predict', '--demo', '--device', 'cpu', "
+        f"'--ckpt-dir', {str(tmp_path)!r}]) == 0\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+    header = (tmp_path / "predictions.csv").read_text().splitlines()[0]
+    assert header.startswith("eeg_id,p_Seizure,") and header.endswith(
+        ",predicted_class")
