@@ -142,6 +142,19 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
               ``sanity-check --epochs 5``, ``dump-config`` where PyYAML
               imports, the "plot skipped" lines without matplotlib; a
               ``{"cli": ...}`` line.
+16. parallel — the parallel programs on a world of every visible card
+              (``parallel.launch.spawn``: NCCL, one card a rank; a world
+              of one runs in this process): (a) ``Trainer(mesh=...)`` on
+              the multimodal training model, f32, B=256, 3 steps, against
+              the same steps without a mesh (bitwise at a world of one),
+              ms a step both ways, the all-reduce's ms and bytes; (b)
+              ``entry.dryrun_multichip(world, device="cuda")``; (c) the
+              full-width long-EEG encoder with rollout over B=2 × one hour
+              (T=720,000) against its single-card forward, ms and peak
+              GiB, then the CLI's ``long-eeg``; (d) sharded IG and SHAP at
+              B=8 over the EEG branch and the fused spectrogram forward
+              against the unsharded functions (1e-6); a ``{"parallel":
+              ...}`` line.
 
 Output: a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, then the
 last line ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` are
@@ -152,12 +165,14 @@ the main path's (phase 4; phase 5 for the wide kernel), and for
 (``iir_sosfilt``) phase 12's ``train_diffeeg`` run, ``realdata_launches``
 (IIR rows) phase 13's four paths summed, ``zoo_launches`` (IIR rows) phase
 14's paths summed, ``cli_launches`` (every row) phase 15's commands
-summed.  Needs one card; imports
+summed, ``parallel_launches`` (every row) phase 16's runs summed over
+its ranks.  Needs one card; imports
 nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -3186,6 +3201,383 @@ def phase_cli(card: str, dev, tmp: str) -> dict:
     return rec["launches"]
 
 
+# ---------------------------------------------------------------------------
+# Parallel (phase 16): every parallel program of the port on a world of
+# every visible card (NCCL, one card a rank; one rank on a one-card
+# machine, where each collective reduces over that rank).  Multimodal DP
+# training at B=256, three steps; the long-EEG encoder over one hour of
+# 200-Hz EEG; sharded attribution at B=8.
+PAR_B, PAR_STEPS, PAR_XAI_B = 256, 3, 8
+LONG_T = 200 * 3600              # one hour at 200 Hz: 3,600 patches of 200
+# sharded vs unsharded attribution, relative to the unsharded max |value|
+PAR_XAI_REL = 1e-6
+# rollout logits vs the single-card forward, rollout rows' sums vs 1
+LONG_LOGIT_REL, LONG_ROW_ATOL = 1e-4, 1e-4
+
+
+def _par_launches(reset, read, fused):
+    """(reset, read) of the kernel counters plus the fused block's VJP
+    calls (#3', counted as ``specblock_convpool_vjp``)."""
+    def reset_all():
+        reset()
+        fused.backward_calls = 0
+
+    def read_all():
+        return {**read(), "specblock_convpool_vjp": fused.backward_calls}
+    return reset_all, read_all
+
+
+def _par_counters():
+    from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
+        cuda_specblock)
+    return _par_launches(*_counters(), cuda_specblock.fused_specblock_convpool)
+
+
+def _flat_state(model):
+    return torch.cat([t.detach().reshape(-1).float()
+                      for t in model.state_dict().values()
+                      if t.is_floating_point()])
+
+
+@contextlib.contextmanager
+def _backend_flags(deterministic: bool):
+    """cuDNN deterministic or not, TF32 off, restored on exit (a world of
+    one runs in this process)."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic = deterministic
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _par_train(dev, world: int) -> dict:
+    """(a) on one rank: ``Trainer(mesh=...)`` on the multimodal training
+    model (float32, TF32 off, deterministic cuDNN), PAR_STEPS steps on
+    batches of PAR_B raw windows preprocessed on the rank (NaN route), then
+    the same steps without a mesh, its generator rank 0's
+    (``fold_in(rng, 0)``); then both timed on fresh trainers with cuDNN's
+    usual (nondeterministic) algorithms, and the all-reduce of the step's
+    flat vector alone."""
+    with _backend_flags(True):
+        out = _par_train_compare(dev, world)
+    with _backend_flags(False):
+        out.update(_par_train_time(dev, world))
+    return out
+
+
+def _par_train_setup(dev, world: int):
+    """(mesh, batches(), trainer(mesh or None)) of (a)."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        config as C, entry, parallel)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.data import (
+        synthetic_raw_eeg, synthetic_raw_spectrogram)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.train import (
+        Trainer, TrainerConfig, create_train_state,
+        initialize_kaiming_weights, make_optimizer)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.train.steps \
+        import fold_in
+    mesh = parallel.make_mesh(C.MeshConfig(data=world), dev)
+    rng = np.random.default_rng(RD_SEED)
+    raw = []
+    for _ in range(PAR_STEPS):
+        votes = rng.random((PAR_B, 6))
+        raw.append(tuple(torch.as_tensor(a).to(dev) for a in (
+            synthetic_raw_eeg(PAR_B, rng), synthetic_raw_spectrogram(PAR_B, rng),
+            (votes / votes.sum(1, keepdims=True)).astype(np.float32))))
+
+    def batches():
+        for e, s, y in raw:
+            yield entry.preprocess_batch(e, s, y, assume_finite=False)
+
+    def trainer(m):
+        model = entry.build_train_model()
+        initialize_kaiming_weights(model, torch.Generator().manual_seed(0))
+        state = create_train_state(model.to(dev), make_optimizer(1e-3))
+        t = Trainer(state, TrainerConfig(epochs=1, seed=0, l2_lambda=TRAIN_L2),
+                    mesh=m)
+        if m is None:
+            t.rng = fold_in(t.rng, 0, torch.device("cpu"))
+        return t
+    return mesh, batches, trainer
+
+
+def _par_run(t, batches):
+    """(mean loss, ms a step) of one epoch over ``batches()``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = t.train_epoch(batches(), 0)
+    torch.cuda.synchronize()
+    return loss, (time.perf_counter() - t0) * 1e3 / PAR_STEPS
+
+
+def _par_train_compare(dev, world: int) -> dict:
+    import torch.distributed as dist
+    reset, read = _par_counters()
+    mesh, batches, trainer = _par_train_setup(dev, world)
+    run = lambda t: _par_run(t, batches)
+    t_mesh = trainer(mesh)
+    reset()
+    loss_m, _ = run(t_mesh)
+    counts = read()
+    t_single = trainer(None)
+    loss_s, _ = run(t_single)
+    a, b = _flat_state(t_mesh.state.model), _flat_state(t_single.state.model)
+    out = {"loss_mesh": loss_m, "loss_single": loss_s, "counts": counts,
+           "bitwise": bool(torch.equal(a, b)),
+           "max_abs_vs_single": float((a - b).abs().max()),
+           "scale": float(b.abs().max())}
+    ref = a.clone()
+    dist.broadcast(ref, 0)
+    spread = (a - ref).abs().max()
+    dist.all_reduce(spread, op=dist.ReduceOp.MAX)
+    out["max_abs_across_ranks"] = float(spread)
+    return out
+
+
+def _par_train_time(dev, world: int) -> dict:
+    import torch.distributed as dist
+    mesh, batches, trainer = _par_train_setup(dev, world)
+    _par_run(trainer(None), batches)     # cuDNN's usual algorithms' first use
+    t_mesh = trainer(mesh)
+    out = {"ms_mesh": _par_run(t_mesh, batches)[1],
+           "ms_single": _par_run(trainer(None), batches)[1]}
+    model = t_mesh.state.model
+    n = 1 + sum(p.numel() for p in model.parameters()) + sum(
+        t.numel() for t in model.buffers() if t.is_floating_point())
+    vec = torch.zeros(n, device=dev)
+    group = mesh.get_group("data")
+    out["allreduce_ms"] = cuda_ms(lambda: dist.all_reduce(vec, group=group),
+                                  20, warmup=3)
+    out["allreduce_bytes"] = 4 * n
+    out["grad_bytes"] = 4 * sum(p.numel() for p in model.parameters())
+    return out
+
+
+def _par_long_eeg(dev, world: int) -> dict:
+    """(c) on one rank: the full-width encoder over B=2 windows of LONG_T
+    samples split over a seq axis of every rank, rollout included, against
+    the encoder's single-card forward of the whole sequence."""
+    with _backend_flags(False):
+        return _par_long_eeg_run(dev, world)
+
+
+def _par_long_eeg_run(dev, world: int) -> dict:
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        config as C, parallel)
+    mesh = parallel.make_mesh(C.MeshConfig(data=1, model=1, seq=world), dev)
+    enc = parallel.LongEEGEncoder(
+        n_channels=20, patch=200, d_model=128, depth=4, n_heads=4,
+        generator=torch.Generator().manual_seed(RD_SEED)).to(dev)
+    x = signal((2, 20, LONG_T), 1.0, RD_SEED, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, roll = parallel.long_eeg_rollout(enc, None, x, mesh)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    with torch.no_grad():
+        ref = enc.local_forward(x, None)
+    return {"ms": ms, "peak_gib": peak, "logit_rel": rel(logits, ref),
+            "row_err": float((roll.sum(-1) - 1).abs().max()),
+            "rollout": tuple(roll.shape), "finite": bool(
+                torch.isfinite(logits).all() and torch.isfinite(roll).all())}
+
+
+def _par_xai(dev, world: int) -> dict:
+    """(d) on one rank: sharded IG and gradient SHAP at B=PAR_XAI_B over
+    the EEG branch (the CLI's xai) and over the fused spectrogram forward
+    (#3 and its VJP), against the unsharded functions on the same inputs
+    and draws (deterministic cuDNN); launches read around the first
+    sharded run; both timed in a second run."""
+    with _backend_flags(True):
+        return _par_xai_run(dev, world)
+
+
+def _par_xai_run(dev, world: int) -> dict:
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        config as C, parallel, xai)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.entry import (
+        explain_entry)
+    reset, read = _par_counters()
+    mesh = parallel.make_mesh(C.MeshConfig(data=world), dev)
+    model, (eeg, spec) = explain_entry(device=dev, batch=PAR_XAI_B)
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)
+    runs = {
+        "eeg": (model.forward_eeg, eeg, 32, 16, None),
+        "spectrogram": (model.forward_spectrogram, spec, 8, 4, 4),
+    }
+    out, counts = {}, []
+    for name, (fwd, x, steps, ns, chunk) in runs.items():
+        bg = x.flip(0)
+
+        def sharded():
+            return (xai.sharded_integrated_gradients(
+                        mesh, fwd, x, steps=steps, chunk=chunk),
+                    xai.sharded_gradient_shap_values(
+                        mesh, fwd, x, bg, gen(), nsamples=ns, chunk=chunk))
+
+        def unsharded():
+            return (xai.integrated_gradients(fwd, x, steps=steps, chunk=chunk),
+                    xai.gradient_shap_values(fwd, x, bg, gen(), nsamples=ns,
+                                             chunk=chunk))
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+        reset()
+        ig, sv = sharded()
+        torch.cuda.synchronize()
+        counts.append(read())
+        ig_u, sv_u = unsharded()
+        out[name] = {"ms_sharded": timed(sharded),
+                     "ms_unsharded": timed(unsharded),
+                     "ig_rel": rel(ig, ig_u), "shap_rel": rel(sv, sv_u),
+                     "steps": steps, "nsamples": ns,
+                     "shap_shape": tuple(sv.shape)}
+    out["counts"] = {k: sum(c[k] for c in counts) for k in counts[0]}
+    return out
+
+
+def phase_parallel(card: str, tmp: str) -> dict:
+    """Phase 16: the parallel programs on a world of every visible card
+    (``parallel.launch.spawn``; NCCL; a world of one runs in this
+    process):
+
+    (a) ``Trainer(mesh=...)`` on the multimodal training model, float32,
+        TF32 off, B=256, 3 steps, against the same steps without a mesh
+        (bitwise at a world of one; across ranks to 1e-6 otherwise); ms a
+        step both ways, the all-reduce's ms and bytes, #1/#2 launches;
+    (b) ``entry.dryrun_multichip(world, device="cuda")``: the OK line, the
+        replay check inside;
+    (c) ``long_eeg_rollout`` at full width over B=2 × one hour (T=720,000,
+        3,600 tokens): logits against ``local_forward(None)`` (1e-4), the
+        rollout's rows summing to 1 (1e-4), ms and peak GiB; then the
+        command line's ``long-eeg`` at its own T;
+    (d) ``sharded_integrated_gradients`` and
+        ``sharded_gradient_shap_values`` at B=8 over the EEG branch and the
+        fused spectrogram forward (#3, #3'), equal to the unsharded
+        functions to 1e-6 of the maximum.
+
+    Prints a ``{"parallel": ...}`` line; returns the launches by kernel
+    name summed over the phase."""
+    import contextlib
+    import io
+
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        cli, entry)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.parallel import (
+        launch)
+    world = torch.cuda.device_count()
+    reset, read = _par_counters()
+    t_phase = time.perf_counter()
+    rec = {"card": card, "world": world, "backend": launch.backend_for("cuda")}
+    print(f"[parallel] world of {world} rank(s) over "
+          f"{rec['backend']}, one card a rank [{card}]")
+    launches = []
+
+    # (a) ------------------------------------------------------------------
+    res = launch.spawn(_par_train, world, "cuda", (world,))
+    a = res[0]
+    launches += [r["counts"] for r in res]
+    rec["a"] = {k: v for k, v in a.items() if k != "counts"}
+    rec["a"]["launches"] = {k: sum(r["counts"][k] for r in res)
+                            for k in a["counts"]}
+    print(f"[parallel] (a) Trainer(mesh) multimodal f32, B={PAR_B}, "
+          f"{PAR_STEPS} steps: {a['ms_mesh']:.3f} ms a step on the mesh, "
+          f"{a['ms_single']:.3f} ms without (preprocessing included); "
+          f"all-reduce of the step's flat vector ({a['allreduce_bytes']} B, "
+          f"gradients {a['grad_bytes']} B) {a['allreduce_ms']:.4f} ms; "
+          f"loss {a['loss_mesh']:.6f} vs {a['loss_single']:.6f}; params + "
+          f"BN buffers {'bitwise equal' if a['bitwise'] else 'max abs ' + str(a['max_abs_vs_single'])}"
+          f" to the single-device run, {a['max_abs_across_ranks']:.3g} "
+          f"across ranks; launches {rec['a']['launches']} [{card}]")
+    if world == 1:
+        require(a["bitwise"], f"(a) DP at a world of one differs from the "
+                f"single-device run: {a['max_abs_vs_single']}")
+    require(a["max_abs_across_ranks"] <= 1e-6 * a["scale"],
+            f"(a) ranks disagree: {a['max_abs_across_ranks']}")
+    require(rec["a"]["launches"]["iir_sosfilt_rolldec"] == PAR_STEPS * world
+            and rec["a"]["launches"]["iir_sosfilt"] == PAR_STEPS * world,
+            f"(a) IIR launches {rec['a']['launches']}")
+
+    # (b) ------------------------------------------------------------------
+    reset()
+    t0 = time.perf_counter()
+    d = entry.dryrun_multichip(world, device="cuda")
+    torch.cuda.synchronize()
+    rec["b"] = {**d, "wall_s": time.perf_counter() - t0}
+    if world == 1:                 # in this process: its launches readable
+        launches.append(read())
+    require(abs(d["dp_loss"] - d["replay_loss"])
+            < 1e-4 * max(1.0, abs(d["replay_loss"])), f"(b) {d}")
+    print(f"[parallel] (b) dryrun_multichip({world}): mesh {d['mesh']}, "
+          f"{rec['b']['wall_s']:.2f} s [{card}]")
+
+    # (c) ------------------------------------------------------------------
+    res = launch.spawn(_par_long_eeg, world, "cuda", (world,))
+    c = res[0]
+    rec["c"] = c
+    print(f"[parallel] (c) long_eeg_rollout, B=2, T={LONG_T} "
+          f"({LONG_T // 200 // 60} min, {LONG_T // 200} tokens), full width, "
+          f"seq={world}: {c['ms']:.2f} ms, peak {c['peak_gib']:.2f} GiB; "
+          f"logits vs local_forward(None) rel {c['logit_rel']:.2e} (bound "
+          f"{LONG_LOGIT_REL}); rollout {c['rollout']} rows sum to 1 within "
+          f"{c['row_err']:.2e} (bound {LONG_ROW_ATOL}) [{card}]")
+    require(c["finite"] and c["rollout"] == (2, LONG_T // 200, LONG_T // 200)
+            and c["logit_rel"] < LONG_LOGIT_REL
+            and c["row_err"] < LONG_ROW_ATOL, f"(c) {c}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["long-eeg", "--ckpt-dir", f"{tmp}/long_eeg"])
+    rec["c"]["cli_s"] = time.perf_counter() - t0
+    out = buf.getvalue().strip()
+    print(f"[parallel] (c) cli long-eeg: {out or '(printed by rank 0)'}; "
+          f"{rec['c']['cli_s']:.2f} s [{card}]")
+    require(rc == 0 and (world > 1 or f"devices=1 seq-sharded T={200 * 64}"
+                         in out), f"(c) cli long-eeg: rc {rc}, {out!r}")
+
+    # (d) ------------------------------------------------------------------
+    res = launch.spawn(_par_xai, world, "cuda", (world,))
+    dd = res[0]
+    launches += [r["counts"] for r in res]
+    rec["d"] = dd
+    for name in ("eeg", "spectrogram"):
+        r = dd[name]
+        print(f"[parallel] (d) sharded attribution, {name}, B={PAR_XAI_B}: "
+              f"IG ({r['steps']} steps) + SHAP ({r['nsamples']} draws x 6 "
+              f"classes) {r['ms_sharded']:.1f} ms sharded, "
+              f"{r['ms_unsharded']:.1f} ms unsharded; vs unsharded rel IG "
+              f"{r['ig_rel']:.2e}, SHAP {r['shap_rel']:.2e} (bound "
+              f"{PAR_XAI_REL}) [{card}]")
+        require(r["ig_rel"] <= PAR_XAI_REL and r["shap_rel"] <= PAR_XAI_REL
+                and r["shap_shape"][:2] == (6, PAR_XAI_B), f"(d) {name} {r}")
+    print(f"[parallel] (d) launches in the sharded runs: {dd['counts']} "
+          f"[{card}]")
+    require(dd["counts"]["specblock_convpool"] > 0
+            and dd["counts"]["specblock_convpool_vjp"] > 0,
+            f"(d) #3 / #3' not run: {dd['counts']}")
+
+    rec["launches"] = {k: sum(c.get(k, 0) for c in launches)
+                       for k in launches[0]}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[parallel] launches over the phase {rec['launches']}; phase "
+          f"{rec['phase_s']:.1f} s [{card}]")
+    print(json.dumps({"parallel": rec}, default=float))
+    return rec["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3243,6 +3635,8 @@ def main() -> int:
         done("zoo")
         cli_launches = phase_cli(card, dev, tmp)
         done("cli")
+        parallel_launches = phase_parallel(card, tmp)
+        done("parallel")
 
     xai_tpu = "multimodal_brain_pattern_identification_xai_tpu"
     src = {"iir_sosfilt": (f"{PKG}/csrc/iir.cu",
@@ -3304,6 +3698,7 @@ def main() -> int:
         if k["name"] in zoo_launches:
             k["zoo_launches"] = zoo_launches[k["name"]]
         k["cli_launches"] = cli_launches.get(k["name"], 0)
+        k["parallel_launches"] = parallel_launches.get(k["name"], 0)
     print(f"[time] total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,7 +9,11 @@ diffusion path (``diffusion``, ``entry.train_diffeeg`` and
 loader in ``runtime``, ``models.DilatedInceptionWaveNet``,
 ``entry.train_wavenet`` and ``entry.grid_search``) run on an NVIDIA
 Hopper card through hand-written CUDA kernels (``csrc/``); every kernel has
-a plain PyTorch version beside it that CPU tensors take.
+a plain PyTorch version beside it that CPU tensors take.  The parallel
+programs (``parallel``: data-parallel training, tensor and sequence
+parallelism, the multichip dry run ``entry.dryrun_multichip``, sharded
+attribution in ``xai.sharded``) run one process a rank over
+``torch.distributed``: NCCL on the cards, gloo on the CPU.
 Imports ``torch``, numpy and scipy only; pandas only in the parquet
 readers and the fixtures that write parquet or frames (``data.loader``,
 ``data.dummy``), when they are called.

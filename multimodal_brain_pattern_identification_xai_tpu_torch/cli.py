@@ -20,14 +20,23 @@ the same subcommands and flags, on the card.
     sanity-check         autoencoder sanity run with sample grids
     convert-spectrograms spectrogram parquets → .npy (needs pandas)
     dump-config          the effective configuration as YAML (needs PyYAML)
-    long-eeg, bench      not ported yet: exit 2 naming what brings them
+    long-eeg             sequence-parallel long-EEG encoder + attention
+                         rollout over every card (--device cpu: --mesh
+                         ranks)
+    bench                not ported yet: exits 2 naming what brings it
 
 Every command takes the JAX command's flags with the same defaults, and
 one more: ``--device`` (default ``cuda``).  A command that computes
 resolves it through ``resolve_device``: without a card it stops unless
 ``--device cpu`` is given, and nothing moves to the CPU by itself.
 ``dump-config``, ``cache-build`` and ``convert-spectrograms`` touch no
-device.  ``--mesh N`` with N > 1 exits 2 (the parallel slice brings it).
+device.  ``--mesh N`` (N > 1) on the training commands, ``predict`` and
+``xai`` runs the command on N ranks (``parallel.launch.spawn``: NCCL with
+one card a rank on ``cuda``, more ranks than cards exits 1; gloo ranks on
+``--device cpu``) over a ``data=N`` mesh: data-parallel training,
+serving with the batch split over the ranks, attribution with the
+explained samples split over them; the batch is rounded up to a multiple
+of N.  Rank 0 alone prints and writes files.
 
 Optional packages: without matplotlib every plot is skipped with one
 logged line and nothing else changes; ``--config`` and ``dump-config``
@@ -52,12 +61,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-#: what brings each command or option that is not ported yet
-PARALLEL_SLICE = ("the port's parallel slice (ROADMAP queue 1 item 4, "
-                  "parallel)")
+#: what brings the command that is not ported yet
 BENCH_SLICE = "the port's benchmark"
 #: commands that touch no device
 HOST_COMMANDS = ("dump-config", "cache-build", "convert-spectrograms")
+#: commands that ``--mesh N`` runs on N ranks
+MESH_COMMANDS = ("train-multimodal", "train-eeg", "train-spectrogram",
+                 "train-wavenet", "train-diffeeg", "predict", "xai")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -102,8 +112,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="grid-search axis name=v1,v2,... (repeatable; "
                         "e.g. --grid lr=1e-3,3e-3,1e-2)")
     p.add_argument("--mesh", type=int, default=0,
-                   help="data-parallel mesh of N devices (0/1 = one "
-                        "device; N > 1 is not ported yet)")
+                   help="run on an N-rank data-parallel mesh (0/1 = one "
+                        "device): data-parallel training, batch-split "
+                        "serving and attribution; long-eeg --device cpu: "
+                        "its number of seq ranks")
     p.add_argument("--torch-ckpt", default=None,
                    help="predict/xai: load a reference-layout combined "
                         "MultimodalModel state dict (.pt) instead of a "
@@ -151,6 +163,20 @@ def _timed(dev: torch.device, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def _mesh_batch(args, bs: int) -> int:
+    """``bs`` rounded up to a multiple of ``--mesh`` when the command runs
+    on a mesh (the batch must divide over its ``data`` axis)."""
+    if args.device_mesh is None:
+        return bs
+    return -(-bs // args.mesh) * args.mesh
+
+
+def _primary(args) -> bool:
+    """True where this process prints and writes: no mesh, or rank 0."""
+    from .parallel import is_primary
+    return args.device_mesh is None or is_primary()
+
+
 def _check_arch(which: str, arch: Optional[str]) -> str:
     """The branch's arch, or the JAX command's refusal as an exit."""
     from . import entry
@@ -185,9 +211,10 @@ def cmd_train_wavenet(args) -> int:
               f"({raw.nbytes / 1e9:.2f} GB raw)")
     oof, scores = entry.train_wavenet(
         None, args.ckpt_dir, device=args.device, epochs=args.epochs or 3,
-        batch_size=args.batch_size or 16, seed=args.seed,
+        batch_size=_mesh_batch(args, args.batch_size or 16), seed=args.seed,
         n_folds=cfg.n_folds, one_fold=args.one_fold, resume=args.resume,
-        raw=raw, y=y, groups=groups, augment_dir=args.augment_dir)
+        raw=raw, y=y, groups=groups, augment_dir=args.augment_dir,
+        mesh=args.device_mesh)
     print("fold scores:", [round(s, 4) for s in scores])
     return 0
 
@@ -199,20 +226,24 @@ def cmd_train_multimodal(args) -> int:
 
     cfg = _load_cfg(args)
     lime_every = args.lime_every or (1 if args.demo else 0)
+    bs = _mesh_batch(args, args.batch_size or (8 if args.demo
+                                               else cfg.trainer.batch_size))
+    if args.device_mesh is not None:
+        print(f"training over a {args.mesh}-device data mesh, batch {bs}")
     try:
         trainer, best = entry.train_multimodal(
             args.ckpt_dir, device=args.device, epochs=args.epochs or 3,
-            batch_size=args.batch_size or (8 if args.demo
-                                           else cfg.trainer.batch_size),
-            seed=args.seed, augment=cfg.augment, resume=args.resume,
-            data_root=None if args.demo else cfg.paths,
+            batch_size=bs, seed=args.seed, augment=cfg.augment,
+            resume=args.resume, data_root=None if args.demo else cfg.paths,
             n_folds=cfg.n_folds, limit=args.limit, workers=args.workers,
             npy_dir=_npy_dir(args), init_from=args.init_from,
-            signal=cfg.signal, lime_every=lime_every)
+            signal=cfg.signal, lime_every=lime_every, mesh=args.device_mesh)
     except ValueError as e:
         if "--init-from" in str(e):
             raise SystemExit(str(e))
         raise
+    if not _primary(args):
+        return 0
     p = utils.plot_training_curves(trainer.history, args.ckpt_dir,
                                    "multimodal_training_curves")
     print(f"best kldiv: {best:.4f}; curves: {p}")
@@ -226,15 +257,19 @@ def _train_branch(args, which: str) -> int:
 
     arch = _check_arch(which, args.arch)
     cfg = _load_cfg(args)
+    bs = _mesh_batch(args, args.batch_size or (8 if args.demo
+                                               else cfg.trainer.batch_size))
+    if args.device_mesh is not None:
+        print(f"training over a {args.mesh}-device data mesh, batch {bs}")
     history, best = entry.train_branch(
         which, args.ckpt_dir, arch=arch, device=args.device,
-        epochs=args.epochs or 3,
-        batch_size=args.batch_size or (8 if args.demo
-                                       else cfg.trainer.batch_size),
-        seed=args.seed, data_root=None if args.demo else cfg.paths,
-        augment=cfg.augment, resume=args.resume, n_folds=cfg.n_folds,
-        limit=args.limit, workers=args.workers, npy_dir=_npy_dir(args),
-        signal=cfg.signal)
+        epochs=args.epochs or 3, batch_size=bs, seed=args.seed,
+        data_root=None if args.demo else cfg.paths, augment=cfg.augment,
+        resume=args.resume, n_folds=cfg.n_folds, limit=args.limit,
+        workers=args.workers, npy_dir=_npy_dir(args), signal=cfg.signal,
+        mesh=args.device_mesh)
+    if not _primary(args):
+        return 0
     p = utils.plot_training_curves(history, args.ckpt_dir,
                                    f"{which}_training_curves")
     print(f"{which} branch best kldiv: {best:.4f}; curves: {p}")
@@ -260,22 +295,31 @@ def cmd_train_diffeeg(args) -> int:
     from . import entry
     from .data import wavenet_arrays
 
+    mesh = args.device_mesh
     if args.demo:
+        bs = _mesh_batch(args, args.batch_size or 8)
+        if mesh is not None:
+            print(f"training over a {args.mesh}-device data mesh, "
+                  f"micro-batch {bs}")
         trainer, hist = entry.train_diffeeg(
             args.ckpt_dir, device=args.device, steps=args.epochs or 20,
-            batch_size=args.batch_size, seed=args.seed, resume=args.resume)
+            batch_size=bs, seed=args.seed, resume=args.resume, mesh=mesh)
         total = args.epochs or 20
     else:
         full = _load_cfg(args)
         src = wavenet_arrays(full.paths, cache_dir=args.ckpt_dir,
                              n_workers=args.workers, limit=args.limit)
         cfg = full.diffeeg
-        if args.batch_size:
-            cfg = dataclasses.replace(cfg, batch_size=args.batch_size)
+        cfg = dataclasses.replace(cfg, batch_size=_mesh_batch(
+            args, args.batch_size or cfg.batch_size))
+        if mesh is not None:
+            print(f"training over a {args.mesh}-device data mesh, "
+                  f"micro-batch {cfg.batch_size}")
         total = args.epochs or cfg.min_steps
         trainer, hist = entry.train_diffeeg(
             args.ckpt_dir, device=args.device, raw=src["x"], y=src["y"],
-            cfg=cfg, steps=total, seed=args.seed, resume=args.resume)
+            cfg=cfg, steps=total, seed=args.seed, resume=args.resume,
+            mesh=mesh)
     if hist["loss"]:
         print(f"final loss: {hist['loss'][-1]:.4f}; "
               f"evals: {len(hist['eval'])}")
@@ -446,8 +490,9 @@ def cmd_predict(args) -> int:
     from .models import seeded_state_dict
 
     cfg = _load_cfg(args)
-    dev = args.device
-    bs = args.batch_size or (8 if args.demo else cfg.trainer.batch_size)
+    dev, mesh = args.device, args.device_mesh
+    bs = _mesh_batch(args, args.batch_size or (8 if args.demo
+                                               else cfg.trainer.batch_size))
     if args.demo:
         rng = np.random.default_rng(args.seed)
         n = 12
@@ -488,6 +533,13 @@ def cmd_predict(args) -> int:
         finite = True
     model.to(dev)
     forward = entry.make_forward(model, signal=sig, assume_finite=finite)
+    # on a mesh each rank serves its rows of every batch; the probabilities
+    # are gathered in rank order
+    rows = slice(None)
+    if mesh is not None:
+        from .parallel.mesh import data_slice, gather_data
+        rows = data_slice(mesh, bs)
+        print(f"serving over a {args.mesh}-device data mesh, batch {bs}")
 
     def padded(batch):
         eeg_b, spec_b = batch["eeg"], batch["spec"]
@@ -495,10 +547,13 @@ def cmd_predict(args) -> int:
         if pad:                       # static batch shape: pad + slice
             eeg_b = np.concatenate([eeg_b, np.repeat(eeg_b[-1:], pad, 0)])
             spec_b = np.concatenate([spec_b, np.repeat(spec_b[-1:], pad, 0)])
-        return (torch.as_tensor(eeg_b).to(dev),
-                torch.as_tensor(spec_b).to(dev)), pad
+        return (torch.as_tensor(eeg_b[rows]).to(dev),
+                torch.as_tensor(spec_b[rows]).to(dev)), pad
 
     fwd = entry.capture_forward(forward, padded(next(iter(raw_batches())))[0])
+    if mesh is not None:
+        local_fwd = fwd
+        fwd = lambda *xs: gather_data(local_fwd(*xs), mesh)
     probs, ys, fwd_ms = [], [], []
     _sync(dev)
     t0 = time.perf_counter()
@@ -512,6 +567,8 @@ def cmd_predict(args) -> int:
             ys.append(np.asarray(batch["y"]))
     probs = np.concatenate(probs)[:n]
     wall = time.perf_counter() - t0
+    if not _primary(args):
+        return 0
     print(f"predict: {n} rows in {wall:.3f} s ({n / wall:.1f} rows/s end "
           f"to end: gather, copies, preprocess and forward); forward "
           f"{np.mean(fwd_ms):.3f} ms a batch of {bs} "
@@ -562,7 +619,8 @@ def cmd_xai(args) -> int:
     from .train import stratified_kfold
     from .xai.callbacks import spectrogram_predict_fn
 
-    dev = args.device
+    dev, mesh = args.device, args.device_mesh
+    primary = _primary(args)
     rng = np.random.default_rng(args.seed)
     on = lambda a: torch.as_tensor(a).to(dev)
     if args.demo:
@@ -610,17 +668,37 @@ def cmd_xai(args) -> int:
     times = {}
     names = xai.channel_select.channel_names_37()
 
-    (ge, gs), times["saliency"] = _timed(
-        dev, lambda: xai.multimodal_saliency(model, eeg_in, spec_in))
-    utils.plot_saliency_heatmap(ge[0, 0].cpu().numpy(), args.ckpt_dir,
-                                "eeg_saliency", names)
-    ig, times["integrated_gradients"] = _timed(
-        dev, lambda: xai.integrated_gradients(model.forward_eeg, eeg_in[:2],
-                                              steps=32))
+    if primary:
+        (ge, gs), times["saliency"] = _timed(
+            dev, lambda: xai.multimodal_saliency(model, eeg_in, spec_in))
+        utils.plot_saliency_heatmap(ge[0, 0].cpu().numpy(), args.ckpt_dir,
+                                    "eeg_saliency", names)
     gen = torch.Generator(device=dev).manual_seed(0)
-    shap_vals, times["gradient_shap"] = _timed(
-        dev, lambda: xai.gradient_shap_values(model.forward_eeg, eeg_in[:2],
-                                              eeg_bg, gen, nsamples=16))
+    if mesh is not None:
+        # every explained sample, split over the ranks (padded to a
+        # multiple of --mesh with the last one)
+        n_ex = len(eeg_in)
+        pad = (-n_ex) % args.mesh
+        x_ex = (torch.cat([eeg_in, eeg_in[-1:].expand(pad, -1, -1, -1)])
+                if pad else eeg_in)
+        print(f"sharding {n_ex} explained samples over a {args.mesh}-device "
+              "data mesh")
+        ig, times["integrated_gradients"] = _timed(
+            dev, lambda: xai.sharded_integrated_gradients(
+                mesh, model.forward_eeg, x_ex, steps=32)[:n_ex])
+        shap_vals, times["gradient_shap"] = _timed(
+            dev, lambda: xai.sharded_gradient_shap_values(
+                mesh, model.forward_eeg, x_ex, eeg_bg, gen,
+                nsamples=16)[:, :n_ex])
+    else:
+        ig, times["integrated_gradients"] = _timed(
+            dev, lambda: xai.integrated_gradients(model.forward_eeg,
+                                                  eeg_in[:2], steps=32))
+        shap_vals, times["gradient_shap"] = _timed(
+            dev, lambda: xai.gradient_shap_values(
+                model.forward_eeg, eeg_in[:2], eeg_bg, gen, nsamples=16))
+    if not primary:
+        return 0
     comp = float(ig.reshape(len(ig), -1).abs().sum() / len(ig))
     print(f"IG: mean |attr| mass per sample {comp:.4f} "
           f"(completeness-tested quadrature)")
@@ -677,7 +755,7 @@ def cmd_xai(args) -> int:
 
 
 # ---------------------------------------------------------------------------
-# host commands and the commands not ported yet
+# host commands, long-eeg and the command not ported yet
 
 def cmd_dump_config(args) -> int:
     """The effective configuration (defaults + ``--config`` + ``--set``)
@@ -741,8 +819,31 @@ def _not_ported(what: str, by: str) -> int:
 
 
 def cmd_long_eeg(args) -> int:
-    """The long-EEG sequence-parallel demo: not ported yet."""
-    return _not_ported("long-eeg", PARALLEL_SLICE)
+    """The long-EEG demo: the full-width ``LongEEGEncoder`` (20 channels,
+    patch 200, d 128, depth 4, 4 heads; weights from ``--seed``) over
+    T = 200·64·n samples of Gaussian EEG (B=2), the time axis split over
+    the n ranks of a ``seq`` mesh, with attention rollout
+    (``parallel.long_eeg_rollout``); the rollout's first 200×200 tokens
+    go to ``long_eeg_rollout.png``."""
+    from . import parallel, utils
+    from .parallel.mesh import axis_size
+
+    dev, mesh = args.device, args.device_mesh
+    n = axis_size(mesh, "seq")
+    rng = np.random.default_rng(args.seed)
+    enc = parallel.LongEEGEncoder(
+        n_channels=20, patch=200, d_model=128, depth=4, n_heads=4,
+        generator=torch.Generator().manual_seed(args.seed)).to(dev)
+    T = 200 * 64 * n
+    x = torch.as_tensor(rng.standard_normal((2, 20, T)).astype(np.float32))
+    logits, roll = parallel.long_eeg_rollout(enc, None, x.to(dev), mesh)
+    if not _primary(args):
+        return 0
+    print(f"devices={n} seq-sharded T={T} ({T / 200 / 60:.1f} min) "
+          f"logits={tuple(logits.shape)} rollout={tuple(roll.shape)}")
+    utils.plot_saliency_heatmap(roll[0][:200, :200].cpu().numpy(),
+                                args.ckpt_dir, "long_eeg_rollout")
+    return 0
 
 
 def cmd_bench(args) -> int:
@@ -778,20 +879,64 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    from . import resolve_device
+def _world(args) -> int:
+    """The ranks a command runs on: ``--mesh N`` (N > 1) for the mesh
+    commands; for ``long-eeg`` every card on ``cuda``, ``--mesh`` (at
+    least 1) on the CPU; 0 (no process group) otherwise."""
+    if args.cmd == "long-eeg":
+        return (torch.cuda.device_count() if args.device.type == "cuda"
+                else max(args.mesh, 1))
+    return args.mesh if args.mesh > 1 and args.cmd in MESH_COMMANDS else 0
+
+
+def _rank_main(dev: torch.device, argv: List[str]) -> int:
+    """One rank of a command run by ``main`` on a mesh: ``data=N`` (a
+    ``seq`` axis of every rank for ``long-eeg``); ranks but the first
+    print nothing."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    from . import config as C
+    from .parallel import is_primary, make_mesh
 
     args = build_parser().parse_args(argv)
-    if args.mesh > 1:
-        return _not_ported(f"--mesh {args.mesh}", PARALLEL_SLICE)
-    if args.cmd not in HOST_COMMANDS + ("long-eeg", "bench"):
+    args.device = dev
+    n = dist.get_world_size()
+    cfg = (C.MeshConfig(data=1, model=1, seq=n) if args.cmd == "long-eeg"
+           else C.MeshConfig(data=n))
+    args.device_mesh = make_mesh(cfg, dev)
+    if is_primary():
+        return COMMANDS[args.cmd](args)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        return COMMANDS[args.cmd](args)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    from . import resolve_device
+    from .parallel import launch
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
+    if args.cmd == "bench":
+        return _not_ported("bench", BENCH_SLICE)
+    if args.cmd not in HOST_COMMANDS:
         try:
             args.device = resolve_device(args.device)
         except RuntimeError as e:
             print(f"error: {e} (--device cpu)", file=sys.stderr)
             return 1
     os.makedirs(args.ckpt_dir, exist_ok=True)
-    return COMMANDS[args.cmd](args)
+    world = _world(args)
+    if not world:
+        args.device_mesh = None
+        return COMMANDS[args.cmd](args)
+    if args.device.type == "cuda" and world > torch.cuda.device_count():
+        print(f"error: --mesh {args.mesh} > {torch.cuda.device_count()} "
+              "visible devices", file=sys.stderr)
+        return 1
+    sys.stdout.flush()
+    return launch.spawn(_rank_main, world, args.device.type, (argv,))[0]
 
 
 if __name__ == "__main__":

@@ -218,8 +218,9 @@ class PathsConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh axes of the parallel programs (data only: nothing of
-    the port uses it before the parallel slice)."""
+    """Device-mesh axes of the parallel programs (``parallel.make_mesh``:
+    one rank a device; ``data`` splits batches, ``model`` the
+    tensor-parallel head, ``seq`` the time axis of long EEG)."""
     data: int = -1                    # -1 → all remaining devices
     model: int = 1                    # tensor-parallel axis
     seq: int = 1                      # sequence-parallel axis

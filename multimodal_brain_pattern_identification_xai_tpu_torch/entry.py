@@ -369,7 +369,7 @@ def train_multimodal(ckpt_dir: str,
                      loggers: Optional[list] = None,
                      init_from: Optional[str] = None,
                      signal: Optional[C.SignalConfig] = None,
-                     lime_every: int = 0):
+                     lime_every: int = 0, mesh=None):
     """The JAX CLI's ``train-multimodal`` loop.
 
     The data (demo without ``data_root``, else fold 0 of the HMS tree under
@@ -390,9 +390,13 @@ def train_multimodal(ckpt_dir: str,
     command's per-epoch LIME snapshot (``xai.LimeEpochSnapshot``, 40
     segments, 150 perturbations, seeded with ``seed``) on the first
     validation row's preprocessed spectrogram, every N epochs, overlays
-    under ``<ckpt_dir>/lime``; it runs after ``epoch_callbacks``.  Returns
-    ``(trainer, best_kldiv)``; the snapshot is
-    ``trainer.epoch_callbacks[-1]``."""
+    under ``<ckpt_dir>/lime``; it runs after ``epoch_callbacks``.  ``mesh``
+    (``parallel.make_mesh``, called on every rank of the world) trains
+    data parallel: every rank builds the same batches and preprocesses
+    them whole (the augmentation draws against the whole batch), and
+    ``Trainer(mesh=...)`` gives each rank its rows; ``batch_size`` must
+    divide over the ``data`` axis.  Returns ``(trainer, best_kldiv)``;
+    the snapshot is ``trainer.epoch_callbacks[-1]``."""
     from .ops import (hms_spectrogram_preprocess, mirror_eeg,
                       spectrogram_augment)
     from .train import (Trainer, TrainerConfig, create_train_state,
@@ -440,7 +444,7 @@ def train_multimodal(ckpt_dir: str,
             sample[0].cpu().numpy(), f"{ckpt_dir}/lime", every=lime_every,
             n_segments=40, num_samples=150, seed=seed))
     trainer = Trainer(state, cfg, ckpt_dir=f"{ckpt_dir}/multimodal",
-                      epoch_callbacks=callbacks, loggers=loggers)
+                      epoch_callbacks=callbacks, loggers=loggers, mesh=mesh)
     _, best, _ = trainer.train_eval(train_iter, val_iter)
     return trainer, best
 
@@ -506,7 +510,7 @@ def train_branch(which: str, ckpt_dir: str, arch: Optional[str] = None,
                  n_folds: int = C.N_FOLDS, limit: Optional[int] = None,
                  workers: int = 8, npy_dir: Optional[str] = None,
                  loggers: Optional[list] = None,
-                 signal: Optional[C.SignalConfig] = None):
+                 signal: Optional[C.SignalConfig] = None, mesh=None):
     """The JAX CLI's ``train-eeg`` / ``train-spectrogram`` (``which`` =
     ``"eeg"`` or ``"spectrogram"``): one modality's model trained alone.
 
@@ -521,8 +525,9 @@ def train_branch(which: str, ckpt_dir: str, arch: Optional[str] = None,
     ``ReduceLROnPlateau`` on the validation loss; checkpoints under
     ``<ckpt_dir>/<which>``, where the run then writes ``ARCH`` (the arch's
     name) for :func:`init_from_branches`.  ``data_root`` and ``signal``
-    as in :func:`train_multimodal`.  Returns ``(history, best_kldiv)``;
-    the command line plots the curves."""
+    as in :func:`train_multimodal`, and ``mesh`` (rank 0 writes
+    ``ARCH``).  Returns ``(history, best_kldiv)``; the command line plots
+    the curves."""
     from .ops import (hms_eeg_preprocess, hms_spectrogram_preprocess,
                       mirror_eeg)
     from .train import (ReduceLROnPlateau, Trainer, TrainerConfig,
@@ -558,10 +563,11 @@ def train_branch(which: str, ckpt_dir: str, arch: Optional[str] = None,
                         l2_lambda=1e-3, hyperparams={"optimizer": "adam"},
                         plateau=ReduceLROnPlateau(lr))
     trainer = Trainer(state, cfg, ckpt_dir=f"{ckpt_dir}/{which}",
-                      loggers=loggers)
+                      loggers=loggers, mesh=mesh)
     _, best, _ = trainer.train_eval(train_iter, val_iter)
-    with open(os.path.join(ckpt_dir, which, "ARCH"), "w") as f:
-        f.write(arch + "\n")
+    if trainer.primary:
+        with open(os.path.join(ckpt_dir, which, "ARCH"), "w") as f:
+            f.write(arch + "\n")
     return trainer.history, best
 
 
@@ -691,7 +697,7 @@ def train_wavenet(data_root: Optional[Union[str, C.PathsConfig]],
                   raw: Optional[np.ndarray] = None,
                   y: Optional[np.ndarray] = None,
                   groups: Optional[np.ndarray] = None,
-                  augment_dir: Optional[str] = None):
+                  augment_dir: Optional[str] = None, mesh=None):
     """The JAX CLI's ``train-wavenet``: :func:`wavenet_training_set` (or,
     with ``data_root`` None, ``raw`` (N, L, 19 or 20) µV windows with soft
     labels ``y`` and patient ``groups`` through
@@ -703,9 +709,11 @@ def train_wavenet(data_root: Optional[Union[str, C.PathsConfig]],
     Adam under a cosine schedule with 10 warm-up steps to
     ``TrainerConfig().lr``, batches of ``batch_size`` shuffled with
     ``seed + epoch``, checkpoints under ``<ckpt_dir>/wavenet_fold{k}``.
-    The out-of-fold predictions go to ``<ckpt_dir>/oof.npy``.  Returns
-    ``(oof, fold scores)``."""
+    The out-of-fold predictions go to ``<ckpt_dir>/oof.npy``.  ``mesh``
+    trains each fold data parallel as in :func:`train_multimodal` (rank
+    0 writes and prints).  Returns ``(oof, fold scores)``."""
     from .data import batch_iterator
+    from .parallel import is_primary
     from .train import (Trainer, TrainerConfig, cosine_schedule_with_warmup,
                         create_train_state, group_kfold, make_optimizer,
                         run_cv)
@@ -723,8 +731,9 @@ def train_wavenet(data_root: Optional[Union[str, C.PathsConfig]],
         x, y, groups = augment_dataset_balanced(
             x, y, load_generated_pools(augment_dir, x.shape[1], dev),
             seed=seed, groups=groups)
-        print(f"augmented dataset: {n_real} real + {len(x) - n_real} "
-              f"synthetic samples")
+        if is_primary():
+            print(f"augmented dataset: {n_real} real + {len(x) - n_real} "
+                  f"synthetic samples")
     splits = group_kfold(groups, n_splits=n_folds)
     lr = C.TrainerConfig().lr
 
@@ -747,11 +756,12 @@ def train_wavenet(data_root: Optional[Union[str, C.PathsConfig]],
             lr_schedule=cosine_schedule_with_warmup(
                 10, epochs * max(1, len(x) // batch_size), lr))
         return Trainer(state, cfg, ckpt_dir=f"{ckpt_dir}/wavenet_fold{fold}",
-                       loggers=loggers)
+                       loggers=loggers, mesh=mesh)
 
     oof, scores = run_cv(make_trainer, make_loaders, splits, len(x),
                          one_fold_only=one_fold)
-    np.save(f"{ckpt_dir}/oof.npy", oof)
+    if is_primary():
+        np.save(f"{ckpt_dir}/oof.npy", oof)
     return oof, scores
 
 
@@ -842,7 +852,8 @@ def train_diffeeg(ckpt_dir: str,
                   batch_size: Optional[int] = None, seed: int = 42,
                   resume: bool = False,
                   data_root: Optional[Union[str, C.PathsConfig]] = None,
-                  limit: Optional[int] = None, workers: int = 8):
+                  limit: Optional[int] = None, workers: int = 8,
+                  mesh=None):
     """The JAX CLI's ``train-diffeeg``: a :class:`..train.DiffEEGTrainer`
     with step checkpoints under ``<ckpt_dir>/diffeeg``, resumed from the
     latest when ``resume``, run to ``steps`` (default ``cfg.min_steps``).
@@ -864,7 +875,10 @@ def train_diffeeg(ckpt_dir: str,
     ``default_rng((seed, i))``; the first four validation batches.
     ``data_root`` (an HMS dataset tree or its ``PathsConfig``, in place of
     ``raw`` and ``y``) reads them with ``data.wavenet_arrays`` (window
-    cache in ``ckpt_dir``, the first ``limit`` ids when given)."""
+    cache in ``ckpt_dir``, the first ``limit`` ids when given).  ``mesh``
+    trains data parallel (``DiffEEGTrainer(mesh=...)``: each rank takes
+    its part of every micro-batch; the batch size must divide over the
+    ``data`` axis)."""
     from .runtime import NativeBatchQueue
     from .train import DiffEEGTrainer
 
@@ -929,7 +943,7 @@ def train_diffeeg(ckpt_dir: str,
                for s in range(0, min(len(va), 4 * B), B)]
     model = diffeeg_model(cfg, seed, torch.bfloat16 if cfg.amp else None)
     trainer = DiffEEGTrainer(model, cfg, ckpt_dir=f"{ckpt_dir}/diffeeg",
-                             seed=seed, device=dev)
+                             seed=seed, device=dev, mesh=mesh)
     if resume:
         trainer.load()
     history = trainer.train(batches, val_batches=val,
@@ -1034,3 +1048,94 @@ def sanity_check(device: Optional[Union[str, torch.device]] = None,
         if on_epoch is not None:
             on_epoch(epoch, losses[-1], model)
     return losses
+
+
+# ---------------------------------------------------------------------------
+# the multichip dry run
+
+def _factor(n: int) -> Tuple[int, int, int]:
+    """``n`` ranks as (data, model, seq), three axes where n allows."""
+    if n % 4 == 0:
+        return (n // 4, 2, 2)
+    if n % 2 == 0:
+        return (n // 2, 1, 2)
+    return (n, 1, 1)
+
+
+def _dryrun_rank(dev: torch.device, n_devices: int) -> dict:
+    """One rank of :func:`dryrun_multichip`."""
+    from . import parallel
+    from .parallel import dryrun
+    from .train import (create_train_state, initialize_kaiming_weights,
+                        make_optimizer)
+
+    dp, mp, sp = _factor(n_devices)
+    mesh = parallel.make_mesh(C.MeshConfig(data=dp, model=mp, seq=sp), dev)
+    enc = parallel.LongEEGEncoder(n_channels=4, patch=8, d_model=32,
+                                  depth=2, n_heads=4)
+    params = dryrun.init_dp_tp_sp_params(torch.Generator().manual_seed(0),
+                                         enc, head_hidden=64)
+    rng = np.random.default_rng(0)
+    B, T = 2 * dp, 8 * 8 * sp                     # patches divide over seq
+    x = rng.standard_normal((B, 4, T)).astype(np.float32)
+    y = np.eye(6, dtype=np.float32)[rng.integers(0, 6, B)]
+    local, xs, ys = dryrun.place_inputs(mesh, params, x, y, dev)
+    enc.to(dev)
+    _, loss = dryrun.make_dp_tp_sp_train_step(mesh, enc, lr=1e-3)(
+        local, xs, ys)
+    if not bool(torch.isfinite(loss)):
+        raise RuntimeError("non-finite loss in the multichip dry run")
+
+    # the multimodal model's data-parallel step over each rank's own
+    # preprocessing of its rows, then the single-device replay of its loss
+    sig = C.SignalConfig(fixed_length=512, image_size=(64, 48))
+    raw_eeg = rng.standard_normal((B, 20, 2000)).astype(np.float32) * 40
+    raw_spec = rng.standard_normal((B, 64, 48)).astype(np.float32) * 5
+    raw = parallel.shard_batch(mesh, {"eeg": raw_eeg, "spec": raw_spec,
+                                      "y": y})
+    batch = preprocess_batch(raw["eeg"].to(dev), raw["spec"].to(dev),
+                             raw["y"].to(dev), sig, assume_finite=False)
+    model = MultimodalModel(
+        EEGNetAttentionRegularized(samples=512, kern_length=16),
+        SpectrogramCNN()).train()
+    initialize_kaiming_weights(model, torch.Generator().manual_seed(0))
+    state = create_train_state(model.to(dev), make_optimizer(1e-3))
+    before = parallel.train.copy_state(state)
+    step = parallel.make_parallel_train_step(mesh, state)
+    state, metrics = step(state, batch, torch.Generator().manual_seed(1))
+    dp_loss = float(metrics["loss"])
+    if not np.isfinite(dp_loss):
+        raise RuntimeError("non-finite multimodal loss in the multichip "
+                           "dry run")
+    full = {k: parallel.mesh.gather_data(v, mesh) for k, v in batch.items()}
+    rp_loss = float(parallel.replay_dp_loss_single_device(
+        before, full, torch.Generator().manual_seed(1), dp))
+    if abs(dp_loss - rp_loss) >= 1e-4 * max(1.0, abs(rp_loss)):
+        raise RuntimeError(f"mesh DP loss {dp_loss} != single-device "
+                           f"replay {rp_loss}")
+    if parallel.is_primary():
+        print(f"dryrun_multichip OK: mesh=({dp},{mp},{sp}) "
+              f"sp_loss={float(loss):.4f} "
+              f"multimodal_dp_loss={dp_loss:.6f} "
+              f"single_device_replay_loss={rp_loss:.6f} (match)",
+              flush=True)
+    return {"mesh": (dp, mp, sp), "sp_loss": float(loss),
+            "dp_loss": dp_loss, "replay_loss": rp_loss}
+
+
+def dryrun_multichip(n_devices: int,
+                     device: Optional[Union[str, torch.device]] = None
+                     ) -> dict:
+    """The JAX entry's ``dryrun_multichip``: a world of ``n_devices``
+    ranks (``parallel.launch.spawn``: NCCL, one card a rank, on cuda —
+    the default, and ``n_devices`` cards are required; gloo on ``cpu``)
+    runs one DP × TP × SP step of the long-EEG encoder with the TP head
+    (``parallel.dryrun``) on a (data, model, seq) mesh factored from
+    ``n_devices``, then one data-parallel step of the multimodal model
+    over each rank's preprocessing of its rows, whose loss must equal the
+    single-device replay (``parallel.replay_dp_loss_single_device``) to
+    1e-4·max(1, |loss|).  Rank 0 prints ``dryrun_multichip OK: mesh=(d,m,
+    s) ...``; returns rank 0's losses."""
+    from .parallel import launch
+    dev = resolve_device(device)
+    return launch.spawn(_dryrun_rank, n_devices, dev.type, (n_devices,))[0]

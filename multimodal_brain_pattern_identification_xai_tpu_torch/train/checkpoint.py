@@ -12,6 +12,10 @@ Layout under ``ckpt_dir``::
 A snapshot is :meth:`TrainState.state_dict`: the model's ``state_dict``
 (BatchNorm buffers included), the optimizer state, the step, the EMA and
 the generator's state, so a resume is bitwise.
+
+A manager with ``write = False`` keeps the best-score bookkeeping and
+reads snapshots but writes nothing: every rank of a data-parallel run but
+the first (``parallel.is_primary``) holds one.
 """
 
 from __future__ import annotations
@@ -37,12 +41,16 @@ class CheckpointManager:
         self.best_score = float("inf")
         self.best_epoch = -1
         self.keep = keep
+        #: False: keep the bookkeeping, write no file
+        self.write = True
 
     # -- low-level ---------------------------------------------------------
 
     def _save(self, name: str, state: Any, meta: Optional[Dict] = None):
         """Write the snapshot to a temporary directory, then move it over
         ``name``: a run cut while saving leaves the old snapshot whole."""
+        if not self.write:
+            return
         path = os.path.join(self.ckpt_dir, name)
         tmp = path + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -89,6 +97,8 @@ class CheckpointManager:
                   meta: Optional[Dict] = None) -> None:
         """Periodic step snapshot, pruning all but the last ``keep``."""
         self._save(f"step_{step}", state, meta or {"step": step})
+        if not self.write:
+            return
         for old in self._steps()[:-self.keep]:
             shutil.rmtree(os.path.join(self.ckpt_dir, f"step_{old}"),
                           ignore_errors=True)
@@ -108,8 +118,9 @@ class CheckpointManager:
         blob = json.dumps(hyperparams, sort_keys=True, default=repr)
         path = os.path.join(self.ckpt_dir, "hyperparams.json")
         if not os.path.exists(path):
-            with open(path, "w") as f:
-                f.write(blob)
+            if self.write:
+                with open(path, "w") as f:
+                    f.write(blob)
             return self
         with open(path) as f:
             prev = json.load(f)
@@ -122,9 +133,11 @@ class CheckpointManager:
         fresh = CheckpointManager(
             f"{self.ckpt_dir}_{'_'.join(changed)}-{tag}", self.ckpt_metric,
             "max" if self.direction < 0 else "min", self.keep)
-        with open(os.path.join(fresh.ckpt_dir, "hyperparams.json"),
-                  "w") as f:
-            f.write(blob)
+        fresh.write = self.write
+        if self.write:
+            with open(os.path.join(fresh.ckpt_dir, "hyperparams.json"),
+                      "w") as f:
+                f.write(blob)
         return fresh
 
     def load_meta(self, name: str) -> Optional[Dict]:

@@ -18,7 +18,17 @@ seed and the step (:func:`.steps.fold_in`), so a resumed run repeats the
 uninterrupted one bitwise; :meth:`DiffEEGTrainer.train_step` also takes
 the draws themselves (how tests feed the JAX step's draws in).
 
-The JAX trainer's ``mesh`` (data parallelism) is not ported yet.
+With ``mesh`` (a ``DeviceMesh`` of ``parallel.make_mesh``; every rank
+builds its own trainer on the same stream) the step is data parallel:
+each rank takes its part of the micro-batches' sample axis (axis 1 of the
+stacked (K, B, ...) batch; B must divide over the ``data`` axis), and the
+K-averaged gradients and loss are averaged over ``data`` before the
+sentinel, the optimizer and the EMA.  ``decorrelate_shards`` folds the
+rank's ``data`` index into the step's generator, so ranks draw different
+noise, steps, mixup scores and dropout masks (DDP's ranks); without it
+every rank draws the single-device stream on its own samples, and a run
+on a batch tiled across the ranks repeats the single-device trajectory.
+Rank 0 alone writes checkpoints and logs.
 """
 
 from __future__ import annotations
@@ -27,10 +37,12 @@ import contextlib
 import copy
 import inspect
 import logging
-from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from .. import config as C
@@ -81,14 +93,22 @@ class DiffEEGTrainer:
 
     def __init__(self, model: DiffEEG, cfg: C.DiffEEGConfig,
                  ckpt_dir: Optional[str] = None, seed: int = 42,
-                 device: Optional[torch.device] = None) -> None:
+                 device: Optional[torch.device] = None,
+                 mesh: Optional[Any] = None,
+                 decorrelate_shards: bool = True) -> None:
+        from ..parallel import is_primary
         dev = device or next(model.parameters()).device
+        self.mesh = mesh
+        self.decorrelate_shards = decorrelate_shards
+        self.primary = mesh is None or is_primary()
         self.model = model.to(dev)
         self.cfg = cfg
         self.device = dev
         self.schedule = make_schedule(cfg.n_diffusion_steps, dev)
         self.ckpt = (CheckpointManager(ckpt_dir, "mmd", "min")
                      if ckpt_dir else None)
+        if self.ckpt is not None:
+            self.ckpt.write = self.primary
         self.state = create_train_state(model, make_optimizer(cfg.lr),
                                         seed=seed, with_ema=True)
 
@@ -151,6 +171,11 @@ class DiffEEGTrainer:
         Returns ``loss``, ``grad_norm`` and ``nonfinite`` as 0-d device
         tensors; the state is updated in place."""
         f = self.cfg.fuse_accum
+        if self.mesh is not None:
+            from ..parallel.mesh import axis_index, axis_size, data_slice
+            n = axis_size(self.mesh, "data")
+            sl = data_slice(self.mesh, xs.shape[1], "micro-batch")
+            xs, ys = xs[:, sl], ys[:, sl]
         if xs.shape[0] % f:
             raise ValueError(
                 f"fuse_accum={f} must divide the number of accumulation "
@@ -160,6 +185,8 @@ class DiffEEGTrainer:
         K = xs.shape[0]
         state, model = self.state, self.model
         gen = fold_in(state.rng, state.step, xs.device)
+        if self.mesh is not None and self.decorrelate_shards:
+            gen = fold_in(gen, axis_index(self.mesh, "data"), xs.device)
         params = list(model.parameters())
         model.train()
         gsum: List[torch.Tensor] = []
@@ -173,6 +200,15 @@ class DiffEEGTrainer:
                 lsum = lsum + loss.detach()
         grads = [g / K for g in gsum]
         loss = lsum / K
+        if self.mesh is not None:
+            # one all-reduce of [loss, gradients] over the data axis
+            vec = torch.cat([loss.reshape(1).float(), flat(grads).float()])
+            dist.all_reduce(vec, group=self.mesh.get_group("data"))
+            vec = vec / n
+            loss, off = vec[0].to(loss.dtype), 1
+            for j, g in enumerate(grads):
+                grads[j] = vec[off:off + g.numel()].view_as(g).to(g.dtype)
+                off += g.numel()
         grad_norm = global_norm(grads)
         finite = torch.isfinite(loss) & torch.isfinite(grad_norm)
         apply_gradients(state, grads, finite)
@@ -200,7 +236,8 @@ class DiffEEGTrainer:
                            "resuming with the current one", step)
             d = {**d, "rng": self.state.rng.get_state()}
         self.state.load_state_dict(d)
-        logger.info("resumed DiffEEG trainer at step %d", step)
+        if self.primary:
+            logger.info("resumed DiffEEG trainer at step %d", step)
         return step
 
     def train(self, batch_iter_factory: Callable[..., Iterator],
@@ -277,5 +314,6 @@ class DiffEEGTrainer:
             scores["frechet"].append(float(compute_frechet_distance(x0, gen_x)))
             scores["pearson"].append(float(pearson_correlation(x0, gen_x)))
         result = {k: float(np.mean(v)) for k, v in scores.items()}
-        logger.info("DiffEEG eval: %s", result)
+        if self.primary:
+            logger.info("DiffEEG eval: %s", result)
         return result

@@ -7,6 +7,17 @@ The data interface is an iterator of batch dicts ({"x" | "eeg" + "spec",
 "y"}) of numpy arrays or tensors; they are moved to the model's device.
 A run is bitwise reproducible from its seed when the device's kernels are
 deterministic (on CUDA: ``torch.backends.cudnn.deterministic = True``).
+
+With ``mesh`` (a ``DeviceMesh`` of ``parallel.make_mesh``; every rank of
+the world builds its own Trainer on the same data) the training steps are
+data parallel (``parallel.make_parallel_train_step``): each host batch is
+split by rank (``parallel.shard_batch``; its leading size must divide
+over the ``data`` axis), the loss, the gradients and the BatchNorm
+statistics are averaged over ``data``.  Every rank evaluates the whole
+validation set and takes rank 0's results, so the ranks decide alike
+(best checkpoint, plateau, early stop).  Rank 0 alone writes checkpoints,
+logs and runs the epoch callbacks; the others read its snapshots (resume,
+the final best checkpoint).
 """
 
 from __future__ import annotations
@@ -19,6 +30,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .checkpoint import CheckpointManager
 from .metrics import Evaluator
@@ -55,24 +67,37 @@ class Trainer:
                  loggers: Optional[List[Any]] = None,
                  epoch_callbacks: Optional[List[Any]] = None,
                  mesh: Optional[Any] = None) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel training over a device mesh is not ported "
-                "yet (ROADMAP queue 1 item 7, parallel)")
+        from ..parallel import is_primary
         #: per-epoch hooks ``cb(trainer, epoch, val_result)``
         self.epoch_callbacks = epoch_callbacks or []
         self.state = state
         self.cfg = cfg
-        self.train_step = make_train_step(l2_lambda=cfg.l2_lambda)
+        self.mesh = mesh
+        self.primary = mesh is None or is_primary()
+        if mesh is not None:
+            from ..parallel import make_parallel_train_step, shard_batch
+            self.train_step = make_parallel_train_step(
+                mesh, state, l2_lambda=cfg.l2_lambda)
+            self._shard = lambda b: shard_batch(mesh, b)
+        else:
+            self.train_step = make_train_step(l2_lambda=cfg.l2_lambda)
+            self._shard = None
         self.eval_step = make_eval_step()
         self.evaluator = Evaluator(list(cfg.eval_metrics))
-        self.ckpt = (CheckpointManager(ckpt_dir, cfg.ckpt_metric,
-                                       cfg.ckpt_mode)
-                     if ckpt_dir else None)
-        if self.ckpt is not None:
+        self.ckpt = None
+        if ckpt_dir:
+            # rank 0 settles the stream's directory (and its fingerprint
+            # file) before the other ranks read it
+            if not self.primary:
+                self._barrier()
+            self.ckpt = CheckpointManager(ckpt_dir, cfg.ckpt_metric,
+                                          cfg.ckpt_mode)
+            self.ckpt.write = self.primary
             self.ckpt = self.ckpt.divert_on_change(
                 {"l2_lambda": cfg.l2_lambda, **(cfg.hyperparams or {})})
-        self.loggers = loggers or []
+            if self.primary:
+                self._barrier()
+        self.loggers = (loggers or []) if self.primary else []
         self.history: Dict[str, List[float]] = {"train_loss": [],
                                                 "val_loss": []}
         # the trainer's generator lives in the state, so checkpoints hold it
@@ -80,6 +105,11 @@ class Trainer:
         self.rng = state.rng
 
     # ------------------------------------------------------------------
+
+    def _barrier(self) -> None:
+        """Wait for every rank of a mesh run (nothing without a mesh)."""
+        if self.mesh is not None:
+            dist.barrier()
 
     def _batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         dev = self.state.device
@@ -98,8 +128,10 @@ class Trainer:
         for i, batch in enumerate(train_iter):
             if self.cfg.step_per_batch:
                 self._maybe_set_lr(self.state.step)
-            self.state, metrics = self.train_step(
-                self.state, self._batch(batch), self.rng)
+            batch = self._batch(batch)
+            if self._shard is not None:
+                batch = self._shard(batch)
+            self.state, metrics = self.train_step(self.state, batch, self.rng)
             losses.append(metrics["loss"])
             skips.append(metrics["nonfinite"])
             if i % self.cfg.log_every == 0:
@@ -117,8 +149,10 @@ class Trainer:
             # the mean over the APPLIED steps only, masked by the sentinel's
             # own flags (a skipped step can have a finite loss when only a
             # gradient overflowed)
-            logger.warning("epoch %d: %d/%d batches skipped by the "
-                           "non-finite sentinel", epoch, n_skip, len(losses))
+            if self.primary:
+                logger.warning("epoch %d: %d/%d batches skipped by the "
+                               "non-finite sentinel", epoch, n_skip,
+                               len(losses))
             good = ~skipped
             return float(torch.where(good, stack, 0.0).sum()
                          / good.sum().clamp_min(1))
@@ -135,7 +169,13 @@ class Trainer:
         y_pred = torch.cat(all_logits)
         y_true = torch.cat(all_targets)
         result = self.evaluator.evaluate(y_true, y_pred)
-        return float(np.mean(losses)), result, y_pred.numpy()
+        loss = float(np.mean(losses))
+        if self.mesh is not None:
+            # the ranks decide on rank 0's numbers
+            box = [(loss, result)]
+            dist.broadcast_object_list(box, src=0)
+            loss, result = box[0]
+        return loss, result, y_pred.numpy()
 
     # ------------------------------------------------------------------
 
@@ -174,8 +214,9 @@ class Trainer:
             self.cfg.plateau.best = float(pl[1])
             self.cfg.plateau.num_bad = int(pl[2])
         start = int(meta.get("epoch", latest - 1)) + 1
-        logger.info("resumed from epoch snapshot step_%d (next epoch %d)",
-                    latest, start)
+        if self.primary:
+            logger.info("resumed from epoch snapshot step_%d (next epoch "
+                        "%d)", latest, start)
         return (start, float(meta.get("best_metric", float("inf"))),
                 int(meta.get("bad_epochs", 0)))
 
@@ -232,17 +273,21 @@ class Trainer:
                 f"val_loss={val_loss:.4f} "
                 + " ".join(f"{k}={v:.4f}" for k, v in val_result.items())
                 + f" ({time.time() - t0:.1f}s)")
-            logger.info(msg)
+            if self.primary:
+                logger.info(msg)
+                for cb in self.epoch_callbacks:
+                    cb(self, epoch, val_result)
             for lg in self.loggers:
                 lg.log_evaluation(val_result, epoch)
-            for cb in self.epoch_callbacks:
-                cb(self, epoch, val_result)
             if self.cfg.es_patience and bad_epochs >= self.cfg.es_patience:
-                logger.info("early stop at epoch %d", epoch)
+                if self.primary:
+                    logger.info("early stop at epoch %d", epoch)
                 break
         if self.ckpt is not None and self.ckpt.best_epoch >= 0:
+            self._barrier()           # rank 0's last snapshot is written
             self.state = self.ckpt.load_best(self.state)
             _, final_result, oof = self.eval_epoch(val_loader())
-            logger.info("final (best ckpt): " + " ".join(
-                f"{k}={v:.4f}" for k, v in final_result.items()))
+            if self.primary:
+                logger.info("final (best ckpt): " + " ".join(
+                    f"{k}={v:.4f}" for k, v in final_result.items()))
         return self.state, best_metric, oof

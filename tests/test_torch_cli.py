@@ -1,6 +1,6 @@
 """The port's command line (``cli.py``) and configuration loading against
 the JAX package's, on the CPU (``--device cpu``): the parser's defaults
-and the command set; the commands not ported yet exit 2 with their
+and the command set; ``bench``, not ported yet, exits 2 with its
 message; ``dump-config`` prints JAX's text and ``load_config`` reads a
 YAML into JAX's fields; the demos' raw arrays are JAX's; ``predict``
 writes JAX's columns with the probabilities of ``entry.make_forward`` on
@@ -94,11 +94,31 @@ def test_parser_defaults_and_commands_are_jax():
 @pytest.mark.parametrize("argv,what", [
     (["long-eeg"], "long-eeg"), (["bench"], "bench"),
     (["predict", "--demo", "--mesh", "2", "--device", "cpu"], "--mesh 2")])
-def test_not_ported_exit_2(tmp_path, capsys, argv, what):
-    assert cli.main(argv + ["--ckpt-dir", str(tmp_path)]) == 2
+def test_not_ported_exit_2(tmp_path, capsys, monkeypatch, argv, what):
+    """``bench`` is not ported yet: exit 2 naming the port's benchmark.
+    ``long-eeg`` and ``--mesh N`` are ported: ``long-eeg`` resolves its
+    device like every computing command (no card here: exit 1 naming it),
+    and ``--mesh 2`` runs the command on 2 ranks over the device's backend
+    (the launch recorded here; tests/test_torch_cli_mesh.py runs them)."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch.parallel \
+        import launch
+    calls = []
+    monkeypatch.setattr(launch, "spawn", lambda fn, world, kind, args: (
+        calls.append((fn, world, kind, args)) or [0]))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = cli.main(argv + ["--ckpt-dir", str(tmp_path)])
     err = capsys.readouterr().err.strip().splitlines()
-    assert len(err) == 1 and err[0].startswith(f"error: {what} is not ported")
-    assert ("parallel slice" if what != "bench" else "benchmark") in err[0]
+    if what == "bench":
+        assert rc == 2 and len(err) == 1
+        assert err[0].startswith("error: bench is not ported")
+        assert "benchmark" in err[0]
+    elif what == "long-eeg":
+        assert rc == 1 and "no CUDA device" in err[0] and not calls
+    else:
+        assert rc == 0 and not err
+        assert [(c[0], c[1], c[2]) for c in calls] == [
+            (cli._rank_main, 2, "cpu")]
+        assert calls[0][3][0][-2:] == ["--ckpt-dir", str(tmp_path)]
 
 
 def test_dump_config_prints_jax_text(tmp_path, capsys):

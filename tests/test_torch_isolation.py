@@ -32,7 +32,9 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
                          [REPO / "chip_smoke.py"] +
-                         sorted((REPO / "scripts").glob("torch_*.py")),
+                         sorted((REPO / "scripts").glob("torch_*.py")) +
+                         [REPO / "tests" / "torch_parallel_cases.py",
+                          REPO / "tests" / "torch_jaxfree_rank.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_no_jax(path):
     for name in _imported_roots(path):
@@ -77,7 +79,13 @@ def test_port_runs_with_jax_blocked():
         "from multimodal_brain_pattern_identification_xai_tpu_torch.xai "
         "import channel_select, rollout\n"
         "from multimodal_brain_pattern_identification_xai_tpu_torch.entry "
-        "import train_branch, init_from_branches\n"
+        "import train_branch, init_from_branches, dryrun_multichip\n"
+        "from multimodal_brain_pattern_identification_xai_tpu_torch import "
+        "parallel\n"
+        "from multimodal_brain_pattern_identification_xai_tpu_torch.parallel "
+        "import dryrun, hosts, launch, mesh, seqparallel, tp, train\n"
+        "from multimodal_brain_pattern_identification_xai_tpu_torch.xai "
+        "import sharded\n"
         "assert len(REGISTRY) == 15\n"
         "loader._lib()\n"
         "fwd, args = entry(device='cpu', batch=2, assume_finite=True)\n"
@@ -90,6 +98,22 @@ def test_port_runs_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_parallel_ranks_run_with_jax_blocked():
+    """A 2-rank gloo world runs ``make_parallel_train_step`` once with JAX
+    blocked in the ranks (``torch_jaxfree_rank``): the port's parallel
+    package, which starts each rank, loaded nothing of JAX; then jax,
+    flax and the JAX package are blocked, the rest of the port loads and
+    the step is finite and alike on both ranks."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch.parallel import (
+        launch)
+    import torch_jaxfree_rank
+    res = launch.spawn(torch_jaxfree_rank.dp_step_once, 2, "cpu")
+    for r in res:
+        assert r["loaded_before"] == [] and r["loaded_after"] == []
+        assert not r["nonfinite"] and r["step"] == 1
+    assert res[0]["loss"] == res[1]["loss"]
 
 
 def test_port_imports_with_pandas_blocked(tmp_path):

@@ -348,13 +348,33 @@ def test_trainer_epoch_reports_skipped_nonfinite_batches(caplog):
 
 
 def test_trainer_schedule_steers_lr_and_mesh_is_not_ported():
+    """The schedule steers the learning rate.  ``mesh`` is ported now: in
+    a world of one rank (gloo, in this process) ``Trainer(mesh=...)``
+    takes the data-parallel step, which equals the single-device epoch
+    bitwise once the single-device trainer draws from rank 0's generator
+    (``fold_in(rng, 0)``)."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        parallel)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.train.steps \
+        import fold_in
     tr, batches = _trainer(None, 1)
     tr.cfg.lr_schedule = tt.step_decay(1e-2, 1, 0.5)
     tr.train_epoch(iter(batches), epoch=0)
     assert float(tr.state.opt_state["lr"]) == pytest.approx(5e-3)
-    state, _ = _tiny()
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tt.Trainer(state, tt.TrainerConfig(), mesh=object())
+
+    def run(dev):
+        mesh = parallel.make_mesh(TC.MeshConfig(data=1), dev)
+        state, _ = _tiny()
+        t = tt.Trainer(state, tt.TrainerConfig(seed=11), mesh=mesh)
+        return t.train_epoch(iter(batches), epoch=0), t.state
+    (loss_m, st_m), = parallel.launch.spawn(run, 1, "cpu")
+    single, _ = _trainer(None, 1)
+    single.rng = fold_in(single.rng, 0, torch.device("cpu"))
+    loss_s = single.train_epoch(iter(batches), epoch=0)
+    assert loss_m == loss_s and st_m.step == 2
+    for a, b in zip(st_m.model.state_dict().values(),
+                    single.state.model.state_dict().values()):
+        assert torch.equal(a, b)
 
 
 # --- host gather, synthetic data, cross-validation, analysis ----------------------
