@@ -8,7 +8,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 2. build    — nvcc builds every kernel from ``csrc/``, all sources at
               once; prints ptxas's register / shared-memory / spill lines
               (for the IIR kernels a summary and the serving path's
-              instantiations; the spectrogram block's f32 and bf16
+              instantiations, the given-state ones without spills; the
+              spectrogram block's f32 and bf16
               tensor-core kernels, both wide convs' three
               instantiations included, must not spill), each block's
               shared memory for f32 and bf16, and, where ``cuobjdump`` is
@@ -155,6 +156,15 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
               B=8 over the EEG branch and the fused spectrogram forward
               against the unsharded functions (1e-6); a ``{"parallel":
               ...}`` line.
+17. ops api  — the public DSP API: ``ops.lfilter`` under each of the JAX
+              package's engines (auto, pallas, scan, blockmm, block, xla),
+              from zero and from a random per-lane state (#1's given-state
+              mode), and along axis 0, ``ops.filtfilt`` under blockmm and
+              the kernel, against float64 scipy and the CPU, with every
+              kernel's launches read around that run; #1 from a given
+              state at 5,120 x 10,000 against its plain version, timed
+              beside #1 from zero, the block-Toeplitz route and the
+              ``block``/``blockmm`` routes; an ``{"ops_api": ...}`` line.
 
 Output: a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, then the
 last line ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` are
@@ -166,8 +176,9 @@ the main path's (phase 4; phase 5 for the wide kernel), and for
 (IIR rows) phase 13's four paths summed, ``zoo_launches`` (IIR rows) phase
 14's paths summed, ``cli_launches`` (every row) phase 15's commands
 summed, ``parallel_launches`` (every row) phase 16's runs summed over
-its ranks.  Needs one card; imports
-nothing of JAX.
+its ranks, ``ops_api_launches`` (every row) phase 17's run; the row
+``iir_sosfilt_given`` (#1 from a given state) has phase 17's launches as
+its ``launches``.  Needs one card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -358,10 +369,12 @@ def phase_device() -> str:
 
 
 def _iir_ptxas(log: str) -> None:
-    """ptxas on csrc/iir.cu (60 instantiations: K = 1..12 × variant): the
+    """ptxas on csrc/iir.cu (84 instantiations: K = 1..12 × variant): the
     register range, then the serving path's kernels — sosfilt K=5 (NaN
     route, zero init), rolldec K=11 and K=6, sosfilt K=1 with zi (filtfilt's
-    notch) — with their registers and spills."""
+    notch) — and the ops API's sosfilt K=5 from a given state, with their
+    registers and spills; the 24 given-state instantiations must not
+    spill."""
     stats, func = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for)"
@@ -376,17 +389,32 @@ def _iir_ptxas(log: str) -> None:
         if m and func:
             stats.setdefault(func, {})["registers"] = int(m.group(1))
     regs = [v["registers"] for v in stats.values() if "registers" in v]
-    require(len(regs) == 60, f"iir.cu: {len(regs)} kernels in ptxas's log")
-    print(f"[build] iir: {len(regs)} chunked_scan_kernel instantiations, "
-          f"{min(regs)}-{max(regs)} registers")
-    path = {"sosfilt K=5": r"ILi5ELb0ELb1ENS_8StoreOutILb1E",
-            "rolldec K=11": r"ILi11ELb0ELb1ENS_7MeanOut",
-            "rolldec K=6": r"ILi6ELb0ELb1ENS_7MeanOut",
-            "sosfilt K=1 zi": r"ILi1ELb1ELb0ENS_8StoreOutILb0E"}
+    require(len(regs) == 84, f"iir.cu: {len(regs)} kernels in ptxas's log")
+    print(f"[build] iir: {len(regs)} chunked_scan_kernel and "
+          f"given_scan_kernel instantiations, {min(regs)}-{max(regs)} "
+          f"registers")
+    # chunked_scan_kernel<K, start (0 zero, 1 steady), VEC, Out>,
+    # given_scan_kernel<K, VEC>
+    path = {"sosfilt K=5": r"ILi5ELi0ELb1ENS_8StoreOutILb1E",
+            "rolldec K=11": r"ILi11ELi0ELb1ENS_7MeanOut",
+            "rolldec K=6": r"ILi6ELi0ELb1ENS_7MeanOut",
+            "sosfilt K=1 zi": r"ILi1ELi1ELb0ENS_8StoreOutILb0E",
+            "sosfilt K=5 given state": r"given_scan_kernelILi5ELb1E"}
     for what, pat in path.items():
         found = [v for f, v in stats.items() if re.search(pat, f)]
         require(len(found) == 1, f"iir.cu: no single kernel for {what}")
         print(f"[build] iir {what}: {found[0]}")
+    given = {f: v for f, v in stats.items()
+             if re.search(r"given_scan_kernelILi\d+ELb", f)}
+    require(len(given) == 24, f"iir.cu: {len(given)} given-state kernels")
+    spilled = {f: v["stack/spill st/ld B"] for f, v in given.items()
+               if v.get("stack/spill st/ld B", ("0", "0", "0"))[1:]
+               != ("0", "0")}
+    require(not spilled, f"iir.cu: given-state kernels spill: {spilled}")
+    print(f"[build] iir given state: 24 instantiations, "
+          f"{min(v['registers'] for v in given.values())}-"
+          f"{max(v['registers'] for v in given.values())} registers, "
+          f"no spills")
 
 
 def phase_build(card: str) -> None:
@@ -801,10 +829,12 @@ def _counters():
 
     def reset():
         cuda_iir.sosfilt.launches = cuda_iir.sosfilt_rolldec.launches = 0
+        cuda_iir.sosfilt.given_launches = 0
         fused.kernel_launches.update(dict.fromkeys(fused.kernel_launches, 0))
 
     def read():
         return {"iir_sosfilt": cuda_iir.sosfilt.launches,
+                "iir_sosfilt_given": cuda_iir.sosfilt.given_launches,
                 "iir_sosfilt_rolldec": cuda_iir.sosfilt_rolldec.launches,
                 **fused.kernel_launches}
     return reset, read
@@ -3578,6 +3608,142 @@ def phase_parallel(card: str, tmp: str) -> dict:
     return rec["launches"]
 
 
+# The public DSP API (phase 17): ``ops.lfilter`` under every engine the JAX
+# package names, from zero and from a given per-lane state, and
+# ``ops.filtfilt`` under ``blockmm`` and the kernel, on OPS_LANES lanes of
+# OPS_T samples (the CPU's plain versions run the same calls); then #1
+# from a given state timed beside #1 from zero at the serving size
+OPS_LANES, OPS_T, OPS_FF_T = 64, 2000, 400
+OPS_ENGINES = ("auto", "pallas", "scan", "blockmm", "block", "xla")
+OPS_REL, OPS_FF_REL = 2e-4, 1e-3     # tests/test_ops_iir.py's bounds
+
+
+def phase_ops_api(card: str, dev) -> dict:
+    """``lfilter(coeffs, x, axis, zi, block_size, engine)`` and
+    ``filtfilt(..., engine)`` on the card: each engine with and without a
+    random per-lane state (K=5, the NaN route's bandpass) and once along
+    axis 0, held against float64 ``scipy.signal.sosfilt`` / ``filtfilt``
+    and against the same call on the CPU; every kernel's launches read
+    around that run and held to the dispatch rules (the sequential scan:
+    ``auto``, ``pallas``, ``scan`` and every ``zi``; the kernel's
+    given-state mode for every ``zi``; filtfilt under ``pallas`` two
+    steady-state launches; nothing for ``blockmm`` and ``block``).  Then
+    at 5,120 × 10,000: #1 from a given state against its plain version
+    (the sequential scan from that state on the card), timed beside #1
+    from zero (zero, given, given, zero), its bound, the block-Toeplitz
+    route from that state, and the ``block`` and ``blockmm`` routes.
+    Returns the given-state kernel's record and the phase's launches."""
+    from scipy import signal as sps
+    from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
+        cuda_iir, iir)
+    t_phase = time.perf_counter()
+    reset, read = _counters()
+    bp5 = iir.butter_bandpass(0.5, 20.0, 200.0, 5)
+    notch = iir.iirnotch(60.0, 30.0, 200.0)
+    K = len(bp5.sos)
+    cpu = torch.device("cpu")
+    x = signal((OPS_LANES, OPS_T), 40, 21, cpu)
+    zi = signal((OPS_LANES, K, 2), 10, 22, cpu)
+    xs = signal((OPS_LANES, OPS_FF_T), 5, 23, cpu)
+    sos = np.asarray(bp5.sos)
+    ref = {False: sps.sosfilt(sos, x.double().numpy(), axis=-1),
+           True: sps.sosfilt(sos, x.double().numpy(), axis=-1,
+                             zi=zi.double().numpy().transpose(1, 0, 2))[0]}
+    ref_ff = np.ascontiguousarray(sps.filtfilt(
+        np.asarray(notch.b), np.asarray(notch.a), xs.double().numpy(),
+        axis=-1))
+    cases = [(e, g) for e in OPS_ENGINES for g in (False, True)]
+    want = {(e, g): iir.lfilter(bp5, x, zi=zi if g else None, engine=e)
+            for e, g in cases}
+    want_ff = {e: iir.filtfilt(notch, xs, engine=e)
+               for e in ("blockmm", "pallas")}
+
+    xd, zd, xsd = x.to(dev), zi.to(dev), xs.to(dev)
+    torch.cuda.synchronize()
+    reset()
+    got = {(e, g): iir.lfilter(bp5, xd, zi=zd if g else None, engine=e)
+           for e, g in cases}
+    got_axis0 = iir.lfilter(bp5, xd.t(), axis=0, zi=zd, engine="auto")
+    got_ff = {e: iir.filtfilt(notch, xsd, engine=e)
+              for e in ("blockmm", "pallas")}
+    torch.cuda.synchronize()
+    counts = read()
+    print(f"[ops api] launches over lfilter x {len(cases) + 1} and filtfilt "
+          f"x 2: {counts}")
+    expect = {"iir_sosfilt": 3 + 2, "iir_sosfilt_given": len(OPS_ENGINES) + 1,
+              "iir_sosfilt_rolldec": 0}
+    require(all(counts[k] == n for k, n in expect.items()),
+            f"ops api: launches {counts}, expected {expect}")
+    errs = {}
+    for (e, g), y in got.items():
+        r_ref = rel(y.cpu(), torch.as_tensor(ref[g]))
+        r_cpu = rel(y.cpu(), want[e, g])
+        require(y.shape == x.shape and bool(torch.isfinite(y).all())
+                and r_ref < OPS_REL and r_cpu < OPS_REL,
+                f"ops api: lfilter engine={e} zi={g}: rel {r_ref:.2e} to "
+                f"float64, {r_cpu:.2e} to the CPU")
+        errs[f"{e}{'+zi' if g else ''}"] = r_ref
+    r = rel(got_axis0.t().cpu(), torch.as_tensor(ref[True]))
+    require(r < OPS_REL, f"ops api: lfilter axis=0 zi: rel {r:.2e}")
+    errs["axis0+zi"] = r
+    for e, y in got_ff.items():
+        r_ref = rel(y.cpu(), torch.as_tensor(ref_ff))
+        r_cpu = rel(y.cpu(), want_ff[e])
+        require(r_ref < OPS_FF_REL and r_cpu < OPS_FF_REL,
+                f"ops api: filtfilt engine={e}: rel {r_ref:.2e} to float64, "
+                f"{r_cpu:.2e} to the CPU")
+        errs[f"filtfilt {e}"] = r_ref
+    print(f"[ops api] lfilter ({OPS_LANES}, {OPS_T}), K={K}, and filtfilt "
+          f"({OPS_LANES}, {OPS_FF_T}) on the card, rel to float64 scipy "
+          f"(bounds {OPS_REL:g}, filtfilt {OPS_FF_REL:g}): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+
+    # --- #1 from a given state at the serving size, beside #1 from zero
+    lanes, T = B_TIME * 20, 10_000
+    xt = signal((lanes, T), 40, 5, dev)
+    zt = signal((lanes, K, 2), 10, 6, dev)
+    y = cuda_iir.sosfilt(bp5, xt, zi=zt)
+    t0 = time.perf_counter()
+    y_plain = iir._sos_scan(xt, bp5.sos, zt)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    r = rel(y, y_plain)
+    require(r < OPS_REL, f"#1 given state ({lanes}, {T}): rel {r:.2e}")
+    given = lambda: cuda_iir.sosfilt(bp5, xt, zi=zt)     # noqa: E731
+    zero = lambda: cuda_iir.sosfilt(bp5, xt)             # noqa: E731
+    z1, g1, g2, z2 = (cuda_ms(f, 10) for f in (zero, given, given, zero))
+    ms, ms_zero = (g1 + g2) / 2, (z1 + z2) / 2
+    z0 = zt.reshape(lanes, -1)
+    lib_ms = cuda_ms(lambda: iir._cascade_block_matmul(xt, bp5.sos, 128,
+                                                       z0=z0), 3)
+    block_ms = cuda_ms(lambda: iir.lfilter(bp5, xt, engine="block"), 2)
+    blockmm_ms = cuda_ms(lambda: iir.lfilter(bp5, xt, engine="blockmm"), 3)
+    b, b_by = bound_ms(lanes * T * 4 * 2 + lanes * K * 2 * 4,
+                       9 * K * lanes * T)
+    print(f"[ops api] #1 given state K={K} ({lanes}, {T}): rel {r:.2e} to "
+          f"the sequential scan from that state; {ms:.4f} ms ({g1:.4f}, "
+          f"{g2:.4f}) beside #1 from zero {ms_zero:.4f} ms ({z1:.4f}, "
+          f"{z2:.4f}): ratio {ms / ms_zero:.4f}; bound {b:.4f} ms by {b_by}; "
+          f"block-matmul route from the state {lib_ms:.4f} ms; "
+          f"lfilter engine=block {block_ms:.3f} ms, engine=blockmm "
+          f"{blockmm_ms:.4f} ms; plain scan {plain_ms:.1f} ms (host clock) "
+          f"[{card}]")
+    rec = dict(err=max_abs(y, y_plain), ms=ms, plain_ms=plain_ms,
+               bound_ms=b, bound_by=b_by, library_ms=lib_ms,
+               ms_zero_state=ms_zero, block_ms=block_ms,
+               blockmm_ms=blockmm_ms)
+    del xt, zt, y, y_plain
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(json.dumps({"ops_api": {"launches": counts, "rel": errs,
+                                  "given_ms": ms, "zero_ms": ms_zero,
+                                  "ratio": ms / ms_zero, "bound_ms": b,
+                                  "block_ms": block_ms,
+                                  "blockmm_ms": blockmm_ms,
+                                  "phase_s": phase_s}}))
+    return {"rec": rec, "launches": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3637,6 +3803,9 @@ def main() -> int:
         done("cli")
         parallel_launches = phase_parallel(card, tmp)
         done("parallel")
+    ops = phase_ops_api(card, dev)
+    done("ops api")
+    rec["iir_sosfilt_given"] = ops["rec"]
 
     xai_tpu = "multimodal_brain_pattern_identification_xai_tpu"
     src = {"iir_sosfilt": (f"{PKG}/csrc/iir.cu",
@@ -3665,8 +3834,14 @@ def main() -> int:
                f"{xai_tpu}/ops/pallas_specblock.py:242",
                "fused blocks 3-5 (64x48, 64x64), bf16; one count a call, "
                "three device launches of wide_bf16_conv_kernel"),
+           "iir_sosfilt_given": (
+               f"{PKG}/csrc/iir.cu", f"{xai_tpu}/ops/pallas_iir.py:165",
+               "lfilter(zi=) under every engine (the JAX package runs it "
+               "as its XLA scan, ops/iir.py:473-475); no serving, training "
+               "or command-line path"),
            "duty": (f"{PKG}/csrc/duty.cu", "bench.py:1123", "convprobe")}
     launches["duty"] = rec["duty"].pop("launches")
+    launches["iir_sosfilt_given"] = ops["launches"]["iir_sosfilt_given"]
     # iir_sosfilt's launches count its callers besides the main path: the
     # op-by-op reference chain's notch filtfilt (B) and eeg_transform (C)
     main_sosfilt = launches["iir_sosfilt"]
@@ -3699,6 +3874,7 @@ def main() -> int:
             k["zoo_launches"] = zoo_launches[k["name"]]
         k["cli_launches"] = cli_launches.get(k["name"], 0)
         k["parallel_launches"] = parallel_launches.get(k["name"], 0)
+        k["ops_api_launches"] = ops["launches"].get(k["name"], 0)
     print(f"[time] total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,7 +6,10 @@
 // steady-state init; called at :165) and _make_rolldec_kernel (cascade
 // from zero state with the fused 4-tap rolling mean + ::4 decimation;
 // called at :254).  The TPU kernels walk time serially, 1,024 lanes to a
-// vector register.
+// vector register.  The JAX package runs lfilter from an explicit initial
+// state as an XLA scan (ops/iir.py:473-475); here that is a third start
+// mode of the same scan, in a kernel of its own with smaller CTAs
+// (given_scan_kernel, entry iir_sosfilt_zi_f32).
 //
 // What bounds it on an H100: at the main path's largest shape (B=256:
 // 5,120 lanes x 10,000 samples, 11 sections) the data is ~205 MB in and
@@ -27,9 +30,9 @@
 // touched 32 lines per warp access and reached ~0.9 TB/s.
 //   Pass A: each thread scans its chunk from a seed and keeps only the exit
 //     state (2K values).  Chunk 0 starts from the call's initial state
-//     (zero, or zi * x[0]); chunk j >= 1 from w_j = zi * x[jL], the steady
-//     state of its own first sample, so a DC offset leaves no large
-//     transient to cancel in the chain.
+//     (zero, zi * x[0], or a state given for each lane); chunk j >= 1 from
+//     w_j = zi * x[jL], the steady state of its own first sample, so a DC
+//     offset leaves no large transient to cancel in the chain.
 //   Chain: serial over chunks, one thread per (lane, state row), in
 //     float64: e_1 = exit_0, e_{j+1} = A^L (e_j - w_j) + exit_j, with A^L
 //     (2K x 2K, of the float32-rounded sections the passes run) in the
@@ -51,6 +54,7 @@ namespace {
 constexpr int kMaxSections = 12;
 constexpr int kMaxState = 2 * kMaxSections;
 constexpr int kMaxThreads = 512;
+constexpr int kGivenThreads = 256;   // given_scan_kernel's CTA limit
 constexpr int kStage = 32;           // samples of every chunk staged at once
 constexpr int kPitch = kStage + 4;   // floats per staged row: 16-byte rows,
                                      // float4 reads free of bank conflicts
@@ -241,6 +245,31 @@ __device__ __forceinline__ void steady(float v, float (&z0)[K],
   }
 }
 
+// Where chunk 0 of a lane starts: from zero, from the steady state
+// zi * x[0] (lfilter_zi), or from the lane's row of a given state
+// (lanes, K, 2) in device memory.
+constexpr int kFromZero = 0, kFromSteady = 1, kFromGiven = 2;
+
+template <int K, int S>
+__device__ __forceinline__ void start(const float* __restrict__ x,
+                                      const float* __restrict__ zg, int lane,
+                                      int T, float (&z0)[K], float (&z1)[K],
+                                      const Params& p) {
+  if constexpr (S == kFromSteady) {
+    steady<K>(__ldg(x + static_cast<size_t>(lane) * T), z0, z1, p);
+  } else if constexpr (S == kFromGiven) {
+    const float* z = zg + static_cast<size_t>(lane) * 2 * K;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      z0[k] = __ldg(z + 2 * k);
+      z1[k] = __ldg(z + 2 * k + 1);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) z0[k] = z1[k] = 0.f;
+  }
+}
+
 // Dynamic shared memory: one region that holds either the chain's states
 // (G*C*2K doubles) or the two stage buffers (2*G*C*kPitch floats), then
 // G*C floats of x[jL].
@@ -250,10 +279,13 @@ __host__ __device__ inline size_t state_region(int rows, int K) {
   return st > bufs ? st : bufs;
 }
 
-template <int K, bool ZI, bool VEC, class Out>
-__global__ void __launch_bounds__(kMaxThreads)
-chunked_scan_kernel(const float* __restrict__ x, float* __restrict__ y,
-                    int T, int lanes, int L, int C, int G, Params p) {
+// S: where chunk 0 starts (kFromZero, kFromSteady, kFromGiven: from zg).
+template <int K, int S, bool VEC, class Out>
+__device__ __forceinline__ void chunked_scan(const float* __restrict__ x,
+                                             float* __restrict__ y,
+                                             const float* __restrict__ zg,
+                                             int T, int lanes, int L, int C,
+                                             int G, const Params& p) {
   constexpr int N = 2 * K;
   extern __shared__ __align__(16) unsigned char smem[];
   const int rows = G * C;
@@ -275,12 +307,10 @@ chunked_scan_kernel(const float* __restrict__ x, float* __restrict__ y,
   if (first) {
     const float v0 = __ldg(x + static_cast<size_t>(lane) * T + j * L);
     x0[w] = v0;
-    if (ZI || j > 0) {
+    if (j > 0)
       steady<K>(v0, z0, z1, p);
-    } else {
-#pragma unroll
-      for (int k = 0; k < K; ++k) z0[k] = z1[k] = 0.f;
-    }
+    else
+      start<K, S>(x, zg, lane, T, z0, z1, p);
   }
   if (C > 1) {
     pass<K, VEC>(buf0, buf1, q, rows, first, w, len, z0, z1, p, NoOut{});
@@ -325,12 +355,7 @@ chunked_scan_kernel(const float* __restrict__ x, float* __restrict__ y,
   // --- pass C: rescan every chunk from its entry state and write
   if (worker) {
     if (j == 0) {
-      if (ZI) {
-        steady<K>(__ldg(x + static_cast<size_t>(lane) * T), z0, z1, p);
-      } else {
-#pragma unroll
-        for (int k = 0; k < K; ++k) z0[k] = z1[k] = 0.f;
-      }
+      start<K, S>(x, zg, lane, T, z0, z1, p);
     } else {
       const double* s = st + (w - 1) * N;
 #pragma unroll
@@ -345,20 +370,42 @@ chunked_scan_kernel(const float* __restrict__ x, float* __restrict__ y,
   pass<K, VEC>(buf0, buf1, q, rows, worker, w, len, z0, z1, p, Out{});
 }
 
+template <int K, int S, bool VEC, class Out>
+__global__ void __launch_bounds__(kMaxThreads)
+chunked_scan_kernel(const float* __restrict__ x, float* __restrict__ y,
+                    const float* __restrict__ zg, int T, int lanes, int L,
+                    int C, int G, Params p) {
+  chunked_scan<K, S, VEC, Out>(x, y, zg, T, lanes, L, C, G, p);
+}
+
+// From a given state: CTAs of at most kGivenThreads threads, so a thread
+// may hold up to 255 registers; at kMaxThreads these instantiations spill
+// at K = 5, 11 and 12 (20-88 B), at this bound none does.
+template <int K, bool VEC>
+__global__ void __launch_bounds__(kGivenThreads)
+given_scan_kernel(const float* __restrict__ x, float* __restrict__ y,
+                  const float* __restrict__ zg, int T, int lanes, int L,
+                  int C, int G, Params p) {
+  chunked_scan<K, kFromGiven, VEC, StoreOut<VEC>>(x, y, zg, T, lanes, L, C,
+                                                  G, p);
+}
+
 struct Shape {
   int C;
   dim3 grid, block;
   size_t smem;
 };
 
-// Checks the arguments and derives the launch; 0 or a cudaError_t.
-int shape_of(int T, int lanes, int K, int L, int G, Shape* s) {
+// Checks the arguments and derives the launch (at most max_threads a CTA);
+// 0 or a cudaError_t.
+int shape_of(int T, int lanes, int K, int L, int G, Shape* s,
+             int max_threads = kMaxThreads) {
   if (K < 1 || K > kMaxSections || T < 1 || lanes < 1 || L < 4 || L % 4 ||
       G < 1)
     return cudaErrorInvalidValue;
   s->C = (T + L - 1) / L;
   const int width = s->C > 2 ? (s->C > 2 * K ? s->C : 2 * K) : s->C;
-  if (static_cast<long>(G) * width > kMaxThreads) return cudaErrorInvalidValue;
+  if (static_cast<long>(G) * width > max_threads) return cudaErrorInvalidValue;
   s->grid = dim3((lanes + G - 1) / G);
   s->block = dim3((G * width + 31) / 32 * 32);
   s->smem = state_region(G * s->C, K) + G * s->C * sizeof(float);
@@ -380,14 +427,15 @@ Params make_params(int K, const float* coef, const float* zi,
 
 template <typename Kern>
 int launch(Kern kern, const Shape& s, cudaStream_t st, const float* x,
-           float* y, int T, int lanes, int L, int G, const Params& p) {
+           float* y, const float* zg, int T, int lanes, int L, int G,
+           const Params& p) {
   if (s.smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(s.smem));
     if (e != cudaSuccess) return e;
   }
-  kern<<<s.grid, s.block, s.smem, st>>>(x, y, T, lanes, L, s.C, G, p);
+  kern<<<s.grid, s.block, s.smem, st>>>(x, y, zg, T, lanes, L, s.C, G, p);
   return cudaGetLastError();
 }
 
@@ -416,13 +464,41 @@ int iir_sosfilt_f32(const void* x, void* y, int T, int lanes, int K, int L,
   const float* xi = static_cast<const float*>(x);
   float* yo = static_cast<float*>(y);
   const bool vec = T % 4 == 0 && aligned16(x) && aligned16(y);
-#define PICK(k, zi_, vec_)                                                   \
-  launch(chunked_scan_kernel<k, zi_, vec_, StoreOut<vec_>>, s, st, xi, yo, T, \
-         lanes, L, G, p)
-#define LAUNCH(k)                                                           \
-  case k:                                                                   \
-    return zi_init ? (vec ? PICK(k, true, true) : PICK(k, true, false))     \
-                   : (vec ? PICK(k, false, true) : PICK(k, false, false));
+#define PICK(k, from, vec_)                                                 \
+  launch(chunked_scan_kernel<k, from, vec_, StoreOut<vec_>>, s, st, xi, yo, \
+         nullptr, T, lanes, L, G, p)
+#define LAUNCH(k)                                                         \
+  case k:                                                                 \
+    return zi_init ? (vec ? PICK(k, kFromSteady, true)                    \
+                          : PICK(k, kFromSteady, false))                  \
+                   : (vec ? PICK(k, kFromZero, true)                      \
+                          : PICK(k, kFromZero, false));
+  switch (K) { IIR_CASES(LAUNCH) }
+#undef LAUNCH
+#undef PICK
+  return cudaErrorInvalidValue;
+}
+
+// As iir_sosfilt_f32, with chunk 0 of lane l starting from z[l]: z is a
+// device buffer (lanes, K, 2) float32, contiguous, the DF2T state (z0, z1)
+// of each section; G lanes of C chunks fill at most kGivenThreads threads.
+// Returns cudaGetLastError().
+int iir_sosfilt_zi_f32(const void* x, void* y, int T, int lanes, int K, int L,
+                       int G, const float* coef, const float* zi,
+                       const void* z, const double* a_pow, void* stream) {
+  Shape s;
+  if (const int e = shape_of(T, lanes, K, L, G, &s, kGivenThreads)) return e;
+  const Params p = make_params(K, coef, zi, a_pow);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xi = static_cast<const float*>(x);
+  const float* zg = static_cast<const float*>(z);
+  float* yo = static_cast<float*>(y);
+  const bool vec = T % 4 == 0 && aligned16(x) && aligned16(y);
+#define PICK(k, vec_) \
+  launch(given_scan_kernel<k, vec_>, s, st, xi, yo, zg, T, lanes, L, G, p)
+#define LAUNCH(k) \
+  case k:         \
+    return vec ? PICK(k, true) : PICK(k, false);
   switch (K) { IIR_CASES(LAUNCH) }
 #undef LAUNCH
 #undef PICK
@@ -443,8 +519,8 @@ int iir_sosfilt_rolldec_f32(const void* x, void* y, int T, int lanes, int K,
   float* yo = static_cast<float*>(y);
 #define LAUNCH(k)                                                            \
   case k:                                                                    \
-    return launch(chunked_scan_kernel<k, false, true, MeanOut>, s, st, xi, yo, \
-                  T, lanes, L, G, p);
+    return launch(chunked_scan_kernel<k, kFromZero, true, MeanOut>, s, st,  \
+                  xi, yo, nullptr, T, lanes, L, G, p);
   switch (K) { IIR_CASES(LAUNCH) }
 #undef LAUNCH
   return cudaErrorInvalidValue;

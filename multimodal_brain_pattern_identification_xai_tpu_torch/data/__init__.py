@@ -4,8 +4,9 @@ sources, synthetic fixtures, batching and host → device prefetch."""
 
 from .batching import (batch_iterator, multimodal_batch_iterator,  # noqa: F401
                        prefetch_to_device)
-from .dummy import (dummy_metadata, synthetic_raw_eeg,  # noqa: F401
-                    synthetic_raw_spectrogram, write_synthetic_hms_tree)
+from .dummy import (dummy_eeg_dataset, dummy_metadata,  # noqa: F401
+                    synthetic_raw_eeg, synthetic_raw_spectrogram,
+                    write_synthetic_hms_tree)
 from .loader import (ColumnTable, EEGRecordCache,  # noqa: F401
                      crop_eeg_window, crop_spectrogram, load_eeg_parquet,
                      load_spectrogram_parquet, load_train_metadata)

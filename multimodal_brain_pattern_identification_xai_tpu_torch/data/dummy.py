@@ -1,11 +1,12 @@
 """Synthetic fixtures (counterpart of the JAX package's ``data/dummy.py``,
-numpy): raw-signal generators for tests and the training entry, a
+numpy): raw-signal generators for tests and the training entry, one
+sample a class, a
 ``train.csv``-shaped frame and a miniature HMS tree on disk (both need
 pandas, imported in them only)."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -38,6 +39,21 @@ def synthetic_raw_spectrogram(n: int, rng: np.random.Generator,
     base = rng.random((n,) + shape).astype(np.float32) * 10
     decay = (1.0 / (1.0 + np.arange(shape[0]) / 20.0)).astype(np.float32)
     return base * decay[None, :, None]
+
+
+def dummy_eeg_dataset(rng: np.random.Generator,
+                      n_per_class: int = 1,
+                      n_channels: int = 19,
+                      length: int = 2000,
+                      n_classes: int = 6) -> Dict[str, np.ndarray]:
+    """``n_per_class`` samples a class (the reference's ``DummyEEGDataset``
+    fixture): ``x`` (n, n_channels, length) standard normal float32 and
+    ``y`` one-hot (n, n_classes), classes in order."""
+    n = n_per_class * n_classes
+    x = rng.standard_normal((n, n_channels, length)).astype(np.float32)
+    labels = np.repeat(np.arange(n_classes), n_per_class)
+    y = np.eye(n_classes, dtype=np.float32)[labels]
+    return {"x": x, "y": y}
 
 
 def dummy_metadata(rng: np.random.Generator, n: int = 60):

@@ -4,8 +4,8 @@ registry: the JAX package's ``models.REGISTRY`` and ``build``."""
 from typing import Any, Callable, Dict
 
 from .deepconvnet import DeepConvNet
-from .diffeeg import (DiffEEG, DiffEEGSanityCheck, make_cached_denoiser,
-                      recombine_spectrograms)
+from .diffeeg import (DiffEEG, DiffEEGSanityCheck, GTU, make_cached_denoiser,
+                      recombine_spectrograms, sinusoidal_embedding)
 from .diffeeg_legacy import DiffEEGLegacy
 from .eegnet import (EEGNet, EEGNetAttentionDeep, EEGNetAttentionRegularized,
                      EEGNetResidual, EEGNetResidualLSTM, EEGNetTransformer,
@@ -16,6 +16,14 @@ from .layers import (Attention, BatchNorm, BiLSTM, Dropout, LSTM,
                      MultiheadSelfAttention, SpectrogramBlock,
                      TransformerEncoderLayer, dropout_generator)
 from .speccnn import SpectrogramCNN
+from .torch_import import (load_torch_diffeeg_legacy_state_dict,
+                           load_torch_diffeeg_state_dict,
+                           load_torch_eegnet_attention_state_dict,
+                           load_torch_eegnet_state_dict,
+                           load_torch_efficientnet_state_dict,
+                           load_torch_multimodal_state_dict,
+                           load_torch_speccnn_state_dict,
+                           load_torch_vit_state_dict)
 from .vit import SpectrogramViT
 from .wavenet import (DilatedInception, DilatedInceptionWaveNet,
                       GatedTCN, WaveBlock)
@@ -55,9 +63,17 @@ __all__ = ["Attention", "BatchNorm", "BiLSTM", "DeepConvNet", "DiffEEG",
            "EEGNetAttentionDeep", "EEGNetAttentionRegularized",
            "EEGNetResidual", "EEGNetResidualLSTM", "EEGNetTransformer",
            "EEGSeizureDetectionModel", "EfficientNetB0", "EfficientNetV2B2",
-           "GatedTCN", "LSTM", "MultiheadSelfAttention", "MultimodalModel",
+           "GTU", "GatedTCN", "LSTM", "MultiheadSelfAttention",
+           "MultimodalModel",
            "REGISTRY", "SpectrogramBlock", "SpectrogramCNN", "SpectrogramViT",
            "TransformerEncoderLayer", "WaveBlock", "build",
            "dropout_generator", "jax_variables_to_state_dict",
-           "make_cached_denoiser", "recombine_spectrograms",
-           "seeded_state_dict"]
+           "load_torch_diffeeg_legacy_state_dict",
+           "load_torch_diffeeg_state_dict",
+           "load_torch_eegnet_attention_state_dict",
+           "load_torch_eegnet_state_dict",
+           "load_torch_efficientnet_state_dict",
+           "load_torch_multimodal_state_dict", "load_torch_speccnn_state_dict",
+           "load_torch_vit_state_dict", "make_cached_denoiser",
+           "recombine_spectrograms", "seeded_state_dict",
+           "sinusoidal_embedding"]

@@ -172,13 +172,13 @@ def sinusoidal_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 class GTU(nn.Module):
-    """Gated Tanh Unit: tanh(conv1(x)) ⊙ sigmoid(conv2(x)), 1×1 convs."""
+    """Gated Tanh Unit: tanh(conv1(x)) ⊙ sigmoid(conv2(x)), 1×1 convs
+    computing in ``dtype`` when set."""
 
-    def __init__(self, channels: int,
-                 compute_dtype: Optional[torch.dtype] = None):
+    def __init__(self, channels: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv1 = Conv1d(channels, channels, 1, compute_dtype=compute_dtype)
-        self.conv2 = Conv1d(channels, channels, 1, compute_dtype=compute_dtype)
+        self.conv1 = Conv1d(channels, channels, 1, compute_dtype=dtype)
+        self.conv2 = Conv1d(channels, channels, 1, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.tanh(self.conv1(x)) * torch.sigmoid(self.conv2(x))
@@ -186,11 +186,12 @@ class GTU(nn.Module):
 
 class ResidualBlock(nn.Sequential):
     """conv1×1 → ReLU → dilated conv3 → conv1×1 → GroupNorm(1) → Dropout
-    (no residual add: the reference chains the blocks)."""
+    (no residual add: the reference chains the blocks); the convs compute
+    in ``dtype`` when set."""
 
     def __init__(self, channels: int, dilation: int, dropout: float,
-                 compute_dtype: Optional[torch.dtype] = None):
-        dt = compute_dtype
+                 dtype: Optional[torch.dtype] = None):
+        dt = dtype
         super().__init__(
             Conv1d(channels, channels, 1, compute_dtype=dt), nn.ReLU(),
             Conv1d(channels, channels, 3, padding=dilation,

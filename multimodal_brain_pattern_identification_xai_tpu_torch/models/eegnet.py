@@ -107,8 +107,8 @@ class EEGNet(_EEGNetStem):
         """The feature map (B, F2, 1, T/32)."""
         return self._stem_features(x)
 
-    def head(self, a: torch.Tensor) -> torch.Tensor:
-        return F.log_softmax(self.dense(a.flatten(1)), dim=-1)
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        return F.log_softmax(self.dense(x.flatten(1)), dim=-1)
 
 
 class EEGNetAttentionRegularized(_EEGNetStem):
@@ -134,9 +134,9 @@ class EEGNetAttentionRegularized(_EEGNetStem):
         ``sow("feature_map")``)."""
         return self._stem_features(x)
 
-    def head(self, a: torch.Tensor) -> torch.Tensor:
+    def head(self, x: torch.Tensor) -> torch.Tensor:
         """Feature map (B, F2, 1, T') → log-probs (B, nb_classes)."""
-        tokens, _ = self.attention_layer(a.flatten(2).transpose(1, 2))
+        tokens, _ = self.attention_layer(x.flatten(2).transpose(1, 2))
         x = tokens.transpose(1, 2).flatten(1)                # channel-major
         x = self.dense2(self.dropout(self.dense1(x)))
         return F.log_softmax(x, dim=-1)
@@ -165,8 +165,8 @@ class EEGNetAttentionDeep(_EEGNetStem):
         x = self.batchnorm4(self.conv2(self._stem_features(x)))
         return self.dropout(F.avg_pool2d(F.elu(x), (1, 8)))
 
-    def head(self, a: torch.Tensor) -> torch.Tensor:
-        tokens, _ = self.attention_layer(a.flatten(2).transpose(1, 2))
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        tokens, _ = self.attention_layer(x.flatten(2).transpose(1, 2))
         x = self.dense2(self.dense1(tokens.transpose(1, 2).flatten(1)))
         return F.log_softmax(x, dim=-1)
 
@@ -204,8 +204,8 @@ class EEGNetResidual(_EEGNetStem):
         x = self.dropout(F.avg_pool2d(F.elu(x), (1, 8)))
         return x + self.residual(tap)
 
-    def head(self, a: torch.Tensor) -> torch.Tensor:
-        return F.log_softmax(self.dense(a.flatten(1)), dim=-1)
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        return F.log_softmax(self.dense(x.flatten(1)), dim=-1)
 
 
 class EEGNetResidualLSTM(_EEGNetStem):
@@ -226,8 +226,8 @@ class EEGNetResidualLSTM(_EEGNetStem):
 
     features = EEGNetResidual.features
 
-    def head(self, a: torch.Tensor) -> torch.Tensor:
-        seq = self.lstm(a.flatten(2).transpose(1, 2))       # (B, T', units)
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        seq = self.lstm(x.flatten(2).transpose(1, 2))       # (B, T', units)
         return F.log_softmax(self.dense(seq.flatten(1)), dim=-1)
 
 
@@ -261,8 +261,8 @@ class EEGNetTransformer(_EEGNetStem):
         x = self.batchnorm4(self.separableConv2(self._stem_features(x)))
         return self.dropout(F.avg_pool2d(F.elu(x), (1, 4)))
 
-    def head(self, a: torch.Tensor) -> torch.Tensor:
-        tok = a.flatten(1)[:, None]                          # (B, 1, d_model)
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        tok = x.flatten(1)[:, None]                          # (B, 1, d_model)
         for layer in self.encoder:
             tok = layer(tok)
         x = F.relu(self.dense1(tok[:, 0]))
@@ -294,8 +294,8 @@ class EEGSeizureDetectionModel(nn.Module):
         x = F.avg_pool2d(F.elu(self.batchnorm1(self.conv1(x))), (1, 4))
         return F.avg_pool2d(F.elu(self.batchnorm2(self.conv2(x))), (1, 4))
 
-    def head(self, a: torch.Tensor) -> torch.Tensor:
-        h = self.lstm2(self.lstm1(a.flatten(1)[:, None]))
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.lstm2(self.lstm1(x.flatten(1)[:, None]))
         x = self.fc2(self.dropout(self.fc1(h[:, -1])))
         return F.log_softmax(x, dim=-1)
 

@@ -79,32 +79,36 @@ class SqueezeExcite(nn.Module):
 
 class MBConv(nn.Module):
     """[1×1 expand → BN → SiLU] → k×k depthwise (stride) → BN → SiLU →
-    squeeze-excite (inp // 4) → 1×1 project → BN, plus the input where the
-    stride is 1 and the width stays."""
+    squeeze-excite (int(inp · se_ratio)) → 1×1 project → BN, plus the
+    input where the stride is 1 and the width stays (after a per-sample
+    dropout of rate ``drop_rate`` in training, when it is above 0)."""
 
     def __init__(self, inp: int, expand_ratio: int, out_channels: int,
-                 stride: int, kernel: int):
+                 stride: int, kernel: int, se_ratio: float = 0.25,
+                 drop_rate: float = 0.0):
         super().__init__()
         mid = inp * expand_ratio
         layers = [_ConvBN(inp, mid, 1)] if expand_ratio != 1 else []
         layers += [_ConvBN(mid, mid, kernel, stride, groups=mid),
-                   SqueezeExcite(mid, max(1, inp // 4)),
+                   SqueezeExcite(mid, max(1, int(inp * se_ratio))),
                    _ConvBN(mid, out_channels, 1, act=False)]
         self.block = nn.Sequential(*layers)
         self.residual = stride == 1 and inp == out_channels
+        self.drop = Dropout(drop_rate, per_sample=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.block(x)
-        return y + x if self.residual else y
+        return self.drop(y) + x if self.residual else y
 
 
 class FusedMBConv(nn.Module):
     """V2's early block: one k×k ``fused_conv`` (stride) → BN → SiLU, then
     (when expanding) 1×1 ``project_conv`` → BN; plus the input where the
-    stride is 1 and the width stays."""
+    stride is 1 and the width stays (after a per-sample dropout of rate
+    ``drop_rate`` in training, when it is above 0)."""
 
     def __init__(self, inp: int, expand_ratio: int, out_channels: int,
-                 stride: int, kernel: int):
+                 stride: int, kernel: int, drop_rate: float = 0.0):
         super().__init__()
         mid = inp * expand_ratio
         self.expand = expand_ratio != 1
@@ -115,12 +119,13 @@ class FusedMBConv(nn.Module):
             self.project_conv = _conv(mid, out_channels, 1)
             self.BatchNorm_1 = BatchNorm(out_channels)
         self.residual = stride == 1 and inp == out_channels
+        self.drop = Dropout(drop_rate, per_sample=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.silu(self.BatchNorm_0(self.fused_conv(x)))
         if self.expand:
             y = self.BatchNorm_1(self.project_conv(y))
-        return y + x if self.residual else y
+        return self.drop(y) + x if self.residual else y
 
 
 class _EfficientNet(nn.Module):

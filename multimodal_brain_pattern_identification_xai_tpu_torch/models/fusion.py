@@ -12,12 +12,13 @@ import torch.nn.functional as F
 
 
 class MultimodalModel(nn.Module):
-    def __init__(self, eeg_model: nn.Module, spectrogram_model: nn.Module):
+    def __init__(self, eeg_model: nn.Module, spectrogram_model: nn.Module,
+                 num_classes: int = 6):
         super().__init__()
         self.eeg_model = eeg_model
         self.spectrogram_model = spectrogram_model
         self.fc1 = nn.Linear(2 * 6, 128)
-        self.fc2 = nn.Linear(128, 6)
+        self.fc2 = nn.Linear(128, num_classes)
 
     def forward(self, eeg_data: torch.Tensor,
                 spectrogram_data: torch.Tensor) -> torch.Tensor:

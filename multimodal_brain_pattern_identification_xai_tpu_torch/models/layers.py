@@ -69,14 +69,22 @@ class Dropout(nn.Dropout):
     :func:`dropout_generator` (the trainer's generator folded with the
     step), so the same seed gives the same masks.  With no generator set
     the mask draws from torch's default generator.  Eval mode and p = 0
-    return x unchanged."""
+    return x unchanged.  ``per_sample``: one draw a sample, broadcast over
+    its other axes (flax's ``broadcast_dims`` over every axis but the
+    batch)."""
 
     generator: Optional[torch.Generator] = None
+
+    def __init__(self, p: float = 0.5, per_sample: bool = False):
+        super().__init__(p)
+        self.per_sample = per_sample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.generator,
+        shape = ((x.shape[0],) + (1,) * (x.dim() - 1) if self.per_sample
+                 else x.shape)
+        keep = torch.rand(shape, generator=self.generator,
                           device=x.device) >= self.p
         return torch.where(keep, x / (1.0 - self.p), 0.0)
 
@@ -211,16 +219,19 @@ class SpectrogramBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  pool_type: str = "max", fused: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 pool_size: Tuple[int, int] = (2, 2),
+                 dropout_p: float = 0.5):
         super().__init__()
         self.pool_type = pool_type
+        self.pool_size = tuple(pool_size)
         self.fused = fused
         self.dtype = dtype
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         self.conv3 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         self.bn = BatchNorm(out_channels)
-        self.dropout = Dropout(0.5)
+        self.dropout = Dropout(dropout_p)
         self.conv1x1 = nn.Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -228,7 +239,7 @@ class SpectrogramBlock(nn.Module):
             x = x.to(self.dtype)
         identity = x
         convs = (self.conv1, self.conv2, self.conv3)
-        if (self.fused and not self.training
+        if (self.fused and not self.training and self.pool_size == (2, 2)
                 and cuda_specblock.fused_applies(*x.shape[2:])):
             y = cuda_specblock.fused_specblock_convpool(
                 x.permute(0, 2, 3, 1).contiguous(),
@@ -239,7 +250,7 @@ class SpectrogramBlock(nn.Module):
             for conv in convs:
                 x = F.relu(_conv(conv, x))
             pool = F.max_pool2d if self.pool_type == "max" else F.avg_pool2d
-            x = pool(x, 2)
+            x = pool(x, self.pool_size)
         x = self.dropout(self.bn(x))
         if identity.shape != x.shape:
             identity = bilinear_resize(identity, x.shape[2:])

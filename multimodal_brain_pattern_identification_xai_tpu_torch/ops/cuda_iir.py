@@ -8,7 +8,8 @@ plain PyTorch (for the tests).
 * :func:`sosfilt` — kernel ``iir_sosfilt_f32`` (``csrc/iir.cu``):
   ``scipy.signal.sosfilt`` along the last axis from zero state, or from
   the steady state ``zi_k · x[0]`` (``lfilter_zi``) with
-  ``steady_state_init=True``.  Plain version: :func:`.iir._sos_scan`.
+  ``steady_state_init=True``; from a given state ``zi`` (..., K, 2), the
+  kernel ``iir_sosfilt_zi_f32``.  Plain version: :func:`.iir._sos_scan`.
 * :func:`sosfilt_rolldec` — kernel ``iir_sosfilt_rolldec_f32``: the
   cascade from zero state followed by the 4-tap mean of y[4u..4u+3]
   (T % 4 == 0), i.e. ``lfilter`` then ``rolling_mean4_decimate_flat``.
@@ -21,7 +22,9 @@ runs as consecutive runs of them (:func:`split_sections`), one launch a
 run, the rolldec kernel on the last.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+raises.  Each wrapper counts its kernel launches in ``<wrapper>.launches``;
+:func:`sosfilt`'s launches from a given state count apart, in
+``sosfilt.given_launches``.
 """
 
 from __future__ import annotations
@@ -33,11 +36,13 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from .iir import FilterCoeffs, _chunk_ops, _sos_scan, _sos_zi
+from .iir import (FilterCoeffs, _chunk_ops, _odd_extension, _sos_scan,
+                  _sos_zi)
 from .resample import rolling_mean4_decimate_flat
 
 MAX_SECTIONS = 12          # csrc/iir.cu kMaxSections
 MAX_THREADS = 512          # csrc/iir.cu kMaxThreads
+GIVEN_THREADS = 256        # csrc/iir.cu kGivenThreads (from a given state)
 STAGE = 32                 # csrc/iir.cu kStage
 MIN_CHUNK = 64
 #: longer chunks ran no faster at B=256 (scripts/torch_iir_sweep.py, H100)
@@ -60,27 +65,31 @@ def _lib() -> ctypes.CDLL:
     lib.iir_sosfilt_f32.argtypes = [_P, _P, _I, _I, _I, _I, _I, _FP, _FP, _I,
                                     _DP, _P]
     lib.iir_sosfilt_f32.restype = _I
+    lib.iir_sosfilt_zi_f32.argtypes = [_P, _P, _I, _I, _I, _I, _I, _FP, _FP,
+                                       _P, _DP, _P]
+    lib.iir_sosfilt_zi_f32.restype = _I
     lib.iir_sosfilt_rolldec_f32.argtypes = [_P, _P, _I, _I, _I, _I, _I, _FP,
                                             _FP, _DP, _P]
     lib.iir_sosfilt_rolldec_f32.restype = _I
     return lib
 
 
-def launch_shape(lanes: int, T: int, K: int,
-                 chunk: Optional[int] = None) -> Tuple[int, int, int]:
+def launch_shape(lanes: int, T: int, K: int, chunk: Optional[int] = None,
+                 max_threads: int = MAX_THREADS) -> Tuple[int, int, int]:
     """(chunk length L, chunks per lane C, lanes per CTA G) of a launch.
 
     ``chunk=None`` picks the shortest multiple of STAGE (the kernel's
     staging unit) in [MIN_CHUNK, MAX_CHUNK] that keeps lanes × C near
     TARGET_THREADS; an explicit chunk is rounded up to a multiple of 4.
-    A CTA holds every chunk of its G lanes (at most MAX_THREADS threads,
-    ~CTA_THREADS aimed at, G small enough for SMS CTAs), and, from three
-    chunks on, one thread per state row (2K) of each lane."""
+    A CTA holds every chunk of its G lanes (at most ``max_threads``
+    threads: MAX_THREADS, or GIVEN_THREADS from a given state; ~CTA_THREADS
+    aimed at, G small enough for SMS CTAs), and, from three chunks on, one
+    thread per state row (2K) of each lane."""
     unit = 4
     if chunk is None:
         chunk = min(MAX_CHUNK, -(-T * lanes // TARGET_THREADS))
         chunk, unit = max(MIN_CHUNK, chunk), STAGE
-    chunk = max(chunk, -(-T // MAX_THREADS))
+    chunk = max(chunk, -(-T // max_threads))
     chunk = unit * -(-chunk // unit)
     n_chunks = -(-T // chunk)
     width = max(n_chunks, 2 * K) if n_chunks > 2 else n_chunks
@@ -121,35 +130,53 @@ def _chunk_args(sos, chunk: int):
 
 
 def _launch(name: str, sos, x: torch.Tensor, y: torch.Tensor,
-            chunk: Optional[int], *zi_init: int) -> None:
+            chunk: Optional[int], *start, max_threads: int = MAX_THREADS
+            ) -> None:
     """Launch ``name`` with the sections ``sos`` (at most
     :data:`MAX_SECTIONS`) on x (lanes, T) → y, with the chunked scan's
     constants for the chunk length :func:`launch_shape` picks (or for
-    ``chunk``, which only the chunk-length sweep sets)."""
+    ``chunk``, which only the chunk-length sweep sets); ``start`` is the
+    entry point's start argument (a flag, or the given state's pointer),
+    ``max_threads`` its CTA limit."""
     lanes, T = x.shape
     K = len(sos)
-    L, _, G = launch_shape(lanes, T, K, chunk)
+    L, _, G = launch_shape(lanes, T, K, chunk, max_threads)
     coef, zi, a_pow = _chunk_args(sos, L)
     with torch.cuda.device(x.device):
         rc = getattr(_lib(), name)(
-            x.data_ptr(), y.data_ptr(), T, lanes, K, L, G, coef, zi, *zi_init,
+            x.data_ptr(), y.data_ptr(), T, lanes, K, L, G, coef, zi, *start,
             a_pow, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, name)
 
 
 def sosfilt(coeffs: FilterCoeffs, x: torch.Tensor,
-            steady_state_init: bool = False) -> torch.Tensor:
+            steady_state_init: bool = False,
+            zi: Optional[torch.Tensor] = None) -> torch.Tensor:
     """SOS cascade along the last axis of ``x`` (..., T); every other axis
-    is an independent lane."""
+    is an independent lane.  The initial state is zero, the steady state
+    ``zi_k · x[0]`` (``steady_state_init``), or ``zi``: the DF2T state of
+    every section, broadcastable to (..., K, 2)."""
+    if zi is not None and steady_state_init:
+        raise ValueError("pass zi or steady_state_init, not both")
     if x.device.type == "cpu":
-        z = (None if not steady_state_init else
-             torch.as_tensor(_sos_zi(coeffs), dtype=x.dtype)
-             * x[..., :1, None])
+        z = zi
+        if steady_state_init:
+            z = torch.as_tensor(_sos_zi(coeffs), dtype=x.dtype) \
+                * x[..., :1, None]
         return _sos_scan(x, coeffs.sos, z)
     _check_cuda_input(x, coeffs)
     y = x.reshape(-1, x.shape[-1]).contiguous()
+    if zi is None:
+        for run in split_sections(coeffs.sos):
+            y = _sosfilt_run(run, y, steady_state_init)
+        return y.reshape(x.shape)
+    K = len(coeffs.sos)
+    z = torch.as_tensor(zi, dtype=torch.float32, device=x.device).expand(
+        x.shape[:-1] + (K, 2)).reshape(-1, K, 2)
+    k0 = 0
     for run in split_sections(coeffs.sos):
-        y = _sosfilt_run(run, y, steady_state_init)
+        y = _sosfilt_given_run(run, y, z[:, k0:k0 + len(run)].contiguous())
+        k0 += len(run)
     return y.reshape(x.shape)
 
 
@@ -162,7 +189,19 @@ def _sosfilt_run(sos, x2: torch.Tensor, steady_state_init: bool
     return y
 
 
+def _sosfilt_given_run(sos, x2: torch.Tensor, z: torch.Tensor
+                       ) -> torch.Tensor:
+    """One launch of the cascade kernel from the given state ``z`` (lanes,
+    len(sos), 2) contiguous float32 on x2's device."""
+    y = torch.empty_like(x2)
+    _launch("iir_sosfilt_zi_f32", sos, x2, y, None, z.data_ptr(),
+            max_threads=GIVEN_THREADS)
+    sosfilt.given_launches += 1
+    return y
+
+
 sosfilt.launches = 0
+sosfilt.given_launches = 0
 
 
 def sosfilt_rolldec(coeffs: FilterCoeffs, x: torch.Tensor) -> torch.Tensor:
@@ -195,15 +234,8 @@ def filtfilt(coeffs: FilterCoeffs, x: torch.Tensor,
     """Zero-phase filtering along the last axis (scipy ``filtfilt``
     semantics: odd extension, ``lfilter_zi`` initial state, forward then
     backward), both passes through :func:`sosfilt`."""
-    ntaps = max(len(coeffs.a), len(coeffs.b))
-    if padlen is None:
-        padlen = 3 * ntaps
     T = x.shape[-1]
-    if T <= padlen:
-        raise ValueError(f"signal length {T} must exceed padlen {padlen}")
-    left = 2 * x[..., :1] - x[..., 1:padlen + 1].flip(-1)
-    right = 2 * x[..., -1:] - x[..., -padlen - 1:-1].flip(-1)
-    ext = torch.cat([left, x, right], dim=-1)
+    ext, padlen = _odd_extension(coeffs, x, padlen)
     y = sosfilt(coeffs, ext, steady_state_init=True).flip(-1)
     y = sosfilt(coeffs, y, steady_state_init=True).flip(-1)
     return y[..., padlen:padlen + T]

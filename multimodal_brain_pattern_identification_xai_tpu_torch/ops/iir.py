@@ -5,11 +5,15 @@ on the host with scipy in float64 and applied to float32 tensors as a
 cascade of second-order sections (biquads) in transposed direct-form II,
 the numerically sound form in float32.
 
-Two plain PyTorch routes apply a cascade:
+Three plain PyTorch routes apply a cascade:
 
 * :func:`_sos_scan`: the sequential scan over time (optionally from an
   initial state).  A NaN reaches only the outputs at and after it, as in
   scipy.
+* :func:`_biquad_block_parallel`: one biquad, block-parallel: every
+  block's zero-state response by a scan of the block's depth, the block
+  entry states chained serially over the blocks, and their contribution
+  added as one matmul.  Exact; optionally from an initial state (``z0``).
 * :func:`_cascade_block_matmul`: the block-Toeplitz formulation (every
   128-sample block's zero-state response and exit state as one matmul, the
   block entry states chained by a log-depth scan), with an optional output
@@ -17,8 +21,11 @@ Two plain PyTorch routes apply a cascade:
   input; a NaN smears back to the start of its block (0·NaN), so it is
   used on finite signals only.
 
-:func:`lfilter` and :func:`filtfilt` dispatch by device: a CUDA tensor goes
-to the kernels of :mod:`.cuda_iir`, a CPU tensor to the sequential scan.
+:func:`lfilter` and :func:`filtfilt` take the JAX package's ``engine``
+names, which pick the algorithm; the device picks the implementation.  The
+sequential scan runs the kernels of :mod:`.cuda_iir` on a CUDA tensor and
+:func:`_sos_scan` on a CPU tensor; the two block routes are stock torch
+operations on either.
 """
 
 from __future__ import annotations
@@ -37,6 +44,10 @@ class FilterCoeffs(NamedTuple):
     b: Tuple[float, ...]
     a: Tuple[float, ...]
     sos: Tuple[Tuple[float, ...], ...]  # K × (b0,b1,b2,a0,a1,a2)
+
+    @property
+    def order(self) -> int:
+        return len(self.a) - 1
 
     @staticmethod
     def make(b, a, sos=None) -> "FilterCoeffs":
@@ -143,6 +154,20 @@ def _section_state_space(sec: Tuple[float, ...]):
     B = np.array([b[1] - a[1] * b[0], b[2] - a[2] * b[0]])
     C = np.array([1.0, 0.0])
     return A, B, C, float(b[0])
+
+
+@functools.lru_cache(maxsize=256)
+def _block_operators(sec: Tuple[float, ...], block: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """``A^block`` (2, 2) and the (block, 2) observation matrix ``O[t] =
+    C A^t`` of one biquad, float64."""
+    A, _, C, _ = _section_state_space(sec)
+    obs = np.zeros((block, 2))
+    Ak = np.eye(2)
+    for t in range(block):
+        obs[t] = C @ Ak
+        Ak = Ak @ A
+    return np.linalg.matrix_power(A, block), obs
 
 
 def _compose_state_space(sos: Tuple[Tuple[float, ...], ...]):
@@ -262,6 +287,37 @@ def _df2t_scan(x: torch.Tensor, sos: Tuple[Tuple[float, ...], ...],
                                            torch.stack(z1, -1)], -1)
 
 
+def _biquad_block_parallel(x: torch.Tensor, sec: Tuple[float, ...],
+                           block: int,
+                           z0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One biquad along the last axis of ``x`` (..., T), block-parallel and
+    exact, from the per-lane DF2T state ``z0`` (broadcastable to (..., 2);
+    zeros if None).  Every block's zero-state response and exit state come
+    from one scan of depth ``block`` over all blocks at once; the entry
+    states chain serially over the blocks, ``z[k+1] = A^block z[k] +
+    exit[k]``, in the input's dtype; ``y += O @ z[k]`` adds them."""
+    T = x.shape[-1]
+    pad = (-T) % block
+    if pad:
+        x = F.pad(x, (0, pad))
+    n_blocks = x.shape[-1] // block
+    batch = x.shape[:-1]
+    dt, dev = x.dtype, x.device
+    A_blk_np, obs_np = _block_operators(tuple(sec), block)
+    A_blk = torch.as_tensor(A_blk_np, dtype=dt, device=dev)
+    obs = torch.as_tensor(obs_np, dtype=dt, device=dev)
+
+    y_zs, z_zs = _df2t_scan(x.reshape(batch + (n_blocks, block)), (sec,))
+    z = (x.new_zeros(batch + (2,)) if z0 is None
+         else z0.to(dt).expand(batch + (2,)))
+    entry = []
+    for k in range(n_blocks):
+        entry.append(z)
+        z = z @ A_blk.T + z_zs[..., k, 0, :]
+    y = y_zs + torch.stack(entry, -2) @ obs.T
+    return y.reshape(batch + (n_blocks * block,))[..., :T]
+
+
 def _chunked_sos_scan(x: torch.Tensor, sos: Tuple[Tuple[float, ...], ...],
                       chunk: int, zi: Optional[torch.Tensor] = None,
                       rolldec: bool = False) -> torch.Tensor:
@@ -370,18 +426,71 @@ def _cascade_block_matmul(x: torch.Tensor,
     return y[..., :T_out]
 
 
-def lfilter(coeffs: FilterCoeffs, x: torch.Tensor, axis: int = -1
-            ) -> torch.Tensor:
-    """``scipy.signal.sosfilt`` along ``axis`` from zero state; all other
-    axes are independent lanes.  CUDA tensors run the CUDA kernel, CPU
-    tensors the sequential scan."""
-    from .cuda_iir import sosfilt
-    return sosfilt(coeffs, x.movedim(axis, -1)).movedim(-1, axis)
+def lfilter(coeffs: FilterCoeffs, x: torch.Tensor, axis: int = -1,
+            zi: Optional[torch.Tensor] = None,
+            block_size: Optional[int] = 128,
+            engine: str = "auto") -> torch.Tensor:
+    """``scipy.signal.sosfilt`` along ``axis``; all other axes are
+    independent lanes.
+
+    ``zi``: the initial DF2T state of every section, broadcastable to
+    (lanes..., K, 2), or None for zeros.  ``engine`` and ``block_size``
+    pick the algorithm by the JAX package's rules:
+
+    * ``"blockmm"`` without ``zi`` on more than ``block_size`` (128 if
+      None) samples: :func:`_cascade_block_matmul`;
+    * ``"auto"``, ``"pallas"``, ``"scan"``, any ``zi``, ``block_size=None``
+      or at most ``block_size`` samples: the sequential scan (the CUDA
+      kernel on a CUDA tensor, from ``zi`` where given; :func:`_sos_scan`
+      on a CPU tensor);
+    * any other name (``"block"``, ``"xla"``, ...):
+      :func:`_biquad_block_parallel` once a section."""
+    x = x.movedim(axis, -1)
+    T = x.shape[-1]
+    if engine == "blockmm" and zi is None and T > (block_size or 128):
+        y = _cascade_block_matmul(x, coeffs.sos, block_size or 128)
+    elif (engine in ("auto", "pallas", "scan") or zi is not None
+          or block_size is None or T <= block_size):
+        from .cuda_iir import sosfilt
+        y = sosfilt(coeffs, x, zi=zi)
+    else:
+        y = x
+        for sec in coeffs.sos:
+            y = _biquad_block_parallel(y, sec, block_size)
+    return y.movedim(-1, axis)
+
+
+def _odd_extension(coeffs: FilterCoeffs, x: torch.Tensor,
+                   padlen: Optional[int]) -> Tuple[torch.Tensor, int]:
+    """``x`` (..., T) extended at both ends by ``padlen`` samples (default
+    ``3·max(len a, len b)``, scipy's) reflected about the end samples, and
+    that ``padlen``."""
+    if padlen is None:
+        padlen = 3 * max(len(coeffs.a), len(coeffs.b))
+    T = x.shape[-1]
+    if T <= padlen:
+        raise ValueError(f"signal length {T} must exceed padlen {padlen}")
+    left = 2 * x[..., :1] - x[..., 1:padlen + 1].flip(-1)
+    right = 2 * x[..., -1:] - x[..., -padlen - 1:-1].flip(-1)
+    return torch.cat([left, x, right], dim=-1), padlen
 
 
 def filtfilt(coeffs: FilterCoeffs, x: torch.Tensor, axis: int = -1,
-             padlen: Optional[int] = None) -> torch.Tensor:
+             padlen: Optional[int] = None,
+             engine: str = "auto") -> torch.Tensor:
     """Zero-phase filtering with ``scipy.signal.filtfilt`` semantics (odd
-    extension by ``3·max(len a, len b)``, ``lfilter_zi`` initial state)."""
-    from .cuda_iir import filtfilt as _filtfilt
-    return _filtfilt(coeffs, x.movedim(axis, -1), padlen).movedim(-1, axis)
+    extension by ``3·max(len a, len b)``, ``lfilter_zi`` initial state).
+    ``engine="blockmm"``: both passes by :func:`_cascade_block_matmul` from
+    the steady state; any other name: :func:`.cuda_iir.filtfilt` (the CUDA
+    kernel on a CUDA tensor, the sequential scan on a CPU tensor)."""
+    x = x.movedim(axis, -1)
+    if engine != "blockmm":
+        from .cuda_iir import filtfilt as _filtfilt
+        return _filtfilt(coeffs, x, padlen).movedim(-1, axis)
+    T = x.shape[-1]
+    ext, padlen = _odd_extension(coeffs, x, padlen)
+    zf = torch.as_tensor(_sos_zi(coeffs).reshape(-1), dtype=x.dtype,
+                         device=x.device)
+    y = _cascade_block_matmul(ext, coeffs.sos, z0=zf * ext[..., :1]).flip(-1)
+    y = _cascade_block_matmul(y, coeffs.sos, z0=zf * y[..., :1]).flip(-1)
+    return y[..., padlen:padlen + T].movedim(-1, axis)

@@ -9,12 +9,13 @@ from typing import Optional, Sequence, Union
 import torch
 
 
-def zscore(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """Per-lane ``(x - mean) / (std + eps)`` over the last axis with the
+def zscore(x: torch.Tensor, axis: int = -1, eps: float = 1e-6
+           ) -> torch.Tensor:
+    """Per-lane ``(x - mean) / (std + eps)`` along ``axis`` with the
     population std (``correction=0``, as ``jnp.std`` and ``np.std``;
     torch's default std is the unbiased one)."""
-    mean = x.mean(dim=-1, keepdim=True)
-    std = x.std(dim=-1, keepdim=True, correction=0)
+    mean = x.mean(dim=axis, keepdim=True)
+    std = x.std(dim=axis, keepdim=True, correction=0)
     return (x - mean) / (std + eps)
 
 

@@ -154,7 +154,7 @@ def hms_eeg_preprocess(x: torch.Tensor,
             x = x.to(serving_dtype).float()
         y = _bp_and_rolldec(iir.cascade(bp1, bp2), x, cfg.decimate_stride)
         # montage + channel-select as ONE (37, 20) matmul on the T/4 output
-        y = montage.apply_montage(y, keep_channels=C.EEG_FEATURES)
+        y = montage._double_banana(y, keep_channels=C.EEG_FEATURES)
         y = normalize.zscore(y, eps=cfg.zscore_eps)
     else:
         x = iir.lfilter(bp1, x)

@@ -5,4 +5,4 @@ its epoch batch queue, with plain numpy versions beside them."""
 from .loader import (NativeBatchQueue, batch_queue_numpy,  # noqa: F401
                      epoch_order, gather_multimodal, gather_multimodal_numpy,
                      gather_windows, gather_windows_into,
-                     gather_windows_numpy)
+                     gather_windows_numpy, native_available)

@@ -42,6 +42,16 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def native_available() -> bool:
+    """Whether the host library builds (or is built) and loads here: False,
+    not an exception, without a compiler."""
+    try:
+        _lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def _f32p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
 

@@ -71,31 +71,34 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
 
 def make_train_step(loss_fn: Callable = kldiv_with_logits,
                     l2_lambda: float = 0.0,
-                    ema_decay: Optional[float] = None) -> Callable:
+                    ema_decay: Optional[float] = None,
+                    nan_sentinel: bool = True) -> Callable:
     """Build ``train_step(state, batch, rng=None) -> (state, metrics)``;
     ``rng`` defaults to ``state.rng``.  The state is updated in place and
     returned.  ``metrics``: ``loss``, ``grad_norm`` and ``nonfinite``, 0-d
-    device tensors.  A non-finite loss or gradient skips the update (the
-    NaN sentinel, see the module docstring)."""
+    device tensors.  With ``nan_sentinel`` a non-finite loss or gradient
+    skips the update (see the module docstring); without it every step
+    applies its update, non-finite or not."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    rng: Optional[torch.Generator] = None):
         model = state.model
         dev = state.device
         bufs = [b for b in model.buffers() if b.is_floating_point()]
-        before = flat(bufs) if bufs else None
+        before = flat(bufs) if bufs and nan_sentinel else None
         gen = fold_in(state.rng if rng is None else rng, state.step, dev)
         loss, _, grads = loss_and_grads(model, batch, gen, loss_fn, l2_lambda)
         grad_norm = global_norm(grads)
         finite = torch.isfinite(loss) & torch.isfinite(grad_norm)
 
-        apply_gradients(state, grads, finite)
+        apply_gradients(state, grads, finite if nan_sentinel else None)
         if before is not None:
             assign_flat(bufs, torch.where(finite, flat(bufs), before))
         if ema_decay is not None and state.ema is not None:
             params = flat([p.detach() for p in model.parameters()])
             ema = state.ema * ema_decay + params * (1.0 - ema_decay)
-            state.ema = torch.where(finite, ema, state.ema)
+            state.ema = torch.where(finite, ema, state.ema) \
+                if nan_sentinel else ema
         state.step += 1
         return state, {"loss": loss, "grad_norm": grad_norm,
                        "nonfinite": ~finite}

@@ -4,7 +4,8 @@ test here carries the ``cuda`` marker and skips without a card.  Run on
 the card with
 ``python -m pytest -m cuda --noconftest tests/test_torch_cuda_kernels.py``.
 
-Bounds: tests/test_pallas_iir.py (rel 2e-4, filtfilt 1e-3),
+Bounds: tests/test_pallas_iir.py (rel 2e-4, filtfilt 1e-3; #1 from a
+given state too),
 tests/test_pallas_specblock.py (f32 1e-5, against the chain in float64;
 bf16 max 0.03 / mean 0.003 at
 tensor scale; gradients 2e-4; the same for every width), bf16 against the
@@ -205,6 +206,97 @@ def test_sosfilt_nan_at_chunk_boundary(dev):
     x[12, 0] = float("nan")
     got = cuda_iir.sosfilt(BP5, x.to(dev))
     _held(BP5, x, got)
+
+
+# #1 from a given per-lane state (lfilter(zi=)): 1, 5, 11 and 13 sections
+# (13: two launches, 12 + 1, each from its slice of zi)
+K13 = iir.cascade(BP5, BP6, iir.butter_lowpass(40.0, 200.0, 4))
+BY_K = {1: NOTCH, 5: BP5, 11: iir.cascade(BP5, BP6), 13: K13}
+
+
+def _held_given(coeffs, x, zi, got, step=1):
+    """The kernel's lanes x[::step] from the state zi[::step] against the
+    sequential scan from that state and against the chunked scan's plain
+    emulation run by run (each at the kernel's chunk length, from its
+    slice of the state), both on the CPU."""
+    lanes, T = x.shape
+    xs, zs = x[::step], zi[::step]
+    seq = iir._sos_scan(xs, coeffs.sos, zs)
+    emu, k0 = xs, 0
+    for run in cuda_iir.split_sections(coeffs.sos):
+        L = cuda_iir.launch_shape(lanes, T, len(run),
+                                  max_threads=cuda_iir.GIVEN_THREADS)[0]
+        emu = iir._chunked_sos_scan(emu, run, L, zs[:, k0:k0 + len(run)])
+        k0 += len(run)
+    got = got[::step].cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(seq))
+    ok = ~torch.isnan(seq)
+    assert _rel(got[ok], seq[ok]) < 2e-4
+    assert _rel(got[ok], emu[ok]) < 2e-4
+
+
+@pytest.mark.parametrize("lanes,T", [(1, 10_000), (5120, 10_000),
+                                     (96, 9_998)])
+@pytest.mark.parametrize("k", sorted(BY_K))
+def test_sosfilt_given_state(dev, k, lanes, T):
+    coeffs = BY_K[k]
+    assert len(coeffs.sos) == k
+    x = _signal((lanes, T), 40, seed=7)
+    zi = _signal((lanes, k, 2), 10, seed=8)
+    n0, g0 = cuda_iir.sosfilt.launches, cuda_iir.sosfilt.given_launches
+    got = cuda_iir.sosfilt(coeffs, x.to(dev), zi=zi.to(dev))
+    torch.cuda.synchronize()
+    assert cuda_iir.sosfilt.launches == n0
+    assert (cuda_iir.sosfilt.given_launches
+            == g0 + len(cuda_iir.split_sections(coeffs.sos)))
+    _held_given(coeffs, x, zi, got, step=max(1, lanes // 8))
+
+
+@pytest.mark.parametrize("k", [5, 13])
+def test_sosfilt_given_state_nan(dev, k):
+    """A NaN in chunk 0 of one lane and in a later chunk of another."""
+    coeffs = BY_K[k]
+    x = _signal((80, 10_000), 40, seed=9)
+    zi = _signal((80, k, 2), 10, seed=10)
+    L = cuda_iir.launch_shape(80, 10_000, min(k, cuda_iir.MAX_SECTIONS),
+                              max_threads=cuda_iir.GIVEN_THREADS)[0]
+    x[3, L // 2] = float("nan")
+    x[9, 5 * L + 3] = float("nan")
+    got = cuda_iir.sosfilt(coeffs, x.to(dev), zi=zi.to(dev))
+    _held_given(coeffs, x, zi, got)
+    assert torch.isnan(got[3, L // 2:]).all() and torch.isnan(
+        got[9, 5 * L + 3:]).all()
+
+
+def test_sosfilt_given_state_equals_steady_state(dev):
+    """The steady state given as a state (``zi_k · x[0]``, broadcast from
+    (K, 2)) is the same start as ``steady_state_init``: bitwise equal."""
+    x = _dc_drift((80, 10_000), seed=11).to(dev)
+    zi = torch.as_tensor(iir._sos_zi(BP5), dtype=torch.float32, device=dev)
+    got = cuda_iir.sosfilt(BP5, x, zi=zi * x[:, :1, None])
+    assert torch.equal(got, cuda_iir.sosfilt(BP5, x, steady_state_init=True))
+    one = cuda_iir.sosfilt(BP5, x, zi=zi)            # (K, 2) to every lane
+    assert torch.equal(one, cuda_iir.sosfilt(
+        BP5, x, zi=zi.expand(80, 5, 2).contiguous()))
+
+
+@pytest.mark.parametrize("engine", ["auto", "pallas", "scan", "blockmm",
+                                    "block", "xla"])
+@pytest.mark.parametrize("with_zi", [False, True])
+def test_lfilter_engines_on_card(dev, engine, with_zi):
+    """``ops.lfilter`` on a CUDA tensor against the same call on the CPU:
+    the sequential-scan engines and every ``zi`` launch the kernel (from
+    the given state where there is one), the block routes none."""
+    x = _signal((64, 2000), 40, seed=12)
+    zi = _signal((64, 5, 2), 10, seed=13) if with_zi else None
+    n0, g0 = cuda_iir.sosfilt.launches, cuda_iir.sosfilt.given_launches
+    got = iir.lfilter(BP5, x.to(dev), zi=None if zi is None else zi.to(dev),
+                      engine=engine)
+    torch.cuda.synchronize()
+    scan = with_zi or engine in ("auto", "pallas", "scan")
+    assert cuda_iir.sosfilt.given_launches == g0 + int(with_zi)
+    assert cuda_iir.sosfilt.launches == n0 + int(scan and not with_zi)
+    assert _rel(got, iir.lfilter(BP5, x, zi=zi, engine=engine)) < 2e-4
 
 
 def test_misaligned_input(dev):
