@@ -1,4 +1,5 @@
-"""Chip smoke test of the PyTorch port on one NVIDIA H100.
+"""Chip smoke test of the PyTorch port on one NVIDIA H100 (phase 16 on
+every visible card).
 
     python3 chip_smoke.py
 
@@ -143,19 +144,30 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
               ``sanity-check --epochs 5``, ``dump-config`` where PyYAML
               imports, the "plot skipped" lines without matplotlib; a
               ``{"cli": ...}`` line.
-16. parallel — the parallel programs on a world of every visible card
-              (``parallel.launch.spawn``: NCCL, one card a rank; a world
-              of one runs in this process): (a) ``Trainer(mesh=...)`` on
-              the multimodal training model, f32, B=256, 3 steps, against
-              the same steps without a mesh (bitwise at a world of one),
-              ms a step both ways, the all-reduce's ms and bytes; (b)
-              ``entry.dryrun_multichip(world, device="cuda")``; (c) the
-              full-width long-EEG encoder with rollout over B=2 × one hour
-              (T=720,000) against its single-card forward, ms and peak
-              GiB, then the CLI's ``long-eeg``; (d) sharded IG and SHAP at
-              B=8 over the EEG branch and the fused spectrogram forward
-              against the unsharded functions (1e-6); a ``{"parallel":
-              ...}`` line.
+16. parallel — the parallel programs on a world of each size of 1, 2
+              and 4 that the visible cards hold (``parallel.launch.spawn``:
+              NCCL, one card a rank; a world of one runs in this process);
+              the worlds run are printed: (a) ``Trainer(mesh=...)`` on the
+              multimodal training model, f32, B=256, 3 steps, against the
+              same steps without a mesh (bitwise at a world of one; above
+              one the first loss against the single-device replay and the
+              full-width WaveNet's SGD step against the single device's),
+              ms a step, windows/s, idle share, the all-reduce's ms, bytes
+              and bus bandwidth, and B=256 a card on the largest world;
+              (b) ``entry.dryrun_multichip(world)`` on the JAX mesh; (c)
+              the full-width long-EEG encoder with rollout over B=2 × one
+              hour (T=720,000) at seq = world against its single-card
+              forward, ms and each card's peak GiB, the halo conv across
+              cards (K = 3, 5, 7, 9) under the flags the ranks were
+              started with; (d) sharded IG and SHAP at B=8 over the EEG branch
+              and the fused spectrogram forward against the unsharded
+              functions (1e-6); (e) ``DiffEEGTrainer(mesh=...)`` at full
+              width against the single device; (f) above one rank,
+              ``predict --mesh N`` against phase 15's one-card predictions
+              and ``train-multimodal --mesh N``; then the CLI's
+              ``long-eeg`` over every card and, on more than one card,
+              ``initialize_multihost`` without ``LOCAL_RANK``; a
+              ``{"parallel": ...}`` line with every world's record.
 17. ops api  — the public DSP API: ``ops.lfilter`` under each of the JAX
               package's engines (auto, pallas, scan, blockmm, block, xla),
               from zero and from a random per-lane state (#1's given-state
@@ -186,6 +198,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import itertools
 import json
 import logging
 import os
@@ -3233,16 +3246,37 @@ def phase_cli(card: str, dev, tmp: str) -> dict:
 
 # ---------------------------------------------------------------------------
 # Parallel (phase 16): every parallel program of the port on a world of
-# every visible card (NCCL, one card a rank; one rank on a one-card
-# machine, where each collective reduces over that rank).  Multimodal DP
-# training at B=256, three steps; the long-EEG encoder over one hour of
-# 200-Hz EEG; sharded attribution at B=8.
+# each size in PAR_WORLDS that the visible cards hold (NCCL, one card a
+# rank; a world of one runs in this process).  Multimodal DP training at
+# B=256, three steps, and at B=256 a card on the largest world; the
+# full-width WaveNet's SGD step; the long-EEG encoder over one hour of
+# 200-Hz EEG; sharded attribution at B=8; DiffEEG DP at full width; the
+# command line's ``--mesh N``.
+PAR_WORLDS = (1, 2, 4)
 PAR_B, PAR_STEPS, PAR_XAI_B = 256, 3, 8
 LONG_T = 200 * 3600              # one hour at 200 Hz: 3,600 patches of 200
-# sharded vs unsharded attribution, relative to the unsharded max |value|
-PAR_XAI_REL = 1e-6
+# sharded vs unsharded attribution, relative to the unsharded max |value|;
+# above one rank the spectrogram branch's whole batch, normwise (ReLU /
+# max-pool ties where a rank's rows run other cuDNN shapes than the whole
+# batch's: 1.15e-3-1.74e-3 read on four H100s)
+PAR_XAI_REL, PAR_XAI_NORM = 1e-6, 5e-3
 # rollout logits vs the single-card forward, rollout rows' sums vs 1
 LONG_LOGIT_REL, LONG_ROW_ATOL = 1e-4, 1e-4
+# the mesh step's loss vs the single-device replay, times max(1, |loss|)
+PAR_REPLAY_REL = 1e-5
+# a data-parallel step vs the single-device step (tests/test_parallel.py's
+# bounds): the loss (absolute), the parameters (rtol, atol)
+PAR_LOSS_ATOL, PAR_RTOL, PAR_ATOL = 1e-5, 2e-4, 1e-5
+# the WaveNet step's global batch and window; DiffEEG's micro-batches,
+# steps held against the single device, warm steps timed after them
+PAR_WN_B, PAR_WN_L, PAR_DIFF_K, PAR_DIFF_STEPS = 16, 10_000, 4, 2
+PAR_DIFF_TIMED = 5
+# the halo conv over seq ranks: kernel sizes; its error vs the unsharded
+# conv, forward and input gradient, relative to the unsharded max
+PAR_HALO_K, PAR_HALO_REL = (3, 5, 7, 9), 1e-5
+# the JAX dry run's mesh (data, model, seq) of each world
+# (``__graft_entry__.py:161-166``)
+PAR_MESHES = {1: (1, 1, 1), 2: (1, 1, 2), 4: (1, 2, 2)}
 
 
 def _par_launches(reset, read, fused):
@@ -3269,6 +3303,13 @@ def _flat_state(model):
                       if t.is_floating_point()])
 
 
+def _excess(got, want) -> float:
+    """max(|got − want| − (PAR_ATOL + PAR_RTOL·|want|)): ≤ 0 where
+    ``assert_allclose(got, want, PAR_RTOL, PAR_ATOL)`` holds."""
+    return float(((got - want).abs()
+                  - (PAR_ATOL + PAR_RTOL * want.abs())).max())
+
+
 @contextlib.contextmanager
 def _backend_flags(deterministic: bool):
     """cuDNN deterministic or not, TF32 off, restored on exit (a world of
@@ -3286,25 +3327,40 @@ def _backend_flags(deterministic: bool):
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
-def _par_train(dev, world: int) -> dict:
-    """(a) on one rank: ``Trainer(mesh=...)`` on the multimodal training
-    model (float32, TF32 off, deterministic cuDNN), PAR_STEPS steps on
-    batches of PAR_B raw windows preprocessed on the rank (NaN route), then
-    the same steps without a mesh, its generator rank 0's
-    (``fold_in(rng, 0)``); then both timed on fresh trainers with cuDNN's
-    usual (nondeterministic) algorithms, and the all-reduce of the step's
-    flat vector alone."""
-    with _backend_flags(True):
-        out = _par_train_compare(dev, world)
-    with _backend_flags(False):
-        out.update(_par_train_time(dev, world))
-    return out
-
-
-def _par_train_setup(dev, world: int):
-    """(mesh, batches(), trainer(mesh or None)) of (a)."""
+def _par_rank(dev, world: int, weak: bool) -> dict:
+    """One rank of phase 16's world, on two meshes made once (``data`` of
+    every rank; ``seq`` of every rank): the numerics flags the rank was
+    started with; above one rank the halo conv under those flags; (a)
+    data-parallel training, compared with
+    deterministic cuDNN, timed with its usual algorithms (``weak``: also
+    at PAR_B rows a card); (c) long EEG; (d) sharded attribution; (e)
+    DiffEEG data parallel."""
     from multimodal_brain_pattern_identification_xai_tpu_torch import (
-        config as C, entry, parallel)
+        config as C, parallel)
+    flags = parallel.launch._flags()
+    mesh = parallel.make_mesh(C.MeshConfig(data=world), dev)
+    seq = parallel.make_mesh(C.MeshConfig(data=1, model=1, seq=world), dev)
+    halo = _par_halo(dev, seq) if world > 1 else {}
+    with _backend_flags(True):
+        a = _par_train_compare(dev, mesh)
+    torch.cuda.empty_cache()
+    with _backend_flags(False):
+        a.update(_par_train_time(dev, mesh, weak))
+        torch.cuda.empty_cache()
+        c = _par_long_eeg_run(dev, seq)
+    torch.cuda.empty_cache()
+    with _backend_flags(True):
+        d = _par_xai_run(dev, mesh)
+        torch.cuda.empty_cache()
+        e = _par_diffeeg(dev, mesh)
+    return {"flags": flags, "halo": halo, "a": a, "c": c, "d": d, "e": e}
+
+
+def _par_train_setup(dev, tile: int = 1):
+    """(batches(), trainer(mesh or None)) of (a): PAR_STEPS batches of
+    PAR_B raw windows, each ``tile`` times over, preprocessed on the rank
+    (NaN route) as they are drawn."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import entry
     from multimodal_brain_pattern_identification_xai_tpu_torch.data import (
         synthetic_raw_eeg, synthetic_raw_spectrogram)
     from multimodal_brain_pattern_identification_xai_tpu_torch.train import (
@@ -3312,12 +3368,12 @@ def _par_train_setup(dev, world: int):
         initialize_kaiming_weights, make_optimizer)
     from multimodal_brain_pattern_identification_xai_tpu_torch.train.steps \
         import fold_in
-    mesh = parallel.make_mesh(C.MeshConfig(data=world), dev)
     rng = np.random.default_rng(RD_SEED)
     raw = []
     for _ in range(PAR_STEPS):
         votes = rng.random((PAR_B, 6))
-        raw.append(tuple(torch.as_tensor(a).to(dev) for a in (
+        raw.append(tuple(torch.as_tensor(a).to(dev).repeat(
+            (tile,) + (1,) * (a.ndim - 1)) for a in (
             synthetic_raw_eeg(PAR_B, rng), synthetic_raw_spectrogram(PAR_B, rng),
             (votes / votes.sum(1, keepdims=True)).astype(np.float32))))
 
@@ -3334,24 +3390,39 @@ def _par_train_setup(dev, world: int):
         if m is None:
             t.rng = fold_in(t.rng, 0, torch.device("cpu"))
         return t
-    return mesh, batches, trainer
+    return batches, trainer
 
 
-def _par_run(t, batches):
+def _par_run(t, batches, steps: int = PAR_STEPS):
     """(mean loss, ms a step) of one epoch over ``batches()``."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss = t.train_epoch(batches(), 0)
     torch.cuda.synchronize()
-    return loss, (time.perf_counter() - t0) * 1e3 / PAR_STEPS
+    return loss, (time.perf_counter() - t0) * 1e3 / steps
 
 
-def _par_train_compare(dev, world: int) -> dict:
+def _par_train_compare(dev, mesh) -> dict:
+    """(a) PAR_STEPS steps of ``Trainer(mesh=...)`` (its first step's loss
+    kept), then the same steps without a mesh (generator rank 0's,
+    ``fold_in(rng, 0)``); at a world above one also the first step's loss
+    replayed on this card (``replay_dp_loss_single_device``: each shard's
+    dropout and BatchNorm statistics) and the WaveNet step (:func:`_par_
+    wavenet`)."""
     import torch.distributed as dist
+
+    from multimodal_brain_pattern_identification_xai_tpu_torch.parallel import (
+        train as ptrain)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.parallel.mesh \
+        import axis_size
+    world = axis_size(mesh, "data")
     reset, read = _par_counters()
-    mesh, batches, trainer = _par_train_setup(dev, world)
+    batches, trainer = _par_train_setup(dev)
     run = lambda t: _par_run(t, batches)
     t_mesh = trainer(mesh)
+    before = ptrain.copy_state(t_mesh.state)
+    log = _FirstLoss()
+    t_mesh.loggers = [log]
     reset()
     loss_m, _ = run(t_mesh)
     counts = read()
@@ -3367,44 +3438,106 @@ def _par_train_compare(dev, world: int) -> dict:
     spread = (a - ref).abs().max()
     dist.all_reduce(spread, op=dist.ReduceOp.MAX)
     out["max_abs_across_ranks"] = float(spread)
+    if world > 1:
+        out["first_loss_mesh"] = log.losses[0]
+        out["first_loss_replay"] = float(ptrain.replay_dp_loss_single_device(
+            before, next(batches()), t_mesh.rng, world, l2_lambda=TRAIN_L2))
+        del before, t_mesh, t_single
+        out["wavenet"] = _par_wavenet(dev, mesh)
     return out
 
 
-def _par_train_time(dev, world: int) -> dict:
+def _par_wavenet(dev, mesh) -> dict:
+    """One SGD step (lr 1e-2) of the full-width ``DilatedInceptionWaveNet``
+    (no BatchNorm, no dropout) on PAR_WN_B windows of PAR_WN_L samples,
+    data parallel and on this card alone."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        entry, parallel, train)
+    rng = np.random.default_rng(RD_SEED)
+    votes = rng.random((PAR_WN_B, 6))
+    batch = {"x": torch.as_tensor(rng.standard_normal(
+                 (PAR_WN_B, PAR_WN_L, 8)).astype(np.float32)).to(dev),
+             "y": torch.as_tensor((votes / votes.sum(1, keepdims=True)
+                                   ).astype(np.float32)).to(dev)}
+    state = lambda: train.create_train_state(
+        entry.wavenet_model(RD_SEED).to(dev),
+        train.make_optimizer(1e-2, optimizer="sgd"))
+    key = torch.Generator().manual_seed(1)
+    single, ma = train.make_train_step()(state(), batch, key)
+    dp = state()
+    dp, mb = parallel.make_parallel_train_step(mesh, dp)(
+        dp, parallel.shard_batch(mesh, batch), key)
+    a, b = _flat_state(dp.model), _flat_state(single.model)
+    return {"loss_dp": float(mb["loss"]), "loss_single": float(ma["loss"]),
+            "max_abs": float((a - b).abs().max()), "excess": _excess(a, b)}
+
+
+def _par_train_time(dev, mesh, weak: bool) -> dict:
+    """(a) timed with cuDNN's usual algorithms, each trainer warmed by a
+    step first: ms a step on the mesh and without, preprocessing included; the mesh's step alone on batches
+    preprocessed before; its device idle share (profiler over 2 steps);
+    the all-reduce of the step's flat vector alone over ``data`` and over
+    the default group, the ranks met at a barrier first; with ``weak``
+    the mesh's steps again at PAR_B rows a card."""
     import torch.distributed as dist
-    mesh, batches, trainer = _par_train_setup(dev, world)
+
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        profiling)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.parallel.mesh \
+        import axis_size
+    world = axis_size(mesh, "data")
+    batches, trainer = _par_train_setup(dev)
     _par_run(trainer(None), batches)     # cuDNN's usual algorithms' first use
     t_mesh = trainer(mesh)
+    # the mesh trainer's first step at the rank's shapes, untimed
+    _par_run(t_mesh, lambda: itertools.islice(batches(), 1), 1)
     out = {"ms_mesh": _par_run(t_mesh, batches)[1],
            "ms_single": _par_run(trainer(None), batches)[1]}
+    pre = list(batches())
+    out["ms_step"] = _par_run(t_mesh, lambda: iter(pre))[1]
+    dist.barrier()
+    prof = profiling.profile_kernels(
+        lambda: t_mesh.train_epoch(iter(pre[:1]), 0), reps=2, warmup=0)
+    # NCCL's kernels count as busy while they wait for the other ranks
+    out["idle"] = max(0.0, 1.0 - prof.busy_ms / prof.wall_ms)
+    out["busy_ms"], out["wall_ms"] = prof.busy_ms, prof.wall_ms
+    out["nccl_kernel_ms"] = sum(v for k, v in prof.kernel_ms.items()
+                                if "nccl" in k.lower())
     model = t_mesh.state.model
     n = 1 + sum(p.numel() for p in model.parameters()) + sum(
         t.numel() for t in model.buffers() if t.is_floating_point())
     vec = torch.zeros(n, device=dev)
-    group = mesh.get_group("data")
-    out["allreduce_ms"] = cuda_ms(lambda: dist.all_reduce(vec, group=group),
-                                  20, warmup=3)
+    for key, group in (("allreduce_ms", mesh.get_group("data")),
+                       ("allreduce_default_group_ms", None)):
+        dist.barrier()
+        out[key] = cuda_ms(lambda: dist.all_reduce(vec, group=group), 50,
+                           warmup=5)
     out["allreduce_bytes"] = 4 * n
     out["grad_bytes"] = 4 * sum(p.numel() for p in model.parameters())
+    del t_mesh, pre
+    if weak:
+        torch.cuda.empty_cache()
+        batches, trainer = _par_train_setup(dev, tile=world)
+        t = trainer(mesh)
+        pre = list(batches())
+        _par_run(t, lambda: iter(pre[:1]), 1)      # the PAR_B-row shapes
+        out["weak"] = {"global_b": PAR_B * world,
+                       "ms_mesh": _par_run(t, batches)[1],
+                       "ms_step": _par_run(t, lambda: iter(pre))[1]}
     return out
 
 
-def _par_long_eeg(dev, world: int) -> dict:
-    """(c) on one rank: the full-width encoder over B=2 windows of LONG_T
-    samples split over a seq axis of every rank, rollout included, against
-    the encoder's single-card forward of the whole sequence."""
-    with _backend_flags(False):
-        return _par_long_eeg_run(dev, world)
-
-
-def _par_long_eeg_run(dev, world: int) -> dict:
-    from multimodal_brain_pattern_identification_xai_tpu_torch import (
-        config as C, parallel)
-    mesh = parallel.make_mesh(C.MeshConfig(data=1, model=1, seq=world), dev)
+def _par_long_eeg_run(dev, mesh) -> dict:
+    """(c) the full-width encoder over B=2 windows of LONG_T samples split
+    over a seq axis of every rank, rollout included (timed on its second
+    call), against the encoder's single-card forward of the whole
+    sequence; this card's peak memory."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import parallel
     enc = parallel.LongEEGEncoder(
         n_channels=20, patch=200, d_model=128, depth=4, n_heads=4,
         generator=torch.Generator().manual_seed(RD_SEED)).to(dev)
     x = signal((2, 20, LONG_T), 1.0, RD_SEED, dev)
+    parallel.long_eeg_rollout(enc, None, x, mesh)      # a rank's first call
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
@@ -3421,23 +3554,48 @@ def _par_long_eeg_run(dev, world: int) -> dict:
                 torch.isfinite(logits).all() and torch.isfinite(roll).all())}
 
 
-def _par_xai(dev, world: int) -> dict:
-    """(d) on one rank: sharded IG and gradient SHAP at B=PAR_XAI_B over
-    the EEG branch (the CLI's xai) and over the fused spectrogram forward
-    (#3 and its VJP), against the unsharded functions on the same inputs
-    and draws (deterministic cuDNN); launches read around the first
-    sharded run; both timed in a second run."""
-    with _backend_flags(True):
-        return _par_xai_run(dev, world)
+def _par_halo(dev, mesh) -> dict:
+    """``halo_conv1d`` over the seq axis against the unsharded 'SAME'
+    conv on the whole sequence: this rank's part of the output and of the
+    input gradient, by kernel size (an odd K, as the JAX function takes)."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch.parallel import (
+        mesh as mesh_lib, seqparallel)
+    group = mesh.get_group("seq")
+    n, s = mesh_lib.axis_size(mesh, "seq"), mesh_lib.axis_index(mesh, "seq")
+    tl = 256
+    part = slice(s * tl, (s + 1) * tl)
+    out = {}
+    for k in PAR_HALO_K:
+        gen = torch.Generator().manual_seed(k)
+        x = torch.randn(2, tl * n, 16, generator=gen).to(dev)
+        kern = torch.randn(k, 16, 8, generator=gen).to(dev)
+        w = torch.randn(2, tl * n, 8, generator=gen).to(dev)
+        xl = x[:, part].clone().requires_grad_(True)
+        y = seqparallel.halo_conv1d(xl, kern, group)
+        (y * w[:, part]).sum().backward()
+        xr = x.clone().requires_grad_(True)
+        yr = seqparallel.halo_conv1d(xr, kern, None)
+        (yr * w).sum().backward()
+        out[k] = max(rel(y.detach(), yr.detach()[:, part]),
+                     rel(xl.grad, xr.grad[:, part]))
+    return out
 
 
-def _par_xai_run(dev, world: int) -> dict:
+def _par_xai_run(dev, mesh) -> dict:
+    """(d) sharded IG and gradient SHAP at B=PAR_XAI_B over the EEG branch
+    (the CLI's xai) and over the fused spectrogram forward (#3 and its
+    VJP), against the unsharded functions on the same inputs and draws
+    (deterministic cuDNN); launches read around the first sharded run;
+    both timed in a second run.  Above one rank also this rank's rows of
+    the result against the unsharded arithmetic run on those rows alone
+    (:func:`_par_rows_ref`), and the whole-batch differences normwise."""
     from multimodal_brain_pattern_identification_xai_tpu_torch import (
-        config as C, parallel, xai)
+        parallel, xai)
     from multimodal_brain_pattern_identification_xai_tpu_torch.entry import (
         explain_entry)
+    world = parallel.mesh.axis_size(mesh, "data")
     reset, read = _par_counters()
-    mesh = parallel.make_mesh(C.MeshConfig(data=world), dev)
+    sl = parallel.mesh.data_slice(mesh, PAR_XAI_B)
     model, (eeg, spec) = explain_entry(device=dev, batch=PAR_XAI_B)
     gen = lambda: torch.Generator(device=dev).manual_seed(0)
     runs = {
@@ -3475,66 +3633,306 @@ def _par_xai_run(dev, world: int) -> dict:
                      "ig_rel": rel(ig, ig_u), "shap_rel": rel(sv, sv_u),
                      "steps": steps, "nsamples": ns,
                      "shap_shape": tuple(sv.shape)}
+        if world > 1:
+            ig_r, sv_r = _par_rows_ref(fwd, x, bg, gen(), steps, ns, chunk,
+                                       sl)
+            out[name].update(rows_ig_rel=rel(ig[sl], ig_r),
+                             rows_shap_rel=rel(sv[:, sl], sv_r),
+                             ig_norm_rel=norm_rel(ig, ig_u),
+                             shap_norm_rel=norm_rel(sv, sv_u))
     out["counts"] = {k: sum(c[k] for c in counts) for k in counts[0]}
     return out
 
 
-def phase_parallel(card: str, tmp: str) -> dict:
-    """Phase 16: the parallel programs on a world of every visible card
-    (``parallel.launch.spawn``; NCCL; a world of one runs in this
-    process):
+def _par_rows_ref(fwd, x, bg, gen, steps, nsamples, chunk, rows):
+    """The unsharded IG and gradient SHAP arithmetic on ``x[rows]`` alone,
+    at the shapes one rank runs: IG of those rows; SHAP from each class's
+    draws over the whole batch (taken from ``gen`` in class order, as
+    ``gradient_shap_values`` takes them), their columns ``rows``."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import xai
+    ig = xai.integrated_gradients(fwd, x[rows], steps=steps, chunk=chunk)
+    sv = []
+    for c in range(6):
+        bg_idx, alphas = xai.sample_draws(nsamples, x.shape[0], bg.shape[0],
+                                          gen)
+        tgt = torch.full((rows.stop - rows.start,), c, device=x.device)
+        sv.append(xai.expected_gradients_from_draws(
+            fwd, x[rows], bg, tgt, bg_idx[:, rows], alphas[:, rows], chunk))
+    return ig, torch.stack(sv)
 
-    (a) ``Trainer(mesh=...)`` on the multimodal training model, float32,
-        TF32 off, B=256, 3 steps, against the same steps without a mesh
-        (bitwise at a world of one; across ranks to 1e-6 otherwise); ms a
-        step both ways, the all-reduce's ms and bytes, #1/#2 launches;
-    (b) ``entry.dryrun_multichip(world, device="cuda")``: the OK line, the
-        replay check inside;
-    (c) ``long_eeg_rollout`` at full width over B=2 × one hour (T=720,000,
-        3,600 tokens): logits against ``local_forward(None)`` (1e-4), the
-        rollout's rows summing to 1 (1e-4), ms and peak GiB; then the
-        command line's ``long-eeg`` at its own T;
-    (d) ``sharded_integrated_gradients`` and
-        ``sharded_gradient_shap_values`` at B=8 over the EEG branch and the
-        fused spectrogram forward (#3, #3'), equal to the unsharded
-        functions to 1e-6 of the maximum.
 
-    Prints a ``{"parallel": ...}`` line; returns the launches by kernel
-    name summed over the phase."""
-    import contextlib
-    import io
-
+def _par_diffeeg(dev, mesh) -> dict:
+    """(e) ``DiffEEGTrainer(mesh=..., decorrelate_shards=False)`` at
+    ``DiffEEGConfig()``'s width, PAR_DIFF_STEPS steps of K=PAR_DIFF_K
+    micro-batches of its B rows tiled ``world`` times over ``data`` (each
+    rank's rows are the single device's batch), against the trainer
+    without a mesh on that batch; ms a step of each, in those steps and
+    in PAR_DIFF_TIMED warm steps after them."""
     from multimodal_brain_pattern_identification_xai_tpu_torch import (
-        cli, entry)
+        config as C, entry, parallel)
+    from multimodal_brain_pattern_identification_xai_tpu_torch.train import (
+        DiffEEGTrainer)
+    cfg = dataclasses.replace(C.DiffEEGConfig(),
+                              gradient_accumulate_every=PAR_DIFF_K)
+    world = parallel.mesh.axis_size(mesh, "data")
+    cfg_dp = dataclasses.replace(cfg, batch_size=cfg.batch_size * world)
+    xs, ys = _diff_batch(31, (PAR_DIFF_K, cfg.batch_size, cfg.n_channels,
+                              cfg.input_length), dev)
+    xt, yt = xs.repeat(1, world, 1, 1), ys.repeat(1, world, 1)
+    single = DiffEEGTrainer(entry.diffeeg_model(cfg, 6), cfg, seed=6,
+                            device=dev)
+    dp = DiffEEGTrainer(entry.diffeeg_model(cfg_dp, 6), cfg_dp, seed=6,
+                        device=dev, mesh=mesh, decorrelate_shards=False)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(fn()["loss"])
+        return loss, (time.perf_counter() - t0) * 1e3
+    ms_single, ms_dp = [], []
+    for _ in range(PAR_DIFF_STEPS):
+        la, t = timed(lambda: single.train_step(xs, ys))
+        ms_single.append(t)
+        lb, t = timed(lambda: dp.train_step(xt, yt))
+        ms_dp.append(t)
+    a, b = _flat_state(dp.model), _flat_state(single.model)
+    out = {"loss_dp": lb, "loss_single": la, "ms_dp": ms_dp,
+           "ms_single": ms_single, "k": PAR_DIFF_K, "b": cfg.batch_size,
+           "params_max_abs": float((a - b).abs().max()),
+           "params_excess": _excess(a, b),
+           "ema_excess": _excess(dp.state.ema, single.state.ema)}
+    del a, b
+    warm_single, warm_dp = [], []
+    for _ in range(PAR_DIFF_TIMED):
+        warm_single.append(timed(lambda: single.train_step(xs, ys))[1])
+        warm_dp.append(timed(lambda: dp.train_step(xt, yt))[1])
+    out.update(ms_dp_warm=warm_dp, ms_single_warm=warm_single)
+    return out
+
+
+@contextlib.contextmanager
+def _fd_stdout(path: str):
+    """This process's standard output, at the descriptor (which spawned
+    ranks inherit), into ``path`` while the block runs."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 1)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def _cli_ranks(args: list, tmp: str) -> tuple:
+    """``cli.main(args)`` with what it and its ranks print kept (and
+    echoed); a non-zero exit fails.  Returns (output, wall seconds)."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import cli
+    path = f"{tmp}/stdout.txt"
+    t0 = time.perf_counter()
+    with _fd_stdout(path):
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(path) as f:
+        out = f.read()
+    for line in out.splitlines():
+        print(f"[parallel]   | {line}")
+    require(rc == 0, f"cli {' '.join(args)} exited {rc}")
+    return out, wall
+
+
+def _par_cli(card: str, tmp: str, world: int, ref, n_train: int) -> dict:
+    """(f) the command line at ``--mesh world`` on phase 13's tree:
+    ``predict`` over phase 15's checkpoint, against phase 15's one-card
+    predictions ``ref``; ``train-multimodal`` one epoch of fold 0 at
+    B=256 from fresh weights (``n_train`` windows)."""
+    tree = f"{tmp}/hms"
+    base = ["--set", f"paths.data_root={tree}", "--seed", str(RD_SEED),
+            "--mesh", str(world)]
+    out, wall = _cli_ranks(["predict", "--ckpt-dir", f"{tmp}/cli", *base,
+                            "--fused-spec", "2"], tmp)
+    _, probs, _ = _read_predictions(f"{tmp}/cli/predictions.csv")
+    m = re.search(r"predict: (\d+) rows in ([\d.]+) s \(([\d.]+) rows/s"
+                  r".*forward ([\d.]+) ms a batch", out)
+    require(m is not None and int(m.group(1)) == len(ref)
+            and f"serving over a {world}-device data mesh" in out,
+            f"(f) predict --mesh {world}: no mesh or rate line")
+    top2 = np.sort(ref, 1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > CLI_ARGMAX_GAP
+    rec = {"predict": {
+        "rows_per_s": float(m.group(3)), "forward_ms_a_batch":
+        float(m.group(4)), "wall_s": wall,
+        "max_abs_vs_one_card": float(np.abs(probs - ref).max()),
+        "argmax_equal_where_clear": bool(
+            (probs.argmax(1) == ref.argmax(1))[clear].all()),
+        "clear_rows": int(clear.sum())}}
+    p = rec["predict"]
+    print(f"[parallel] world {world}: (f) predict --mesh {world} over "
+          f"{len(ref)} rows at B={CLI_BATCH}: {p['rows_per_s']:.1f} rows/s "
+          f"end to end, forward {p['forward_ms_a_batch']:.3f} ms a batch "
+          f"of {CLI_BATCH // world} rows a rank; probabilities vs one card "
+          f"max abs {p['max_abs_vs_one_card']:.3e} (bound {CLI_PROB_ATOL}), "
+          f"argmax equal on the {p['clear_rows']} clear rows: "
+          f"{p['argmax_equal_where_clear']}; {wall:.2f} s [{card}]")
+    require(probs.shape == ref.shape
+            and p["max_abs_vs_one_card"] < CLI_PROB_ATOL
+            and p["argmax_equal_where_clear"], f"(f) predict: {p}")
+    work = _workdir(tree, f"{tmp}/par_cli{world}")
+    os.symlink(f"{tree}/npy", f"{work}/spectrograms_npy")
+    out, wall = _cli_ranks(["train-multimodal", "--ckpt-dir", work, *base,
+                            "--epochs", "1", "--one-fold"], tmp)
+    require("best kldiv:" in out
+            and f"training over a {world}-device data mesh" in out,
+            f"(f) train-multimodal --mesh {world}: {out!r}")
+    rec["train"] = {"wall_s": wall, "windows": n_train,
+                    "windows_per_s": n_train / wall}
+    print(f"[parallel] world {world}: (f) train-multimodal --mesh {world}, "
+          f"fold 0, one epoch at B={CLI_BATCH} ({n_train} windows): "
+          f"{wall:.2f} s = {n_train / wall:.1f} training windows/s end to "
+          f"end (start-up, validation and checkpoints included) [{card}]")
+    return rec
+
+
+def _par_multihost(world: int) -> dict:
+    """``initialize_multihost`` in ``world`` processes of this host with a
+    coordinator address and no ``LOCAL_RANK``: each must take a card of
+    its own and sum the ranks over NCCL."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    code = (
+        "import json, sys, torch, torch.distributed as dist\n"
+        f"from {PKG}.parallel import initialize_multihost\n"
+        "i, n, addr = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]\n"
+        "initialize_multihost(coordinator_address=addr, num_processes=n, "
+        "process_id=i, device='cuda')\n"
+        "t = torch.full((1,), float(i + 1), device='cuda')\n"
+        "dist.all_reduce(t)\n"
+        "print(json.dumps({'rank': dist.get_rank(), 'card': "
+        "torch.cuda.current_device(), 'sum': float(t)}))\n"
+        "dist.destroy_process_group()\n")
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "LOCAL_RANK", "RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(i), str(world), f"localhost:{port}"],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for i in range(world)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    require(all(p.returncode == 0 for p in procs),
+            "(g) initialize_multihost: " + " | ".join(
+                err[-2000:] for p, (_, err) in zip(procs, outs)
+                if p.returncode))
+    ranks = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+    return {"ranks": ranks, "wall_s": time.perf_counter() - t0}
+
+
+def _smi(*args: str) -> str:
+    return subprocess.run(["nvidia-smi", *args], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+
+
+def _topology() -> str:
+    """``nvidia-smi topo -m``, or where the machine refuses it, its message
+    and each card's NVLink links and their speeds (``nvlink -s``)."""
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60)
+    if topo.returncode == 0:
+        return topo.stdout.strip()
+    links, gpu = {}, None
+    for line in _smi("nvlink", "-s").splitlines():
+        if line.startswith("GPU"):
+            gpu = line.split(":")[0]
+            links[gpu] = []
+        elif gpu and "Link" in line:
+            links[gpu].append(line.split(":")[-1].strip())
+    return (f"topo -m: {(topo.stdout + topo.stderr).strip()!r}; nvlink -s: "
+            + "; ".join(f"{g} {len(v)} links at {sorted(set(v))}"
+                        for g, v in links.items()))
+
+
+def _par_world(card: str, tmp: str, world: int, weak: bool, cli_ref):
+    """Phase 16 at a world of ``world`` ranks: (a), (c), (d), (e) in one
+    spawn, then (b), and (f) above one rank.  Returns (its record, the
+    launches by kernel summed over the ranks' runs that can be read)."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import entry
     from multimodal_brain_pattern_identification_xai_tpu_torch.parallel import (
         launch)
-    world = torch.cuda.device_count()
     reset, read = _par_counters()
-    t_phase = time.perf_counter()
-    rec = {"card": card, "world": world, "backend": launch.backend_for("cuda")}
-    print(f"[parallel] world of {world} rank(s) over "
-          f"{rec['backend']}, one card a rank [{card}]")
-    launches = []
+    tag = f"[parallel] world {world}:"
+    t0 = time.perf_counter()
+    res = launch.spawn(_par_rank, world, "cuda", (world, weak))
+    rec = {"ranks_s": time.perf_counter() - t0}
+    a, c, dd, e = (res[0][k] for k in "acde")
+    flags = launch._flags()
+    require(all(r["flags"] == flags for r in res),
+            f"the ranks' numerics flags {[r['flags'] for r in res]} are not "
+            f"this process's {flags}")
+    launches = [r["a"]["counts"] for r in res] + [
+        r["d"]["counts"] for r in res]
 
     # (a) ------------------------------------------------------------------
-    res = launch.spawn(_par_train, world, "cuda", (world,))
-    a = res[0]
-    launches += [r["counts"] for r in res]
     rec["a"] = {k: v for k, v in a.items() if k != "counts"}
-    rec["a"]["launches"] = {k: sum(r["counts"][k] for r in res)
+    rec["a"]["launches"] = {k: sum(r["a"]["counts"][k] for r in res)
                             for k in a["counts"]}
-    print(f"[parallel] (a) Trainer(mesh) multimodal f32, B={PAR_B}, "
+    rec["a"]["windows_per_s"] = PAR_B / a["ms_step"] * 1e3
+    for key in ("allreduce_ms", "allreduce_default_group_ms"):
+        # bus bandwidth: 2(n-1)/n of the bytes over the time (0 on one rank)
+        rec["a"][key.replace("ms", "busbw_gb_per_s")] = (
+            2 * (world - 1) / world * a["allreduce_bytes"] / a[key] / 1e6)
+    print(f"{tag} (a) Trainer(mesh) multimodal f32, B={PAR_B} global, "
           f"{PAR_STEPS} steps: {a['ms_mesh']:.3f} ms a step on the mesh, "
-          f"{a['ms_single']:.3f} ms without (preprocessing included); "
-          f"all-reduce of the step's flat vector ({a['allreduce_bytes']} B, "
-          f"gradients {a['grad_bytes']} B) {a['allreduce_ms']:.4f} ms; "
-          f"loss {a['loss_mesh']:.6f} vs {a['loss_single']:.6f}; params + "
-          f"BN buffers {'bitwise equal' if a['bitwise'] else 'max abs ' + str(a['max_abs_vs_single'])}"
+          f"{a['ms_single']:.3f} ms without (preprocessing of all {PAR_B} "
+          f"rows on each rank included); the mesh's step alone "
+          f"{a['ms_step']:.3f} ms = {rec['a']['windows_per_s']:.1f} training "
+          f"windows/s, device idle {100 * a['idle']:.1f} % (NCCL kernels "
+          f"{a['nccl_kernel_ms']:.3f} ms a step); all-reduce of the step's "
+          f"flat vector ({a['allreduce_bytes']} B, gradients "
+          f"{a['grad_bytes']} B) over data {a['allreduce_ms']:.4f} ms = bus "
+          f"{rec['a']['allreduce_busbw_gb_per_s']:.1f} GB/s, over the default "
+          f"group {a['allreduce_default_group_ms']:.4f} ms = "
+          f"{rec['a']['allreduce_default_group_busbw_gb_per_s']:.1f} GB/s; "
+          f"loss {a['loss_mesh']:.6f} "
+          f"vs {a['loss_single']:.6f}; params + BN buffers "
+          f"{'bitwise equal' if a['bitwise'] else 'max abs ' + str(a['max_abs_vs_single'])}"
           f" to the single-device run, {a['max_abs_across_ranks']:.3g} "
           f"across ranks; launches {rec['a']['launches']} [{card}]")
+    if "weak" in a:
+        w = a["weak"]
+        print(f"{tag} (a) at {PAR_B} rows a card (B={w['global_b']} "
+              f"global): {w['ms_mesh']:.3f} ms a step (preprocessing of "
+              f"all rows included), {w['ms_step']:.3f} ms the step alone = "
+              f"{w['global_b'] / w['ms_step'] * 1e3:.1f} training "
+              f"windows/s [{card}]")
     if world == 1:
         require(a["bitwise"], f"(a) DP at a world of one differs from the "
                 f"single-device run: {a['max_abs_vs_single']}")
+    else:
+        wn = a["wavenet"]
+        print(f"{tag} (a) first step's loss {a['first_loss_mesh']!r} vs the "
+              f"single-device replay {a['first_loss_replay']!r} (bound "
+              f"{PAR_REPLAY_REL} x max(1, |loss|)); WaveNet (full width, "
+              f"B={PAR_WN_B}, SGD) DP step vs single: loss "
+              f"{wn['loss_dp']!r} vs {wn['loss_single']!r}, parameters max "
+              f"abs {wn['max_abs']:.3e}, excess over {PAR_RTOL}/{PAR_ATOL} "
+              f"{wn['excess']:.3e} [{card}]")
+        require(abs(a["first_loss_mesh"] - a["first_loss_replay"])
+                <= PAR_REPLAY_REL * max(1.0, abs(a["first_loss_replay"])),
+                f"(a) mesh loss vs replay: {a['first_loss_mesh']} "
+                f"{a['first_loss_replay']}")
+        require(abs(wn["loss_dp"] - wn["loss_single"]) <= PAR_LOSS_ATOL
+                and wn["excess"] <= 0, f"(a) WaveNet DP step: {wn}")
     require(a["max_abs_across_ranks"] <= 1e-6 * a["scale"],
             f"(a) ranks disagree: {a['max_abs_across_ranks']}")
     require(rec["a"]["launches"]["iir_sosfilt_rolldec"] == PAR_STEPS * world
@@ -3549,63 +3947,204 @@ def phase_parallel(card: str, tmp: str) -> dict:
     rec["b"] = {**d, "wall_s": time.perf_counter() - t0}
     if world == 1:                 # in this process: its launches readable
         launches.append(read())
-    require(abs(d["dp_loss"] - d["replay_loss"])
-            < 1e-4 * max(1.0, abs(d["replay_loss"])), f"(b) {d}")
-    print(f"[parallel] (b) dryrun_multichip({world}): mesh {d['mesh']}, "
+    print(f"{tag} (b) dryrun_multichip({world}): mesh {d['mesh']}, loss "
+          f"{d['dp_loss']!r} vs replay {d['replay_loss']!r}, "
           f"{rec['b']['wall_s']:.2f} s [{card}]")
+    require(tuple(d["mesh"]) == PAR_MESHES[world]
+            and abs(d["dp_loss"] - d["replay_loss"])
+            < 1e-4 * max(1.0, abs(d["replay_loss"])), f"(b) {d}")
 
     # (c) ------------------------------------------------------------------
-    res = launch.spawn(_par_long_eeg, world, "cuda", (world,))
-    c = res[0]
-    rec["c"] = c
-    print(f"[parallel] (c) long_eeg_rollout, B=2, T={LONG_T} "
+    rec["c"] = {**c, "ms_by_rank": [r["c"]["ms"] for r in res],
+                "peak_gib_by_rank": [r["c"]["peak_gib"] for r in res]}
+    if world > 1:
+        # each K's worst rank, under the flags spawn handed the ranks (this
+        # process's: TF32 off)
+        rec["c"]["halo_rel"] = {k: max(r["halo"][k] for r in res)
+                                for k in PAR_HALO_K}
+    print(f"{tag} (c) long_eeg_rollout, B=2, T={LONG_T} "
           f"({LONG_T // 200 // 60} min, {LONG_T // 200} tokens), full width, "
-          f"seq={world}: {c['ms']:.2f} ms, peak {c['peak_gib']:.2f} GiB; "
-          f"logits vs local_forward(None) rel {c['logit_rel']:.2e} (bound "
+          f"seq={world}: {c['ms']:.2f} ms, peak GiB by card "
+          f"{[round(g, 3) for g in rec['c']['peak_gib_by_rank']]}; logits "
+          f"vs local_forward(None) rel {c['logit_rel']:.2e} (bound "
           f"{LONG_LOGIT_REL}); rollout {c['rollout']} rows sum to 1 within "
-          f"{c['row_err']:.2e} (bound {LONG_ROW_ATOL}) [{card}]")
+          f"{c['row_err']:.2e} (bound {LONG_ROW_ATOL})"
+          + (f"; halo conv vs unsharded rel by K, worst rank, under the "
+             f"ranks' flags {rec['c']['halo_rel']} (bound {PAR_HALO_REL})"
+             if world > 1 else "") + f" [{card}]")
     require(c["finite"] and c["rollout"] == (2, LONG_T // 200, LONG_T // 200)
             and c["logit_rel"] < LONG_LOGIT_REL
             and c["row_err"] < LONG_ROW_ATOL, f"(c) {c}")
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(["long-eeg", "--ckpt-dir", f"{tmp}/long_eeg"])
-    rec["c"]["cli_s"] = time.perf_counter() - t0
-    out = buf.getvalue().strip()
-    print(f"[parallel] (c) cli long-eeg: {out or '(printed by rank 0)'}; "
-          f"{rec['c']['cli_s']:.2f} s [{card}]")
-    require(rc == 0 and (world > 1 or f"devices=1 seq-sharded T={200 * 64}"
-                         in out), f"(c) cli long-eeg: rc {rc}, {out!r}")
+    require(world == 1 or max(rec["c"]["halo_rel"].values()) <= PAR_HALO_REL,
+            f"(c) halo conv: {rec['c'].get('halo_rel')}")
 
     # (d) ------------------------------------------------------------------
-    res = launch.spawn(_par_xai, world, "cuda", (world,))
-    dd = res[0]
-    launches += [r["counts"] for r in res]
-    rec["d"] = dd
+    # one rank explains the whole batch as the unsharded functions do; above
+    # one, each rank's rows run other shapes than the whole batch's, where
+    # the spectrogram branch's ReLU / max-pool ties may round the other way:
+    # there each rank's rows are held to 1e-6 against the unsharded
+    # arithmetic on those rows alone, the whole batch normwise (PAR_XAI_NORM)
+    rec["d"] = {**dd, "counts_by_rank": [r["d"]["counts"] for r in res]}
     for name in ("eeg", "spectrogram"):
         r = dd[name]
-        print(f"[parallel] (d) sharded attribution, {name}, B={PAR_XAI_B}: "
+        rows = [(x["d"][name]["rows_ig_rel"], x["d"][name]["rows_shap_rel"])
+                for x in res] if world > 1 else []
+        print(f"{tag} (d) sharded attribution, {name}, B={PAR_XAI_B}: "
               f"IG ({r['steps']} steps) + SHAP ({r['nsamples']} draws x 6 "
               f"classes) {r['ms_sharded']:.1f} ms sharded, "
               f"{r['ms_unsharded']:.1f} ms unsharded; vs unsharded rel IG "
-              f"{r['ig_rel']:.2e}, SHAP {r['shap_rel']:.2e} (bound "
-              f"{PAR_XAI_REL}) [{card}]")
-        require(r["ig_rel"] <= PAR_XAI_REL and r["shap_rel"] <= PAR_XAI_REL
-                and r["shap_shape"][:2] == (6, PAR_XAI_B), f"(d) {name} {r}")
-    print(f"[parallel] (d) launches in the sharded runs: {dd['counts']} "
-          f"[{card}]")
-    require(dd["counts"]["specblock_convpool"] > 0
-            and dd["counts"]["specblock_convpool_vjp"] > 0,
-            f"(d) #3 / #3' not run: {dd['counts']}")
+              f"{r['ig_rel']:.2e}, SHAP {r['shap_rel']:.2e}" + (
+                  f", normwise IG {r['ig_norm_rel']:.2e}, SHAP "
+                  f"{r['shap_norm_rel']:.2e}; each rank's rows vs the "
+                  f"unsharded arithmetic on those rows (IG, SHAP) {rows}"
+                  if world > 1 else "") + f" (bound {PAR_XAI_REL}"
+              + (f"; spectrogram whole batch {PAR_XAI_NORM} normwise"
+                 if world > 1 else "") + f") [{card}]")
+        require(r["shap_shape"][:2] == (6, PAR_XAI_B)
+                and max(max(p) for p in rows or [(0.0,)]) <= PAR_XAI_REL,
+                f"(d) {name} {r} {rows}")
+        if world == 1 or name == "eeg":
+            require(r["ig_rel"] <= PAR_XAI_REL
+                    and r["shap_rel"] <= PAR_XAI_REL, f"(d) {name} {r}")
+        else:
+            require(r["ig_norm_rel"] <= PAR_XAI_NORM
+                    and r["shap_norm_rel"] <= PAR_XAI_NORM,
+                    f"(d) {name} {r}")
+    print(f"{tag} (d) launches in the sharded runs by rank: "
+          f"{rec['d']['counts_by_rank']} [{card}]")
+    require(all(c["specblock_convpool"] > 0 and c["specblock_convpool_vjp"] > 0
+                for c in rec["d"]["counts_by_rank"]),
+            f"(d) #3 / #3' not run on every rank: {rec['d']['counts_by_rank']}")
 
-    rec["launches"] = {k: sum(c.get(k, 0) for c in launches)
-                       for k in launches[0]}
+    # (e) ------------------------------------------------------------------
+    rec["e"] = e
+    print(f"{tag} (e) DiffEEGTrainer(mesh, decorrelate_shards=False), "
+          f"DiffEEGConfig() width, K={e['k']} x B={e['b']} a rank, "
+          f"{PAR_DIFF_STEPS} steps: ms a step {[round(t, 3) for t in e['ms_dp']]}"
+          f" (single device {[round(t, 3) for t in e['ms_single']]}), "
+          f"{PAR_DIFF_TIMED} warm steps after them "
+          f"{[round(t, 3) for t in e['ms_dp_warm']]} (single device "
+          f"{[round(t, 3) for t in e['ms_single_warm']]}); loss "
+          f"{e['loss_dp']!r} vs {e['loss_single']!r}; parameters max abs "
+          f"{e['params_max_abs']:.3e}, excess over {PAR_RTOL}/{PAR_ATOL}: "
+          f"parameters {e['params_excess']:.3e}, EMA {e['ema_excess']:.3e} "
+          f"[{card}]")
+    require(abs(e["loss_dp"] - e["loss_single"]) <= PAR_LOSS_ATOL
+            and e["params_excess"] <= 0 and e["ema_excess"] <= 0,
+            f"(e) DiffEEG DP vs single: {e}")
+
+    # (f) ------------------------------------------------------------------
+    if world > 1:
+        rec["f"] = _par_cli(card, tmp, world, *cli_ref)
+    return rec, {k: sum(c.get(k, 0) for c in launches) for k in launches[0]}
+
+
+def phase_parallel(card: str, tmp: str) -> dict:
+    """Phase 16: the parallel programs on a world of each size in
+    PAR_WORLDS that the visible cards hold (``parallel.launch.spawn``;
+    NCCL, one card a rank; a world of one runs in this process):
+
+    (a) ``Trainer(mesh=...)`` on the multimodal training model, float32,
+        TF32 off, B=256, 3 steps, against the same steps without a mesh
+        (bitwise at a world of one; above one the first step's loss against
+        ``replay_dp_loss_single_device`` to 1e-5·max(1, |loss|) and the
+        full-width WaveNet's SGD step against the single device's); ranks
+        agree to 1e-6; ms a step both ways and of the step alone, windows/s,
+        idle share, the all-reduce's ms, bytes and bus bandwidth, #1/#2
+        launches; on the largest world also B=256 a card;
+    (b) ``entry.dryrun_multichip(world, device="cuda")``: the JAX mesh, the
+        replay check inside;
+    (c) ``long_eeg_rollout`` at full width over B=2 × one hour (T=720,000,
+        3,600 tokens) at seq = world: logits against ``local_forward(None)``
+        (1e-4), rows summing to 1 (1e-4), ms and each card's peak GiB; above
+        one rank the halo conv across cards at K = 3, 5, 7, 9 (1e-5), under
+        the numerics flags spawn handed the ranks (each rank's held equal to
+        this process's);
+    (d) ``sharded_integrated_gradients`` and
+        ``sharded_gradient_shap_values`` at B=8 over the EEG branch and the
+        fused spectrogram forward (#3, #3' on every rank), equal to the
+        unsharded functions to 1e-6 of the maximum (above one rank: each
+        rank's rows to 1e-6 against the unsharded arithmetic on them, the
+        spectrogram branch's whole batch to PAR_XAI_NORM normwise);
+    (e) ``DiffEEGTrainer(mesh=..., decorrelate_shards=False)`` at full
+        width, 2 steps at K=4, against the single device; ms a step in those
+        and in PAR_DIFF_TIMED warm steps;
+    (f) above one rank, ``predict --mesh N`` against phase 15's one-card
+        predictions (its 1e-3 and argmax rule) and ``train-multimodal
+        --mesh N`` on phase 13's tree (``tmp/hms``; phase 15's checkpoint
+        in ``tmp/cli``);
+
+    then the command line's ``long-eeg`` over every card (rank 0's line
+    read), and on more than one card ``initialize_multihost`` in as many
+    processes with no ``LOCAL_RANK``.  Prints the worlds it ran and a
+    ``{"parallel": ...}`` line with every world's record; returns the
+    launches by kernel name of the largest world's runs."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import entry
+    from multimodal_brain_pattern_identification_xai_tpu_torch.parallel import (
+        launch)
+    n_cards = torch.cuda.device_count()
+    worlds = [w for w in PAR_WORLDS if w <= n_cards]
+    t_phase = time.perf_counter()
+    nccl = torch.cuda.nccl.version()
+    rec = {"card": card, "worlds": worlds, "backend": launch.backend_for("cuda"),
+           "cards": _smi("--query-gpu=index,name,power.limit",
+                         "--format=csv,noheader").splitlines(),
+           "nccl": ".".join(map(str, nccl)) if isinstance(nccl, tuple)
+           else str(nccl)}
+    print(f"[parallel] worlds {worlds} of {n_cards} visible card(s), over "
+          f"{rec['backend']} {rec['nccl']}, one card a rank [{card}]")
+    for line in rec["cards"]:
+        print(f"[parallel] card {line}")
+    if n_cards > 1:
+        rec["topology"] = _topology()
+        for line in rec["topology"].splitlines():
+            print(f"[parallel] topo | {line}")
+    cli_ref = None
+    if len(worlds) > 1:
+        _, ref, _ = _read_predictions(f"{tmp}/cli/predictions.csv")
+        _, tr_idx, _ = entry.multimodal_fold0(
+            f"{tmp}/hms", f"{tmp}/cli", RD_SEED, npy_dir=f"{tmp}/hms/npy")
+        cli_ref = (ref, len(tr_idx) // CLI_BATCH * CLI_BATCH)
+    launches = {}
+    for world in worlds:
+        rec[f"world{world}"], launches = _par_world(
+            card, tmp, world, world == worlds[-1] > 1, cli_ref)
+    one = rec["world1"]["a"]
+    for world in worlds:
+        r = rec[f"world{world}"]["a"]
+        r["efficiency"] = {"mesh": one["ms_mesh"] / (world * r["ms_mesh"]),
+                           "step": one["ms_step"] / (world * r["ms_step"])}
+        if "weak" in r:
+            r["weak"]["efficiency"] = {
+                "mesh": one["ms_mesh"] / r["weak"]["ms_mesh"],
+                "step": one["ms_step"] / r["weak"]["ms_step"]}
+        print(f"[parallel] world {world}: DP scaling against one card at "
+              f"B={PAR_B} global: efficiency {r['efficiency']['step']:.3f} "
+              f"(the step alone), {r['efficiency']['mesh']:.3f} "
+              f"(preprocessing included)" + (
+                  f"; at {PAR_B} rows a card: {r['weak']['efficiency']['step']:.3f}"
+                  f", {r['weak']['efficiency']['mesh']:.3f}"
+                  if "weak" in r else "") + f" [{card}]")
+
+    out, wall = _cli_ranks(["long-eeg", "--ckpt-dir", f"{tmp}/long_eeg"], tmp)
+    rec["long_eeg_cli"] = {"wall_s": wall, "line": out.strip()}
+    require(f"devices={n_cards} seq-sharded T={200 * 64 * n_cards}" in out,
+            f"(c) cli long-eeg over {n_cards} card(s): {out!r}")
+    if n_cards > 1:
+        g = _par_multihost(worlds[-1])
+        rec["multihost"] = g
+        print(f"[parallel] initialize_multihost, {worlds[-1]} processes, no "
+              f"LOCAL_RANK: {g['ranks']}; {g['wall_s']:.2f} s [{card}]")
+        require(sorted(r["card"] for r in g["ranks"])
+                == list(range(worlds[-1])) and all(
+                    r["sum"] == worlds[-1] * (worlds[-1] + 1) / 2
+                    for r in g["ranks"]), f"(g) {g}")
+    rec["launches"] = launches
     rec["phase_s"] = time.perf_counter() - t_phase
-    print(f"[parallel] launches over the phase {rec['launches']}; phase "
-          f"{rec['phase_s']:.1f} s [{card}]")
+    print(f"[parallel] worlds run: {worlds}; launches at world {worlds[-1]} "
+          f"{launches}; phase {rec['phase_s']:.1f} s [{card}]")
     print(json.dumps({"parallel": rec}, default=float))
-    return rec["launches"]
+    return launches
 
 
 # The public DSP API (phase 17): ``ops.lfilter`` under every engine the JAX

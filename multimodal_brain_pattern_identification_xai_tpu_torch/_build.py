@@ -6,13 +6,19 @@ with ``ctypes``.  Builds happen at first use, into ``_build/`` beside this
 file (listed in ``.gitignore``); the library's file name carries a hash of
 its source and of the headers in ``csrc/``, so an edited source or
 header is rebuilt.  The host library (``runtime/hostloader.cpp``, no
-CUDA) builds the same way with ``g++`` (:func:`load_host`).  Nothing here
-runs at import.
+CUDA) builds the same way with ``g++`` (:func:`load_host`).  A build
+holds an ``flock`` on ``_build/lock`` from its check to its rename, so
+the ranks of a parallel run that start on an empty ``_build/`` compile
+each source once: the first takes the lock and builds, the others wait
+and find the library (the kernel releases the lock of a process that
+dies).  Nothing here runs at import.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -36,6 +42,20 @@ _libs: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}
 
 
+@contextlib.contextmanager
+def _locked():
+    """This thread's lock, then the build directory's ``flock`` (other
+    processes), held around a check-then-build."""
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / "lock", "a") as f:
+            fcntl.flock(f, fcntl.LOCK_EX)
+            try:
+                yield
+            finally:
+                fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -44,6 +64,13 @@ def _nvcc() -> str:
     if cand.exists():
         return str(cand)
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the host library cannot be built")
+    return found
 
 
 def _target(name: str) -> Path:
@@ -60,7 +87,6 @@ def _target(name: str) -> Path:
 def _start(name: str):
     """Start one ``nvcc`` into a temporary file; returns (proc, tmp, out)."""
     out = _target(name)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
@@ -81,7 +107,7 @@ def _finish(name: str, proc, tmp: str, out: Path) -> None:
 def build(names: Iterable[str]) -> None:
     """Compile every named source that has no current library, one
     ``nvcc`` per source, all started together."""
-    with _lock:
+    with _locked():
         todo = [n for n in names if n not in _libs and not _target(n).exists()]
         jobs = [(n, *_start(n)) for n in todo]
         for n, proc, tmp, out in jobs:
@@ -107,7 +133,7 @@ def load_host(src: Path) -> ctypes.CDLL:
     a hash of the source and the flags, so an edited source is rebuilt.
     Raises with the compiler's message when it cannot be built."""
     key = str(src)
-    with _lock:
+    with _locked():
         lib = _libs.get(key)
         if lib is not None:
             return lib
@@ -115,11 +141,7 @@ def load_host(src: Path) -> ctypes.CDLL:
         h.update(" ".join(HOST_FLAGS).encode())
         out = BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
         if not out.exists():
-            gxx = shutil.which("g++")
-            if gxx is None:
-                raise RuntimeError(f"g++ not found: {src.name} cannot be "
-                                   f"built")
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            gxx = _gxx()
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             proc = subprocess.run([gxx, *HOST_FLAGS, str(src), "-o", tmp],

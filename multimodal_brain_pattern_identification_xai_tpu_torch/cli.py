@@ -840,7 +840,8 @@ def cmd_long_eeg(args) -> int:
     if not _primary(args):
         return 0
     print(f"devices={n} seq-sharded T={T} ({T / 200 / 60:.1f} min) "
-          f"logits={tuple(logits.shape)} rollout={tuple(roll.shape)}")
+          f"logits={tuple(logits.shape)} rollout={tuple(roll.shape)}",
+          flush=True)
     utils.plot_saliency_heatmap(roll[0][:200, :200].cpu().numpy(),
                                 args.ckpt_dir, "long_eeg_rollout")
     return 0

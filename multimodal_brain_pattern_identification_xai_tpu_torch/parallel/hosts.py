@@ -29,10 +29,12 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     ``num_processes`` ranks, this one ``process_id``; without it, from
     torchrun's environment (``MASTER_ADDR``, ``MASTER_PORT``,
     ``WORLD_SIZE``, ``RANK``).  The backend follows ``device`` (``cuda``
-    unless named: NCCL, this process on card ``LOCAL_RANK``; ``cpu``:
-    gloo).  Returns False, doing nothing, only when no cluster is
-    configured (no address given and neither ``WORLD_SIZE`` nor
-    ``MASTER_ADDR`` set); every other error propagates.
+    unless named: NCCL, this process on card ``LOCAL_RANK``, or where that
+    is not set on card ``rank mod visible cards``, so that the ranks of
+    one host each take a card of their own; ``cpu``: gloo).  Returns
+    False, doing nothing, only when no cluster is configured (no address
+    given and neither ``WORLD_SIZE`` nor ``MASTER_ADDR`` set); every other
+    error propagates.
     """
     if coordinator_address is None and not (
             "WORLD_SIZE" in os.environ or "MASTER_ADDR" in os.environ):
@@ -46,13 +48,23 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     else:
         kw = dict(init_method="env://")
     if dev.type == "cuda":
-        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        dev = torch.device("cuda", _local_card(process_id))
         torch.cuda.set_device(dev)
         kw["device_id"] = dev
     dist.init_process_group(backend_for(dev), timeout=TIMEOUT, **kw)
     logger.info("multihost: rank %d of %d (%s)", dist.get_rank(),
                 dist.get_world_size(), dist.get_backend())
     return True
+
+
+def _local_card(process_id: Optional[int]) -> int:
+    """``LOCAL_RANK`` where the launcher set it, else this process's rank
+    (``process_id``, or torchrun's ``RANK``) modulo the visible cards."""
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"])
+    rank = (process_id if process_id is not None
+            else int(os.environ.get("RANK", 0)))
+    return rank % torch.cuda.device_count()
 
 
 def is_primary() -> bool:

@@ -20,6 +20,12 @@ in rank order.
   arguments go to a file that each rank reads once it runs: through the
   start-up pipe, more than its 64 KiB would start the ranks one after
   another, each waiting for the one before to import torch.
+* Each spawned rank runs under the caller's numerics flags (cuDNN's
+  TF32, determinism and benchmark switches, TF32 in matmuls), as a world
+  of one in the calling process does: a fresh interpreter would start
+  from PyTorch's defaults instead.
+* The caller loads each rank's result onto the CPU (``map_location``):
+  it opens no CUDA context on the ranks' cards.
 * A world of one runs in the calling process (a process group of one
   rank, made and destroyed around the call): no child, no start-up cost.
   Where a process group of ``world`` ranks is already initialised (under
@@ -81,16 +87,42 @@ def _join(rank: int, world: int, kind: str, store: str) -> torch.device:
     return dev
 
 
+#: the numerics switches (under ``torch.backends``) a spawned rank takes
+#: from its caller
+_FLAGS = ("cudnn.allow_tf32", "cudnn.deterministic", "cudnn.benchmark",
+          "cuda.matmul.allow_tf32")
+
+
+def _flag(name: str):
+    """(the object holding flag ``name``, the attribute's name)."""
+    *path, attr = name.split(".")
+    obj = torch.backends
+    for part in path:
+        obj = getattr(obj, part)
+    return obj, attr
+
+
+def _flags() -> dict:
+    """The caller's values of :data:`_FLAGS`."""
+    return {name: getattr(*_flag(name)) for name in _FLAGS}
+
+
+def _set_flags(flags: dict) -> None:
+    for name in _FLAGS:
+        setattr(*_flag(name), flags[name])
+
+
 def _child(rank: int, fn: Callable, world: int, kind: str, tmp: str
            ) -> None:
-    """A spawned rank: one intra-op thread on the CPU, join, call ``fn`` on
-    the arguments saved under ``tmp``, save its result (or the traceback)
-    there, leave the group."""
+    """A spawned rank: one intra-op thread on the CPU, the caller's flags,
+    join, call ``fn`` on the arguments saved under ``tmp``, save its result
+    (or the traceback) there, leave the group."""
     if kind == "cpu":
         torch.set_num_threads(1)
     try:
         with open(os.path.join(tmp, "args.pkl"), "rb") as f:
-            args = pickle.load(f)
+            flags, args = pickle.load(f)
+        _set_flags(flags)
         dev = _join(rank, world, kind, os.path.join(tmp, "store"))
         try:
             result = fn(dev, *args)
@@ -148,7 +180,7 @@ def spawn(fn: Callable, world: int, device: Union[str, torch.device],
                 dist.destroy_process_group()
         import torch.multiprocessing as mp
         with open(os.path.join(tmp, "args.pkl"), "wb") as f:
-            pickle.dump(tuple(args), f)
+            pickle.dump((_flags(), tuple(args)), f)
         try:
             mp.start_processes(_child, args=(fn, world, kind, tmp),
                                nprocs=world, join=True,
@@ -156,4 +188,5 @@ def spawn(fn: Callable, world: int, device: Union[str, torch.device],
         except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
             raise _failure(tmp, world, e) from None
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
-                           weights_only=False) for r in range(world)]
+                           map_location="cpu", weights_only=False)
+                for r in range(world)]

@@ -34,7 +34,8 @@ def _imported_roots(path: Path):
                          [REPO / "chip_smoke.py"] +
                          sorted((REPO / "scripts").glob("torch_*.py")) +
                          [REPO / "tests" / "torch_parallel_cases.py",
-                          REPO / "tests" / "torch_jaxfree_rank.py"],
+                          REPO / "tests" / "torch_jaxfree_rank.py",
+                          REPO / "tests" / "torch_multicard_rank.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_no_jax(path):
     for name in _imported_roots(path):
@@ -114,6 +115,24 @@ def test_parallel_ranks_run_with_jax_blocked():
         assert r["loaded_before"] == [] and r["loaded_after"] == []
         assert not r["nonfinite"] and r["step"] == 1
     assert res[0]["loss"] == res[1]["loss"]
+
+
+def test_multicard_rank_module_imports_with_jax_blocked():
+    """The processes of ``test_torch_multicard.py`` import their functions
+    from ``torch_multicard_rank``: it imports with jax, flax and the JAX
+    package blocked, and loads none of them."""
+    code = (
+        "import sys\n"
+        f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
+        "import torch_multicard_rank\n"
+        "assert callable(torch_multicard_rank.build_once)\n"
+        "print('ok')\n")
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(REPO), str(REPO / "tests")]))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
 
 
 def test_port_imports_with_pandas_blocked(tmp_path):
