@@ -177,6 +177,15 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
               state at 5,120 x 10,000 against its plain version, timed
               beside #1 from zero, the block-Toeplitz route and the
               ``block``/``blockmm`` routes; an ``{"ops_api": ...}`` line.
+18. bench    — the port's ``bench`` command: ``python -m ..._torch bench``
+              as a subprocess at full width (B=256, BENCH_SCAN=64), its
+              line held (exit 0, a finite value, the card's name,
+              ``vs_baseline`` null); the headline's step against #2's
+              plain version on the card, the BENCH_FUSED_SPEC=2 multimodal
+              step against the unfused one; every other mode through its
+              mode function (``BENCH_CUTS``), each line, its seconds and
+              its launches; the duty probe's outputs against the plain
+              version.
 
 Output: a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, then the
 last line ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` are
@@ -190,7 +199,8 @@ the main path's (phase 4; phase 5 for the wide kernel), and for
 summed, ``parallel_launches`` (every row) phase 16's runs summed over
 its ranks, ``ops_api_launches`` (every row) phase 17's run; the row
 ``iir_sosfilt_given`` (#1 from a given state) has phase 17's launches as
-its ``launches``.  Needs one card; imports nothing of JAX.
+its ``launches``; ``bench_launches`` (every row) phase 18's in-process
+runs summed.  Needs one card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -4283,6 +4293,222 @@ def phase_ops_api(card: str, dev) -> dict:
     return {"rec": rec, "launches": counts}
 
 
+# Phase 18: the port's bench command.  The headline runs once through the
+# command line at full width; every other mode in this process through its
+# mode function, at the defaults of the repo-root bench.py except the cuts
+# below, each listed in PERF.md (a mode alone would pass ~20 s): fewer
+# repeats, iterations or K (the number of chained steps a CUDA graph
+# replay); --convprobe runs at full size.
+BENCH_CUTS = {
+    "multimodal FUSED_SPEC=0": dict(scan=4, iters=4),
+    "multimodal FUSED_SPEC=2": dict(scan=4, iters=4),
+    "multimodal-effnet": dict(scan=2, iters=2, reps=3),
+    "multimodal-effnetv2": dict(scan=2, iters=2, reps=3),
+    "multimodal --breakdown": dict(iters=4, reps=3),
+    "gradcam": dict(scan=16),
+    "xai-batch": dict(iters=1, reps=3),
+    "latency": {},
+    "train": dict(iters=4, reps=3),
+    "diffusion": dict(iters=1),
+    "diffeeg-train": dict(iters=1, reps=3),
+    "longeeg": {},
+    "hostgather": {},
+    "convprobe": {},
+}
+BENCH_FUSED_REL = 2e-2           # fused vs unfused bf16, of the max |value|
+# The duty probe vs its plain version R·(W @ P), relative to the max.  One
+# pass (R=1) on the probe's operands: 1e-5.  The probe's own R=512 output
+# sums R·k/16 partial products into one float32 accumulator; the tensor
+# cores' accumulation rounds toward zero, each step off by under one unit
+# in the last place of the accumulator (2^-23 relative), so the sum is
+# held to R·(k/16)·2^-23 of the max.  No float32 R-fold sum meets 1e-5 at
+# R=512: tests/test_torch_bench.py::test_duty_r512_needs_the_accumulation_
+# bound simulates it on the CPU (round to nearest: 2.5e-5 at (16, 144)).
+BENCH_DUTY_REL = 1e-5
+BENCH_TIMEOUT_S = 600            # the headline's command
+
+
+def _bench_modes(bench):
+    """(name, mode function, keyword arguments) of every in-process
+    mode."""
+    fns = {"multimodal-effnet": (bench.bench_multimodal,
+                                 dict(spec_model="effnet")),
+           "multimodal-effnetv2": (bench.bench_multimodal,
+                                   dict(spec_model="effnetv2")),
+           "multimodal FUSED_SPEC=0": (bench.bench_multimodal,
+                                       dict(fused_spec=0)),
+           "multimodal FUSED_SPEC=2": (bench.bench_multimodal,
+                                       dict(fused_spec=2)),
+           "multimodal --breakdown": (bench.bench_multimodal_breakdown, {}),
+           "gradcam": (bench.bench_gradcam, {}),
+           "xai-batch": (bench.bench_xai_batch, {}),
+           "latency": (bench.bench_latency, {}),
+           "train": (bench.bench_train, {}),
+           "diffusion": (bench.bench_diffusion, {}),
+           "diffeeg-train": (bench.bench_diffeeg_train, {}),
+           "longeeg": (bench.bench_longeeg, {}),
+           "hostgather": (bench.bench_hostgather, {}),
+           "convprobe": (bench.bench_convprobe, {})}
+    return [(name, fns[name][0], {**fns[name][1], **cut})
+            for name, cut in BENCH_CUTS.items()]
+
+
+def _bench_plain_rolldec(coeffs, x):
+    """#2's plain version on any device: the sequential scan, then the
+    mean of every 4 outputs (``cuda_iir.sosfilt_rolldec``'s CPU branch)."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch.ops import iir
+    from multimodal_brain_pattern_identification_xai_tpu_torch.ops.resample \
+        import rolling_mean4_decimate_flat
+    shape, T = x.shape, x.shape[-1]
+    y = iir._sos_scan(x.reshape(-1, T), coeffs.sos)
+    return rolling_mean4_decimate_flat(y, 4).reshape(shape[:-1] + (T // 4,))
+
+
+def phase_bench(card: str, dev) -> dict:
+    """The port's ``bench``: (a) ``python -m ... bench`` as a subprocess
+    at full width (B=256, (20, 10000), BENCH_SCAN=64): exit 0, one line, a
+    finite value > 0, ``device`` the card's name, ``vs_baseline`` null;
+    (b) the headline's step against the same step with #2's plain version
+    on the card (LOGP_ATOL), the BENCH_FUSED_SPEC=2 multimodal step
+    against the unfused one (BENCH_FUSED_REL of the max); (c) every other
+    mode through its mode function (BENCH_CUTS), each line finite with no
+    error, its seconds and each kernel's launches in its run, the duty
+    probe's last output at each shape against its plain version
+    (BENCH_DUTY_REL).  Returns each kernel's launches summed over (b) and
+    (c)."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import bench
+    from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
+        cuda_duty, cuda_iir)
+    reset, read = _counters()
+    name = torch.cuda.get_device_name(0)
+    kernel_duty = cuda_duty.duty
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def counted(fn):
+        reset()
+        kernel_duty.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {**read(), "duty": kernel_duty.launches}
+
+    # (a) the headline through the command line
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    env = dict(os.environ, BENCH_BATCH="256", BENCH_SCAN="64")
+    proc = subprocess.run([sys.executable, "-m", PKG, "bench"],
+                          capture_output=True, text=True, env=env,
+                          timeout=BENCH_TIMEOUT_S,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    dt = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    require(proc.returncode == 0 and len(lines) == 1,
+            f"bench: exit {proc.returncode}, stdout {proc.stdout[-2000:]!r}, "
+            f"stderr {proc.stderr[-2000:]!r}")
+    line = json.loads(lines[0])
+    require(line["metric"] == "eeg_windows_per_sec_per_chip"
+            and isinstance(line["value"], (int, float))
+            and np.isfinite(line["value"]) and line["value"] > 0
+            and line["device"] == name and line["vs_baseline"] is None
+            and line["scan_len"] == 64, f"bench headline line {line}")
+    print(f"[bench] python -m {PKG} bench (B=256, BENCH_SCAN=64): "
+          f"{lines[0]} ({dt:.1f} s) [{card}]")
+
+    # (b) the kernels on the bench's own paths
+    step, _, _ = bench.headline_program("cuda", 256)
+    got, counts = counted(step)
+    add(counts)
+    require(counts["iir_sosfilt_rolldec"] == 1,
+            f"headline step: launches {counts}")
+    step, _, _ = bench.headline_program("cuda", 256)
+    kernel_rolldec = cuda_iir.sosfilt_rolldec
+    cuda_iir.sosfilt_rolldec = _bench_plain_rolldec
+    try:
+        reset()
+        with torch.no_grad():
+            want = step()
+        torch.cuda.synchronize()
+        require(read()["iir_sosfilt_rolldec"] == 0, "plain step launched #2")
+    finally:
+        cuda_iir.sosfilt_rolldec = kernel_rolldec
+    err = max_abs(got, want)
+    require(bool(torch.isfinite(got).all()) and err < LOGP_ATOL,
+            f"bench headline step vs plain #2: {err}")
+    print(f"[bench] headline step, B=256: log-probs with #2 against #2's "
+          f"plain version on the card: max abs {err:.2e} (bound "
+          f"{LOGP_ATOL}) [{card}]")
+    outs, fused_counts = {}, {}
+    for fused in (2, 0):
+        step, _, _ = bench.multimodal_program("cuda", 256, fused_spec=fused)
+        outs[fused], fused_counts[fused] = counted(step)
+        add(fused_counts[fused])
+        del step
+    require([fused_counts[f]["specblock_convpool_bf16"] for f in (2, 0)]
+            == [2, 0], f"multimodal step launches {fused_counts}")
+    fused_err = rel(outs[2], outs[0])
+    require(bool(torch.isfinite(outs[2]).all())
+            and fused_err < BENCH_FUSED_REL,
+            f"bench multimodal fused vs unfused: {fused_err}")
+    print(f"[bench] multimodal step, B=256, bf16: BENCH_FUSED_SPEC=2 vs 0 "
+          f"log-probs: max abs {max_abs(outs[2], outs[0]):.2e} = "
+          f"{fused_err:.2e} of the max (bound {BENCH_FUSED_REL}) [{card}]")
+    del outs
+    torch.cuda.empty_cache()
+
+    # (c) every other mode through its mode function
+    # the convprobe mode's duty calls pass a recorder in the module's
+    # place; the kernel's wrapper then counts on the recorder (it adds to
+    # the module-level name's attribute)
+    duty_calls = {}
+
+    def recording_duty(w, p, r):
+        out = kernel_duty(w, p, r)
+        duty_calls[tuple(w.shape)] = (w, p, r, out)
+        return out
+    for mode, fn, kw in _bench_modes(bench):
+        t0 = time.perf_counter()
+        if mode == "convprobe":
+            recording_duty.launches = 0
+            cuda_duty.duty = recording_duty
+        try:
+            line, counts = counted(lambda: fn(device="cuda", **kw))
+        finally:
+            cuda_duty.duty = kernel_duty
+        if mode == "convprobe":
+            counts["duty"] += recording_duty.launches
+        dt = time.perf_counter() - t0
+        add(counts)
+        require(line.get("unit") != "error" and "error" not in line
+                and isinstance(line["value"], (int, float))
+                and np.isfinite(line["value"]) and line["device"] == name,
+                f"bench {mode}: {line}")
+        launched = {k: v for k, v in counts.items() if v}
+        print(f"[bench] {mode} {kw}: {json.dumps(line)} ({dt:.1f} s; "
+              f"launches {launched}) [{card}]")
+        torch.cuda.empty_cache()
+    require(set(duty_calls) == set(cuda_duty.SHAPES),
+            f"the duty probe ran {sorted(duty_calls)}")
+    for (co, k), (w, p, r, out) in sorted(duty_calls.items()):
+        e1 = rel(kernel_duty(w, p, 1), cuda_duty._plain_duty(w, p, 1))
+        e = rel(out, cuda_duty._plain_duty(w, p, r))
+        bound = r * (k // 16) * 2.0 ** -23
+        require(e1 <= BENCH_DUTY_REL and e <= bound,
+                f"bench duty ({co}, {k}): rel {e1} at R=1, {e} at R={r}")
+        print(f"[bench] convprobe duty ({co}, {k}) N={p.shape[1]}, the "
+              f"probe's operands, against the plain version: R=1 rel "
+              f"{e1:.2e} (bound {BENCH_DUTY_REL}); the probe's R={r} "
+              f"output rel {e:.2e} (float32 accumulation bound "
+              f"{bound:.2e}) [{card}]")
+    for kname in ("iir_sosfilt_rolldec", "specblock_convpool_bf16", "duty"):
+        require(total.get(kname, 0) > 0, f"bench: {kname} never launched")
+    print(f"[bench] launches in the phase: "
+          f"{ {k: v for k, v in total.items() if v} }")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4345,6 +4571,8 @@ def main() -> int:
     ops = phase_ops_api(card, dev)
     done("ops api")
     rec["iir_sosfilt_given"] = ops["rec"]
+    bench_launches = phase_bench(card, dev)
+    done("bench")
 
     xai_tpu = "multimodal_brain_pattern_identification_xai_tpu"
     src = {"iir_sosfilt": (f"{PKG}/csrc/iir.cu",
@@ -4414,6 +4642,7 @@ def main() -> int:
         k["cli_launches"] = cli_launches.get(k["name"], 0)
         k["parallel_launches"] = parallel_launches.get(k["name"], 0)
         k["ops_api_launches"] = ops["launches"].get(k["name"], 0)
+        k["bench_launches"] = bench_launches.get(k["name"], 0)
     print(f"[time] total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -23,7 +23,9 @@ the same subcommands and flags, on the card.
     long-eeg             sequence-parallel long-EEG encoder + attention
                          rollout over every card (--device cpu: --mesh
                          ranks)
-    bench                not ported yet: exits 2 naming what brings it
+    bench                the benchmark harness (``bench.py`` of this
+                         package): one JSON line a mode (--multimodal,
+                         --breakdown, --gradcam, --train, ...)
 
 Every command takes the JAX command's flags with the same defaults, and
 one more: ``--device`` (default ``cuda``).  A command that computes
@@ -61,8 +63,6 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-#: what brings the command that is not ported yet
-BENCH_SLICE = "the port's benchmark"
 #: commands that touch no device
 HOST_COMMANDS = ("dump-config", "cache-build", "convert-spectrograms")
 #: commands that ``--mesh N`` runs on N ranks
@@ -812,12 +812,6 @@ def cmd_convert_spectrograms(args) -> int:
     return 0
 
 
-def _not_ported(what: str, by: str) -> int:
-    print(f"error: {what} is not ported yet: {by} brings it",
-          file=sys.stderr)
-    return 2
-
-
 def cmd_long_eeg(args) -> int:
     """The long-EEG demo: the full-width ``LongEEGEncoder`` (20 channels,
     patch 200, d 128, depth 4, 4 heads; weights from ``--seed``) over
@@ -848,8 +842,14 @@ def cmd_long_eeg(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    """The throughput benchmark: not ported yet."""
-    return _not_ported("bench", BENCH_SLICE)
+    """The benchmark harness (:mod:`.bench`, the counterpart of the JAX
+    command's repo-root ``bench.py``): the mode its flags select, one JSON
+    line, on ``--device``."""
+    from . import bench
+
+    argv = [flag for flag in (*bench.MODE_METRIC, "--breakdown")
+            if getattr(args, flag[2:].replace("-", "_"))]
+    return bench.main(argv + ["--device", str(args.device)])
 
 
 COMMANDS = {
@@ -876,7 +876,11 @@ def build_parser() -> argparse.ArgumentParser:
         prog="multimodal_brain_pattern_identification_xai_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     for name in COMMANDS:
-        _add_common(sub.add_parser(name))
+        p = sub.add_parser(name)
+        _add_common(p)
+        if name == "bench":
+            from .bench import add_mode_flags
+            add_mode_flags(p)
     return parser
 
 
@@ -919,8 +923,6 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
-    if args.cmd == "bench":
-        return _not_ported("bench", BENCH_SLICE)
     if args.cmd not in HOST_COMMANDS:
         try:
             args.device = resolve_device(args.device)

@@ -216,7 +216,8 @@ def train_entry(device: Optional[Union[str, torch.device]] = None,
                 batch: int = 256, seed: int = 0,
                 dtype: Optional[torch.dtype] = torch.bfloat16,
                 assume_finite: bool = True, l2_lambda: float = 1e-3,
-                lr: float = 1e-3):
+                lr: float = 1e-3, n_points: int = 10_000,
+                signal: C.SignalConfig = C.SignalConfig()):
     """The training program of the JAX bench's ``--train`` mode: raw
     windows → both preprocessing chains → forward + KLDiv + L2 + backward
     + Adam, on the full-width model (:func:`build_train_model`, the
@@ -230,7 +231,9 @@ def train_entry(device: Optional[Union[str, torch.device]] = None,
     :class:`..train.TrainState`; the inputs are seeded synthetic raw EEG
     (batch, 20, 10000) µV gathered through ``runtime.gather_windows`` (NaN
     repair) when ``assume_finite``, else with their NaNs (the NaN route),
-    raw spectrograms (batch, 400, 300) and soft targets (batch, 6)."""
+    raw spectrograms (batch, 400, 300) and soft targets (batch, 6).
+    ``n_points`` sets the windows' length and ``signal`` the planes the
+    model sees (zero-padded or cropped to its ``image_size``)."""
     from .data import synthetic_raw_eeg, synthetic_raw_spectrogram
     from .runtime import gather_windows
     from .train import (create_train_state, initialize_kaiming_weights,
@@ -238,7 +241,7 @@ def train_entry(device: Optional[Union[str, torch.device]] = None,
 
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
-    raw_eeg = synthetic_raw_eeg(batch, rng)
+    raw_eeg = synthetic_raw_eeg(batch, rng, n_points=n_points)
     if assume_finite:
         raw_eeg = gather_windows(raw_eeg, np.arange(batch, dtype=np.int64))
     raw_spec = synthetic_raw_spectrogram(batch, rng)
@@ -250,7 +253,7 @@ def train_entry(device: Optional[Union[str, torch.device]] = None,
     inner = make_train_step(l2_lambda=l2_lambda)
 
     def step(state, raw_eeg, raw_spec, y):
-        return inner(state, preprocess_batch(raw_eeg, raw_spec, y,
+        return inner(state, preprocess_batch(raw_eeg, raw_spec, y, signal,
                                              assume_finite=assume_finite))
     return step, state, tuple(torch.as_tensor(a).to(dev)
                               for a in (raw_eeg, raw_spec, y))

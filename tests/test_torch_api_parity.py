@@ -69,9 +69,7 @@ NAMES = {
 
 #: (JAX module, name) whose counterpart exists but does not yet do what the
 #: JAX one does
-STUBS = {
-    ("cli.py", "cmd_bench"): "exits 2: waits for the port's benchmark PR",
-}
+STUBS: Dict[Tuple[str, str], str] = {}
 
 #: argument names of the JAX package's idioms and the port's counterpart
 ARGS = {

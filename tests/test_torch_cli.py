@@ -1,7 +1,7 @@
 """The port's command line (``cli.py``) and configuration loading against
 the JAX package's, on the CPU (``--device cpu``): the parser's defaults
-and the command set; ``bench``, not ported yet, exits 2 with its
-message; ``dump-config`` prints JAX's text and ``load_config`` reads a
+and the command set; ``bench --device cpu`` prints one JSON line
+(tests/test_torch_bench.py holds the harness); ``dump-config`` prints JAX's text and ``load_config`` reads a
 YAML into JAX's fields; the demos' raw arrays are JAX's; ``predict``
 writes JAX's columns with the probabilities of ``entry.make_forward`` on
 the same weights (1e-6), fused blocks within 1e-5 of unfused, ``--eval``'s
@@ -15,6 +15,7 @@ One ``slow`` test runs the JAX command line against the port's."""
 import argparse
 import csv
 import dataclasses
+import json
 import os
 
 import jax
@@ -92,26 +93,34 @@ def test_parser_defaults_and_commands_are_jax():
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["long-eeg"], "long-eeg"), (["bench"], "bench"),
+    (["long-eeg"], "long-eeg"), (["bench", "--device", "cpu"], "bench"),
     (["predict", "--demo", "--mesh", "2", "--device", "cpu"], "--mesh 2")])
 def test_not_ported_exit_2(tmp_path, capsys, monkeypatch, argv, what):
-    """``bench`` is not ported yet: exit 2 naming the port's benchmark.
-    ``long-eeg`` and ``--mesh N`` are ported: ``long-eeg`` resolves its
-    device like every computing command (no card here: exit 1 naming it),
-    and ``--mesh 2`` runs the command on 2 ranks over the device's backend
-    (the launch recorded here; tests/test_torch_cli_mesh.py runs them)."""
+    """Every command is ported.  ``bench --device cpu`` runs the headline
+    (here at B=2 on 400-sample windows, in this process) and prints one
+    JSON line, exit 0.  ``long-eeg`` resolves its device like every
+    computing command (no card here: exit 1 naming it), and ``--mesh 2``
+    runs the command on 2 ranks over the device's backend (the launch
+    recorded here; tests/test_torch_cli_mesh.py runs them)."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import bench
     from multimodal_brain_pattern_identification_xai_tpu_torch.parallel \
         import launch
+    monkeypatch.setenv("BENCH_NO_SUPERVISOR", "1")
+    monkeypatch.setattr(bench, "_env_kwargs", lambda mode: dict(
+        batch=2, scan=2, iters=1, reps=1, n_points=400))
     calls = []
     monkeypatch.setattr(launch, "spawn", lambda fn, world, kind, args: (
         calls.append((fn, world, kind, args)) or [0]))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rc = cli.main(argv + ["--ckpt-dir", str(tmp_path)])
-    err = capsys.readouterr().err.strip().splitlines()
+    cap = capsys.readouterr()
+    err = cap.err.strip().splitlines()
     if what == "bench":
-        assert rc == 2 and len(err) == 1
-        assert err[0].startswith("error: bench is not ported")
-        assert "benchmark" in err[0]
+        out = cap.out.strip().splitlines()
+        assert rc == 0 and not err and len(out) == 1
+        line = json.loads(out[0])
+        assert line["metric"] == "eeg_windows_per_sec_per_chip"
+        assert line["value"] > 0 and line["device"] == "cpu"
     elif what == "long-eeg":
         assert rc == 1 and "no CUDA device" in err[0] and not calls
     else:

@@ -132,11 +132,21 @@ def test_long_eeg_on_the_cpu(runs):
 
 def test_mesh_larger_than_the_cards_exits_1(monkeypatch, tmp_path, capsys):
     """``--mesh 2`` on cuda with fewer cards exits 1 with the JAX
-    command's message, before any rank starts; ``bench`` still exits 2."""
+    command's message, before any rank starts.  ``bench`` takes no mesh:
+    with ``--mesh 2`` it runs in this process, where the harness's own
+    start of the card (none behind the patched availability) prints its
+    error line and exits 1."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert cli.main(["predict", "--demo", "--mesh", "2", "--ckpt-dir",
                      str(tmp_path)]) == 1
     assert "error: --mesh 2 > 1 visible devices" in capsys.readouterr().err
     assert not (tmp_path / "predictions.csv").exists()
-    assert cli.main(["bench", "--ckpt-dir", str(tmp_path)]) == 2
+    monkeypatch.setenv("BENCH_NO_SUPERVISOR", "1")
+    assert cli.main(["bench", "--mesh", "2", "--ckpt-dir",
+                     str(tmp_path)]) == 1
+    cap = capsys.readouterr()
+    line = json.loads(cap.out.strip().splitlines()[-1])
+    assert line["metric"] == "eeg_windows_per_sec_per_chip"
+    assert line["value"] is None and line["unit"] == "error"
+    assert "visible devices" not in cap.err
