@@ -28,6 +28,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
+from . import profiling
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -115,15 +117,20 @@ def build(names: Iterable[str]) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library of ``csrc/<name>.cu``, building it if needed.
+    The first load is the span ``mbx.setup.kernels``, with the build (nvcc
+    where the library is missing) its child ``mbx.setup.kernels.build``,
+    so the span's self time is the load alone, cold or warm."""
     lib = _libs.get(name)
     if lib is None:
-        build([name])
-        with _lock:
-            lib = _libs.get(name)
-            if lib is None:
-                lib = ctypes.CDLL(str(_target(name)))
-                _libs[name] = lib
+        with profiling.span("mbx.setup.kernels"):
+            with profiling.span("mbx.setup.kernels.build"):
+                build([name])
+            with _lock:
+                lib = _libs.get(name)
+                if lib is None:
+                    lib = ctypes.CDLL(str(_target(name)))
+                    _libs[name] = lib
     return lib
 
 

@@ -69,7 +69,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import resolve_device
+from . import profiling, resolve_device
 
 #: NVIDIA H100 SXM dense bf16 tensor-core peak, FLOP/s (the probes and
 #: the spectrogram blocks of ``--breakdown`` run in bf16)
@@ -183,10 +183,14 @@ def _timed_reps(run_chain, state, iters: int, reps: int) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def _graph(step: Callable[[], object], dev: torch.device) -> Callable[[], None]:
+def _graph(step: Callable[[], object], dev: torch.device,
+           spans: Optional[list] = None) -> Callable[[], None]:
     """``step`` (no arguments; it perturbs its own inputs in place) as one
     captured CUDA graph's replay: ``CAPTURE_WARMUP`` eager calls on a side
-    stream first, then the capture.  On the CPU: ``step`` itself."""
+    stream first, then the capture.  On the CPU: ``step`` itself.  With a
+    list ``spans``, the spans ``step`` opens record their timing events
+    into the graph (``profiling.capturing``), and their
+    ``profiling.GraphSpans`` is appended to it."""
     if dev.type != "cuda":
         return step
     side = torch.cuda.Stream(dev)
@@ -197,7 +201,12 @@ def _graph(step: Callable[[], object], dev: torch.device) -> Callable[[], None]:
     torch.cuda.current_stream(dev).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        step()
+        if spans is None:
+            step()
+        else:
+            with profiling.capturing() as cap:
+                step()
+            spans.append(cap)
     return graph.replay
 
 
@@ -433,10 +442,17 @@ def bench_multimodal_breakdown(device="cuda", batch: int = 256,
                                reps: int = 5, n_points: int = 10_000,
                                image_size: Tuple[int, int] = (400, 300)
                                ) -> dict:
-    """``multimodal_breakdown``: per-stage ms as differences of chained
-    prefix programs (each one captured CUDA graph on the card), and each
-    spectrogram block's MFU (conv MACs × 2 over the H100's dense bf16
-    peak)."""
+    """``multimodal_breakdown``: the whole program (both chains, the
+    late-fusion model with the spectrogram blocks one span each) as one
+    captured CUDA graph; windows/s from its chained replays with tracing
+    off, per-stage ms from the device time of the spans its layers record
+    into the graph (``graph=True``, :mod:`.profiling`) over ``iters``
+    traced replays (on the CPU: the host time of the same spans, run
+    eagerly), and each spectrogram block's MFU (conv MACs × 2 over the
+    H100's dense bf16 peak).  ``dispatch_overhead`` is a replay's time
+    less the step's device time; ``full_pipeline`` the step's time outside
+    the named stages (the spectrogram head, the fusion head, the
+    perturbation)."""
     from . import config as C
     from .data import synthetic_raw_spectrogram
     from .models import (EEGNetAttentionRegularized, MultimodalModel,
@@ -445,63 +461,70 @@ def bench_multimodal_breakdown(device="cuda", batch: int = 256,
 
     dev = resolve_device(device)
     rng = np.random.default_rng(0)
-    raw_eeg = _raw_eeg(batch, rng, dev, n_points)
-    raw_spec = torch.as_tensor(synthetic_raw_spectrogram(batch, rng)).to(dev)
+    re = _raw_eeg(batch, rng, dev, n_points)
+    rs = torch.as_tensor(synthetic_raw_spectrogram(batch, rng)).to(dev)
     bf16 = torch.bfloat16
     sig = C.SignalConfig(image_size=tuple(image_size))
     spec = SpectrogramCNN(fused_blocks=fused_spec, dtype=bf16)
     mm = _seeded(MultimodalModel(EEGNetAttentionRegularized(), spec).eval(),
                  0).to(dev)
     _load_kernels(dev, "iir", "specblock")
-    prep_e = lambda re: hms_eeg_preprocess(re, assume_finite=True)
-    prep_s = lambda rs: hms_spectrogram_preprocess(rs, signal=sig,
-                                                   serving_dtype=bf16)
+    n_blocks = len(spec.widths)
 
-    def spec_blocks_upto(rs, k):
-        x = prep_s(rs)
-        for i in range(k):
-            x = getattr(spec, f"block{i + 1}")(x)
-        return x
-
-    stages = [("dispatch_overhead",
-               lambda re, rs: (re[:2, :2, :2], rs[:2, :2, :2])),
-              ("eeg_preprocess", lambda re, rs: (prep_e(re), rs[:2, :2, :2])),
-              ("spec_preprocess", lambda re, rs: (prep_e(re), prep_s(rs))),
-              ("eeg_branch", lambda re, rs: (mm.forward_eeg(prep_e(re)),
-                                             prep_s(rs)))]
-    for k in range(1, len(spec.widths) + 1):
-        stages.append((f"spec_block{k}", (lambda kk: lambda re, rs: (
-            mm.forward_eeg(prep_e(re)), spec_blocks_upto(rs, kk)))(k)))
-    stages.append(("full_pipeline",
-                   lambda re, rs: (mm(prep_e(re), prep_s(rs)), rs)))
-
-    def time_stage(fn) -> float:
-        re, rs = raw_eeg.clone(), raw_spec.clone()
-
-        @torch.no_grad()
-        def step():
-            a, b = fn(re, rs)
-            # full-tensor means keep both stage outputs live
-            f = 1.0 + (a.float().mean() + b.float().mean()) * 1e-6
+    @torch.no_grad()
+    def step():
+        with profiling.span("mbx.bench.step"):
+            xe = hms_eeg_preprocess(re, assume_finite=True)
+            x = hms_spectrogram_preprocess(rs, signal=sig, serving_dtype=bf16)
+            le = mm.forward_eeg(xe)
+            with profiling.span("mbx.model.spec_branch"):
+                for k in range(1, n_blocks + 1):
+                    with profiling.span(f"mbx.bench.spec_block{k}"):
+                        x = getattr(spec, f"block{k}")(x)
+                ls = spec.head(x)
+            out = mm.fuse(le, ls)
+            f = 1.0 + out.mean() * 1e-4
             re.mul_(f)
             rs.mul_(f)
-        run = _graph(step, dev)
 
-        def run_chain(state, n):
-            _sync(dev)
-            t0 = time.perf_counter()
-            for _ in range(n):
+    captured: list = []
+    run = _graph(step, dev, captured)
+
+    def run_chain(state, n):
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run()
+        _sync(dev)
+        return state, time.perf_counter() - t0
+    run_chain(None, 2)
+    wall = _timed_reps(run_chain, None, iters, reps)
+
+    # the same replays traced: each one's layer times, read after it
+    field = "device_ms" if captured else "host_ms"
+    before = profiling.collect()
+    with profiling.traced():
+        for _ in range(iters):
+            with profiling.span("mbx.bench.replay") as req:
                 run()
-            _sync(dev)
-            return state, time.perf_counter() - t0
-        run_chain(None, 2)
-        return _timed_reps(run_chain, None, iters, reps)
+            if captured:
+                captured[0].pending(req.request)
+                captured[0].flush()
+    after = profiling.collect()
+    old, new = ((before.graph_sums, after.graph_sums) if captured
+                else (before.sums, after.sums))
+    ms = {k: (getattr(v, field) - getattr(old.get(k, profiling.SpanSum()),
+                                          field)) / iters
+          for k, v in new.items()}
 
-    cum = {name: time_stage(fn) for name, fn in stages}
-    per_stage_ms, prev = {}, 0.0
-    for name, _ in stages:
-        per_stage_ms[name] = (cum[name] - prev) * 1e3
-        prev = cum[name]
+    stages = {"eeg_preprocess": ms["mbx.preprocess.eeg"],
+              "spec_preprocess": ms["mbx.preprocess.spec"],
+              "eeg_branch": ms["mbx.model.eeg_branch"]}
+    for k in range(1, n_blocks + 1):
+        stages[f"spec_block{k}"] = ms[f"mbx.bench.spec_block{k}"]
+    step_ms = ms["mbx.bench.step"]
+    per_stage_ms = {"dispatch_overhead": wall * 1e3 - step_ms, **stages,
+                    "full_pipeline": step_ms - sum(stages.values())}
 
     # conv FLOPs a spectrogram block (3×3 convs + the 1×1 pooled skip)
     H, W = sig.image_size
@@ -510,23 +533,24 @@ def bench_multimodal_breakdown(device="cuda", batch: int = 256,
         flops = 2 * H * W * 9 * (cin * cout + 2 * cout * cout)
         hp, wp = H // 2, W // 2
         flops += 2 * hp * wp * cin * cout
-        ms = per_stage_ms[f"spec_block{i + 1}"]
+        ms_k = per_stage_ms[f"spec_block{i + 1}"]
         block_mfu[f"block{i + 1}"] = {
-            "ms": round(ms, 3), "gflops_per_sample": round(flops / 1e9, 3),
-            "mfu": round(flops * batch / max(ms / 1e3, 1e-9) / PEAK_BF16, 4),
+            "ms": round(ms_k, 3), "gflops_per_sample": round(flops / 1e9, 3),
+            "mfu": round(flops * batch / max(ms_k / 1e3, 1e-9) / PEAK_BF16,
+                         4),
             "shape_in": [int(H), int(W), cin]}
         H, W, cin = hp, wp, cout
 
-    wps = batch / cum["full_pipeline"]
     return _line({
-        "metric": "multimodal_breakdown", "value": round(wps, 2),
+        "metric": "multimodal_breakdown", "value": round(batch / wall, 2),
         "unit": "windows/s", "vs_baseline": None, "batch": batch,
         "fused_spec_blocks": fused_spec,
         "per_stage_ms": {k: round(v, 3) for k, v in per_stage_ms.items()},
         "spec_block_mfu": block_mfu,
-        "note": ("per-stage = difference of chained prefix programs (one "
-                 "CUDA graph each); MFU = conv MACs×2 / the NVIDIA H100 "
-                 "SXM's dense bf16 peak 989 TFLOP/s")}, dev)
+        "note": ("per-stage = device time of each stage's span inside the "
+                 "one captured CUDA graph (host time of the same spans on "
+                 "the CPU), over traced replays; MFU = conv MACs×2 / the "
+                 "NVIDIA H100 SXM's dense bf16 peak 989 TFLOP/s")}, dev)
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from . import config as C
-from . import resolve_device
+from . import profiling, resolve_device
 from .models import (EEGNetAttentionRegularized, MultimodalModel,
                      SpectrogramCNN, seeded_state_dict)
 from .ops import preprocess_multimodal
@@ -103,30 +103,53 @@ def capture_forward(forward: Callable[..., torch.Tensor],
     returns ``replay(*args)``: it copies ``args`` (the example shapes and
     dtypes) into the static buffers, replays the graph and returns a copy
     of the static output.  A failed capture raises; nothing falls back to
-    eager.  On the CPU it returns ``forward`` unchanged."""
+    eager.  On the CPU it returns ``forward`` unchanged.
+
+    Tracing (:mod:`.profiling`): the warm-up calls and the capture are the
+    ``mbx.setup.capture`` span; the spans that ``forward`` opens record
+    their timing events into the graph, and a traced replay's layer times
+    become ``graph=True`` spans of its request (read by the next replay
+    while its inputs copy, before its launch overwrites them, or by
+    ``profiling.collect``).  A request is the span ``mbx.entry.request``
+    (counter ``entry.requests``) with the children ``mbx.entry.copy_in``,
+    ``mbx.entry.read_layers`` (that read), ``mbx.entry.launch`` and
+    ``mbx.entry.copy_out``, all on the host clock."""
     dev = example_args[0].device
     if dev.type != "cuda":
         return forward
-    static_in = [a.clone() for a in example_args]
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        for _ in range(CAPTURE_WARMUP):
-            forward(*static_in)
-    torch.cuda.current_stream(dev).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        static_out = forward(*static_in)
+    with profiling.span("mbx.setup.capture"):
+        static_in = [a.clone() for a in example_args]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(CAPTURE_WARMUP):
+                forward(*static_in)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph), profiling.capturing() as spans:
+            static_out = forward(*static_in)
 
     def replay(*args: torch.Tensor) -> torch.Tensor:
-        for buf, a in zip(static_in, args, strict=True):
-            if a.shape != buf.shape or a.dtype != buf.dtype:
-                raise ValueError(f"captured for {tuple(buf.shape)} "
-                                 f"{buf.dtype}, got {tuple(a.shape)} {a.dtype}")
-            buf.copy_(a)
-        graph.replay()
-        with torch.inference_mode():
-            return static_out.clone()
+        with profiling.span("mbx.entry.request") as req:
+            with profiling.span("mbx.entry.copy_in"):
+                for buf, a in zip(static_in, args, strict=True):
+                    if a.shape != buf.shape or a.dtype != buf.dtype:
+                        raise ValueError(
+                            f"captured for {tuple(buf.shape)} {buf.dtype}, "
+                            f"got {tuple(a.shape)} {a.dtype}")
+                    buf.copy_(a)
+            with profiling.span("mbx.entry.read_layers"):
+                spans.flush()
+            with profiling.span("mbx.entry.launch"):
+                graph.replay()
+            with profiling.span("mbx.entry.copy_out"), \
+                    torch.inference_mode():
+                out = static_out.clone()
+        if req is not None:
+            profiling.count("entry.requests")
+            if len(spans):
+                spans.pending(req.request)
+        return out
     return replay
 
 

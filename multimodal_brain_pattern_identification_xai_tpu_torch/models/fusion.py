@@ -2,13 +2,16 @@
 ``models/fusion.py``): concatenate the EEG branch's and the spectrogram
 branch's log-probs → FC128 → ReLU → FC → log-softmax.  ``forward_eeg`` and
 ``forward_spectrogram`` run one branch alone (the targets of per-branch
-attribution)."""
+attribution).  Spans (:mod:`..profiling`): ``mbx.model.eeg_branch``,
+``mbx.model.spec_branch`` and ``mbx.model.head``."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..profiling import span
 
 
 class MultimodalModel(nn.Module):
@@ -22,15 +25,23 @@ class MultimodalModel(nn.Module):
 
     def forward(self, eeg_data: torch.Tensor,
                 spectrogram_data: torch.Tensor) -> torch.Tensor:
-        combined = torch.cat([self.eeg_model(eeg_data),
-                              self.spectrogram_model(spectrogram_data)], -1)
-        return F.log_softmax(self.fc2(F.relu(self.fc1(combined))), dim=-1)
+        return self.fuse(self.forward_eeg(eeg_data),
+                         self.forward_spectrogram(spectrogram_data))
+
+    def fuse(self, eeg_logp: torch.Tensor,
+             spec_logp: torch.Tensor) -> torch.Tensor:
+        """The head: both branches' log-probs → fused log-probs (B, 6)."""
+        with span("mbx.model.head"):
+            combined = torch.cat([eeg_logp, spec_logp], -1)
+            return F.log_softmax(self.fc2(F.relu(self.fc1(combined))), dim=-1)
 
     def forward_eeg(self, eeg_data: torch.Tensor) -> torch.Tensor:
         """The EEG branch alone: (B, 1, 37, T) → log-probs (B, 6)."""
-        return self.eeg_model(eeg_data)
+        with span("mbx.model.eeg_branch"):
+            return self.eeg_model(eeg_data)
 
     def forward_spectrogram(self, spectrogram_data: torch.Tensor
                             ) -> torch.Tensor:
         """The spectrogram branch alone: (B, 3, H, W) → log-probs (B, 6)."""
-        return self.spectrogram_model(spectrogram_data)
+        with span("mbx.model.spec_branch"):
+            return self.spectrogram_model(spectrogram_data)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import config as C
+from ..profiling import spanned
 from . import cuda_iir, iir, montage, nanfix, normalize, resample, smooth
 
 
@@ -111,6 +112,7 @@ def eeg_transform(x: torch.Tensor,
     return x
 
 
+@spanned("mbx.preprocess.eeg")
 def hms_eeg_preprocess(x: torch.Tensor,
                        cfg: C.HMSPreprocessConfig = C.HMSPreprocessConfig(),
                        signal: C.SignalConfig = C.SignalConfig(),
@@ -167,6 +169,7 @@ def hms_eeg_preprocess(x: torch.Tensor,
     return y[..., None, :, :]
 
 
+@spanned("mbx.preprocess.spec")
 def hms_spectrogram_preprocess(spec: torch.Tensor,
                                cfg: C.HMSPreprocessConfig = C.HMSPreprocessConfig(),
                                signal: C.SignalConfig = C.SignalConfig(),

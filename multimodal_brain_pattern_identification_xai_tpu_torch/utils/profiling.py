@@ -1,8 +1,9 @@
 """Tracing and timing helpers (counterpart of the JAX package's
 ``utils/profiling.py``): a ``torch.profiler`` trace around a block,
-written as a Chrome trace, and the wall-clock timing of a callable with
-the device synchronised after every call.  The port's top-level
-``profiling`` module sums a trace's device time by kernel."""
+written as a Chrome trace with the program's ``mbx.*`` spans beside the
+kernels, and the wall-clock timing of a callable with the device
+synchronised after every call.  The port's top-level ``profiling`` module
+holds the spans and sums a trace's device time by kernel."""
 
 from __future__ import annotations
 
@@ -18,17 +19,20 @@ import torch
 @contextlib.contextmanager
 def trace(log_dir: Optional[str] = None):
     """Profile the block (CPU activity, and CUDA activity where a card is
-    present) and write ``<log_dir>/trace.json`` (a Chrome trace) at its
-    end.  ``log_dir`` defaults to a new directory under the system's
+    present) with the program's tracing on, so its ``mbx.*`` spans are ops
+    of the trace, and write ``<log_dir>/trace.json`` (a Chrome trace) at
+    its end.  ``log_dir`` defaults to a new directory under the system's
     temporary directory.  Yields ``log_dir``."""
     from torch.profiler import ProfilerActivity, profile
+
+    from .. import profiling
 
     log_dir = log_dir or tempfile.mkdtemp(prefix="torch-trace-")
     os.makedirs(log_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with profiling.traced(), profile(activities=activities) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 

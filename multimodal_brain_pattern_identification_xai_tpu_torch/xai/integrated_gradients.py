@@ -1,6 +1,7 @@
 """Integrated Gradients (counterpart of the JAX package's
 ``xai/integrated_gradients.py``).  The interpolation points are a batch
-axis: ``chunk`` points at a time run as one batch of ``chunk × B``."""
+axis: ``chunk`` points at a time run as one batch of ``chunk × B``.
+Span (:mod:`..profiling`): ``mbx.xai.ig``."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .. import profiling
 from .saliency import _argmax
 
 
@@ -50,17 +52,19 @@ def integrated_gradients(forward: Callable[[torch.Tensor], torch.Tensor],
             steps in one batch.  The result is the same up to float32
             summation order.
     """
-    if baseline is None:
-        baseline = torch.zeros_like(x)
-    if target is None:
-        target = _argmax(forward, x)
     c = _chunk_size(steps, chunk, "steps")
-    alphas = (torch.arange(steps, dtype=x.dtype, device=x.device) + 0.5) / steps
-    delta = x - baseline
-    tail = (1,) * x.dim()
-    acc = torch.zeros_like(x)
-    for a in alphas.split(c):
-        points = baseline + a.view(-1, *tail) * delta         # (c, B, ...)
-        g = _input_grad(forward, points.flatten(0, 1), target)
-        acc += g.view(len(a), *x.shape).sum(0)
-    return delta * (acc / steps)
+    with profiling.span("mbx.xai.ig"):
+        if baseline is None:
+            baseline = torch.zeros_like(x)
+        if target is None:
+            target = _argmax(forward, x)
+        alphas = (torch.arange(steps, dtype=x.dtype, device=x.device)
+                  + 0.5) / steps
+        delta = x - baseline
+        tail = (1,) * x.dim()
+        acc = torch.zeros_like(x)
+        for a in alphas.split(c):
+            points = baseline + a.view(-1, *tail) * delta     # (c, B, ...)
+            g = _input_grad(forward, points.flatten(0, 1), target)
+            acc += g.view(len(a), *x.shape).sum(0)
+        return delta * (acc / steps)

@@ -1,12 +1,16 @@
 """Vanilla gradient saliency (counterpart of the JAX package's
 ``xai/saliency.py``): one backward per batch; the multimodal form takes
-the gradients of both inputs in one backward."""
+the gradients of both inputs in one backward.  Spans (:mod:`..profiling`):
+``mbx.xai.saliency`` with the child ``mbx.xai.saliency.backward``
+(counter ``xai.saliency.requests``)."""
 
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
 import torch
+
+from .. import profiling
 
 
 def _select(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -44,11 +48,18 @@ def multimodal_saliency(forward: Callable[[torch.Tensor, torch.Tensor],
                         absolute: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Saliency of both branches in one backward pass."""
-    if target is None:
-        target = _argmax(forward, eeg, spec)
-    e = eeg.detach().requires_grad_(True)
-    s = spec.detach().requires_grad_(True)
-    ge, gs = torch.autograd.grad(_select(forward(e, s), target).sum(), (e, s))
-    if absolute:
-        ge, gs = ge.abs(), gs.abs()
-    return ge, gs
+    with profiling.span("mbx.xai.saliency"):
+        profiling.count("xai.saliency.requests")
+        if target is None:
+            target = _argmax(forward, eeg, spec)
+        e = eeg.detach().requires_grad_(True)
+        s = spec.detach().requires_grad_(True)
+        score = _select(forward(e, s), target).sum()
+        # the backward's kernels run on this stream, so this thread's span
+        # times them on the device (autograd launches them from its own
+        # thread)
+        with profiling.span("mbx.xai.saliency.backward", device=True):
+            ge, gs = torch.autograd.grad(score, (e, s))
+        if absolute:
+            ge, gs = ge.abs(), gs.abs()
+        return ge, gs

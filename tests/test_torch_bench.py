@@ -205,6 +205,20 @@ def test_mode_prints_one_line(mode, small, capsys):
         assert all(isinstance(v, (int, float)) for v in probes.values())
     else:
         assert line["vs_baseline"] is None
+    if mode == "breakdown":
+        # per-stage ms from the spans each stage opens (on the CPU their
+        # host time), the mode's keys as before
+        stages = line["per_stage_ms"]
+        assert list(stages) == [
+            "dispatch_overhead", "eeg_preprocess", "spec_preprocess",
+            "eeg_branch", *[f"spec_block{k}" for k in range(1, 6)],
+            "full_pipeline"]
+        assert all(math.isfinite(v) for v in stages.values())
+        assert all(v > 0 for k, v in stages.items()
+                   if k != "dispatch_overhead")
+        assert set(line["spec_block_mfu"]) == {f"block{k}"
+                                               for k in range(1, 6)}
+        assert "span" in line["note"]
     assert "last_good" not in line and "baseline_basis" not in line
 
 

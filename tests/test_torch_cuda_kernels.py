@@ -587,6 +587,46 @@ def test_captured_forward_equals_eager(dev, dtype):
         assert float((got - want).abs().max()) <= 1e-6
 
 
+def test_captured_forward_times_its_layers(dev):
+    """The spans of the served forward record timing events into its
+    graph: each traced replay brings one ``graph=True`` record of every
+    layer, and the top-level layers of a replay sum to at most the
+    replay's device time (events around the request, on its stream)."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        profiling)
+    fwd, (eeg, spec) = entry(device="cuda", batch=2, assume_finite=True,
+                             serving_dtype=torch.bfloat16)
+    graph = capture_forward(fwd, (eeg, spec))
+    layers = ("mbx.preprocess.eeg", "mbx.preprocess.spec",
+              "mbx.model.eeg_branch", "mbx.model.spec_branch",
+              "mbx.model.head")
+    before = profiling.collect()
+    times = []
+    with profiling.traced():
+        for _ in range(3):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            graph(eeg, spec)
+            t1.record()
+            t1.synchronize()
+            times.append(t0.elapsed_time(t1))
+    got = profiling.collect()
+    for name in layers:
+        old = before.graph_sums.get(name, profiling.SpanSum())
+        assert got.graph_sums[name].calls == old.calls + 3
+    mine = got.spans[len(got.spans) - 3 * (len(layers) + 5):]
+    requests = [r.request for r in mine if r.name == "mbx.entry.request"]
+    assert len(requests) == 3
+    assert all(r.device_ms is None for r in mine if not r.graph)
+    for req, dev_ms in zip(requests, times):
+        top = [r for r in mine if r.graph and r.request == req
+               and r.parent is None]
+        assert sorted(r.name for r in top) == sorted(layers)
+        assert all(r.device_ms > 0 for r in top)
+        assert sum(r.device_ms for r in top) <= dev_ms + 0.005
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_preset_forward_matches_cpu(dev, dtype):
     """The 200x150 preset's forward (both EEG routes) on the card against

@@ -16,9 +16,12 @@ import pytest
 import torch
 
 from multimodal_brain_pattern_identification_xai_tpu import utils as jutils
+from multimodal_brain_pattern_identification_xai_tpu_torch import config as C
 from multimodal_brain_pattern_identification_xai_tpu_torch import utils
 from multimodal_brain_pattern_identification_xai_tpu_torch.models import (
     DiffEEGSanityCheck, SpectrogramCNN)
+from multimodal_brain_pattern_identification_xai_tpu_torch.ops import (
+    hms_spectrogram_preprocess)
 from multimodal_brain_pattern_identification_xai_tpu_torch.xai import (
     lime, shap_plots)
 
@@ -145,6 +148,11 @@ def test_benchmark_fn_has_jax_keys():
 def test_trace_writes_a_chrome_trace(tmp_path):
     with utils.trace(str(tmp_path)) as d:
         torch.ones(64, 64) @ torch.ones(64, 64)
+        hms_spectrogram_preprocess(torch.ones(1, 40, 30),
+                                   signal=C.SignalConfig(image_size=(40, 30)))
     with open(os.path.join(d, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
+    # the program's span, beside the ops it ran
+    spans = [e for e in events if e.get("name") == "mbx.preprocess.spec"]
+    assert len(spans) == 1 and spans[0]["ph"] == "X" and spans[0]["dur"] > 0
