@@ -86,6 +86,35 @@
 // 8 rows hit distinct banks; __launch_bounds__(256, 2) and ~100 KB of
 // shared memory (block 2) fit two CTAs on an SM.
 //
+// The whole bf16 block, specblock_bf16_tc_kernel<C, true> (Cout 8/16/32;
+// specblock_whole_bf16): the same conv x3 + pool, and in the epilogue the
+// rest of models/layers.SpectrogramBlock in eval mode, so the block's one
+// store is its output.  x is read in the layout it arrives in, through
+// its four element strides (n, h, w, c): block 1's plane expanded to 3
+// channels (channel stride 0, NCHW; 16-bit loads, coalesced along W) and
+// block 2's NHWC input (16-byte loads, as above).  The skip resizes x by
+// exactly 1/2 (bilinear, align_corners=False): the source of output j is
+// 2j + 1/2 on both axes, so both weights are 1/2 and the resize is the
+// mean of each 2x2 window, which skip_means takes from the staged tile
+// (before conv2 overwrites it) in f32 in torch's order, 0.5*(0.5a + 0.5b)
+// + 0.5*(0.5c + 0.5d) with a, b and c, d along W, rounded to bf16.
+// pool_store_whole takes each pooled value p, rounded to bf16, through the
+// block's own rounding points: eval BatchNorm, (p - mean) * 1/sqrt(var +
+// 1e-5) * weight + bias in f32 -> bf16; the 1x1 skip conv, bf16-rounded
+// weights and bias, f32 sum over Cin of the means plus the bias -> bf16;
+// the add in f32 -> bf16; one NHWC store.  The skip rounds once, as
+// conv2d with a bias does on the CPU (oneDNN adds the bias inside the
+// conv); the card's stock path rounds twice there, cuDNN's bf16 sum and
+// then torch's separate bf16 add of the bias, so the two may differ by
+// one bf16 unit of the skip.  The BatchNorm's and the skip's operands come
+// with 16-byte cp.async beside conv2's weights (every CTA copies them: 168
+// requests at block 2 where 4-byte copies made 672) and are rounded where
+// they are read.  Shared memory: the bf16 layout above
+// plus 5C + C*Cin + 64*Cin words (the BatchNorm's mean, variance, weight
+// and bias, the skip's bias and weights [co][ci], the means of the tile's
+// 8x8 pooled pixels): block 2 107,424 B, still two CTAs on an SM; block 1
+// 42,320 B.
+//
 // Widths 64, 128 and 256 (blocks 3-5): ONE 3x3 SAME conv (+ bias, ReLU)
 // as an implicit GEMM on the tensor cores, launched three times a call:
 // wide_bf16_conv_kernel<Pool> (bf16, specblock_wide_bf16) and
@@ -253,11 +282,16 @@ __host__ __device__ inline int bf16_buf0_words(int cin, int c) {
 __host__ __device__ inline int bf16_bufa_words(int c) {
   return imax(c / 2 * kP1, c * kP3);
 }
-inline size_t bf16_smem_bytes(int cin, int c) {
+// the whole block's epilogue operands, after bufa (see the header)
+__host__ __device__ constexpr int tail_words(int cin, int c) {
+  return 5 * c + c * cin + (kTile / 2) * (kTile / 2) * cin;
+}
+inline size_t bf16_smem_bytes(int cin, int c, bool whole = false) {
   return sizeof(uint32_t) *
          static_cast<size_t>(bf16_wa_words(cin, c) + bf16_rows(c) * wpitch(c) +
                              3 * c + bf16_rows(cin) + bf16_buf0_words(cin, c) +
-                             bf16_bufa_words(c));
+                             bf16_bufa_words(c) +
+                             (whole ? tail_words(cin, c) : 0));
 }
 
 // Input tile (edge kTile) with a 3-pixel halo into channel-planar shared
@@ -650,13 +684,26 @@ __host__ __device__ constexpr int pair_off(int j) {
   return (j % CP) * SP + (j / CP / 3) * RIN + (j / CP) % 3;
 }
 
+// Element strides of the bf16 kernel's x along (sample, row, column,
+// channel): NHWC contiguous for the fused conv x3 + pool, any layout for
+// the whole block
+struct XStrides {
+  long long n, h, w, c;
+};
+
 // x tile (edge kR0, with the 3-pixel halo) into planes of channel pairs,
 // pitch kP0: zero outside the image and in the pad channel of an odd cin;
-// 16-byte loads (4 pairs) when cin % 8 == 0 (x 16-byte aligned).
+// 16-byte loads (4 pairs) where a pixel's channels are contiguous 16-byte
+// runs (cin % 8 == 0, channel stride 1, x and each pixel 16-byte aligned),
+// else two 16-bit loads a pair at the strides' addresses.
 __device__ __forceinline__ void stage_input_pairs(
-    const __nv_bfloat16* __restrict__ x, uint32_t* __restrict__ buf, int b,
-    int y0, int x0, int H, int W, int cin) {
-  if (cin % 8 == 0) {
+    const __nv_bfloat16* __restrict__ x, const XStrides& xs,
+    uint32_t* __restrict__ buf, int b, int y0, int x0, int H, int W,
+    int cin) {
+  const unsigned short* xb = reinterpret_cast<const unsigned short*>(x) +
+                             static_cast<long long>(b) * xs.n;
+  if (cin % 8 == 0 && xs.c == 1 && xs.w % 8 == 0 && xs.h % 8 == 0 &&
+      xs.n % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) {
     const int c8 = cin / 8;
 #pragma unroll 4
     for (int i = threadIdx.x; i < kR0 * kR0 * c8; i += blockDim.x) {
@@ -664,8 +711,8 @@ __device__ __forceinline__ void stage_input_pairs(
       const int gy = y0 - 3 + p / kR0, gx = x0 - 3 + p % kR0;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = *reinterpret_cast<const uint4*>(
-            x + ((static_cast<size_t>(b) * H + gy) * W + gx) * cin + 8 * q);
+        v = *reinterpret_cast<const uint4*>(xb + gy * xs.h + gx * xs.w +
+                                            8 * q);
       uint32_t* d = buf + 4 * q * kP0 + p;
       d[0] = v.x;
       d[kP0] = v.y;
@@ -674,19 +721,141 @@ __device__ __forceinline__ void stage_input_pairs(
     }
     return;
   }
-  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
   const int cp = (cin + 1) / 2;
   for (int i = threadIdx.x; i < kR0 * kR0 * cp; i += blockDim.x) {
     const int pr = i % cp, p = i / cp;
     const int gy = y0 - 3 + p / kR0, gx = x0 - 3 + p % kR0;
     uint32_t v = 0u;
     if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      const unsigned short* s =
-          xs + ((static_cast<size_t>(b) * H + gy) * W + gx) * cin + 2 * pr;
+      const unsigned short* s = xb + gy * xs.h + gx * xs.w + 2 * pr * xs.c;
       v = s[0];
-      if (2 * pr + 1 < cin) v |= static_cast<uint32_t>(s[1]) << 16;
+      if (2 * pr + 1 < cin) v |= static_cast<uint32_t>(s[xs.c]) << 16;
     }
     buf[pr * kP0 + p] = v;
+  }
+}
+
+// --- the whole block's epilogue (specblock_bf16_tc_kernel<C, true>) -------
+
+// The block's eval BatchNorm and 1x1 skip conv as the module holds them,
+// f32: BatchNorm weight, bias, running mean and running variance (C each),
+// the skip's weight (C, cin) and bias (C)
+struct BlockTail {
+  const float* bn_w;
+  const float* bn_b;
+  const float* bn_mean;
+  const float* bn_var;
+  const float* skip_w;
+  const float* skip_b;
+};
+
+// The tail's operands as the module holds them (every pointer 16-byte
+// aligned), into tail_words(cin, C) words at tl with 16-byte cp.async (no
+// commit: they land with the next committed group): [0, C) mean, [C, 2C)
+// variance, [2C, 3C) BatchNorm weight, [3C, 4C) its bias, [4C, 5C) the
+// skip's bias, then its weights [co][ci], then room for the means
+// (skip_means).  Rounded and combined where pool_store_whole reads them.
+template <int C>
+__device__ __forceinline__ void stage_tail_async(const BlockTail& t, int cin,
+                                                 float* __restrict__ tl) {
+  constexpr int Q = C / 4;   // 16-byte chunks a vector
+  for (int i = threadIdx.x; i < 5 * Q; i += blockDim.x) {
+    const int v = i / Q;
+    const float* src = v == 0 ? t.bn_mean : v == 1 ? t.bn_var
+                     : v == 2 ? t.bn_w : v == 3 ? t.bn_b : t.skip_b;
+    cp_async16(tl + 4 * i, src + 4 * (i % Q));
+  }
+  for (int i = threadIdx.x; i < Q * cin; i += blockDim.x)
+    cp_async16(tl + 5 * C + 4 * i, t.skip_w + 4 * i);
+}
+
+// The skip's bilinear resize by 1/2 at each pooled pixel q of the tile
+// (8x8, q = 8 qy + qx) and input channel: the mean of the staged tile's
+// 2x2 window at (3 + 2qy, 3 + 2qx), in torch's f32 order, rounded to bf16,
+// into means[q * cin + ci].  A window outside the image is never stored.
+__device__ __forceinline__ void skip_means(const uint32_t* __restrict__ buf,
+                                           int cin,
+                                           float* __restrict__ means) {
+  constexpr int half = kTile / 2;
+  const int cp = (cin + 1) / 2;
+  for (int i = threadIdx.x; i < half * half * cp; i += blockDim.x) {
+    const int pr = i % cp, q = i / cp;
+    const uint32_t* s =
+        buf + pr * kP0 + (3 + 2 * (q / half)) * kR0 + 3 + 2 * (q % half);
+    const uint32_t w[4] = {s[0], s[1], s[kR0], s[kR0 + 1]};
+    for (int hi = 0; hi < 2 && 2 * pr + hi < cin; ++hi) {
+      float v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        v[k] = __uint_as_float(hi ? w[k] & 0xffff0000u : w[k] << 16);
+      const float m = 0.5f * (0.5f * v[0] + 0.5f * v[1]) +
+                      0.5f * (0.5f * v[2] + 0.5f * v[3]);
+      means[q * cin + 2 * pr + hi] = round_to<__nv_bfloat16>(m);
+    }
+  }
+}
+
+// pool_store's pool, then the block's BatchNorm, skip and add (see the
+// header), one NHWC bf16 store a pooled value.  Thread t keeps output
+// channel co = t % C for the tile's pooled pixels q = t / C + j * (256 /
+// C), so it reads its channel's operands once and sums the skip over ci
+// for all of its NQ pixels at once (the means: one broadcast a warp).
+template <int C>
+__device__ __forceinline__ void pool_store_whole(
+    const float* __restrict__ src, const float* __restrict__ tl,
+    __nv_bfloat16* __restrict__ out, int b, int y0, int x0, int H, int W,
+    int cin, int pool_max) {
+  constexpr int half = kTile / 2, QS = kThreads / C, NQ = half * half / QS;
+  static_assert(kThreads % C == 0 && NQ * QS == half * half, "epilogue");
+  const int ho = H / 2, wo = W / 2;
+  const int co = threadIdx.x % C, q0 = threadIdx.x / C;
+  const float* sw = tl + 5 * C + co * cin;
+  const float* means = tl + 5 * C + C * cin;
+  float acc[NQ];
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) acc[j] = 0.f;
+  if (cin % 4 == 0) {   // 16-byte reads: weights and means 16-byte aligned
+    for (int ci = 0; ci < cin; ci += 4) {
+      const float4 w4 = *reinterpret_cast<const float4*>(sw + ci);
+      const float w[4] = {round_to<__nv_bfloat16>(w4.x),
+                          round_to<__nv_bfloat16>(w4.y),
+                          round_to<__nv_bfloat16>(w4.z),
+                          round_to<__nv_bfloat16>(w4.w)};
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        const float4 m = *reinterpret_cast<const float4*>(
+            means + (q0 + j * QS) * cin + ci);
+        acc[j] += w[0] * m.x;
+        acc[j] += w[1] * m.y;
+        acc[j] += w[2] * m.z;
+        acc[j] += w[3] * m.w;
+      }
+    }
+  } else {
+    for (int ci = 0; ci < cin; ++ci) {
+      const float w = round_to<__nv_bfloat16>(sw[ci]);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+        acc[j] += w * means[(q0 + j * QS) * cin + ci];
+    }
+  }
+  const float mean = tl[co], inv = 1.f / sqrtf(tl[C + co] + 1e-5f);
+  const float gamma = tl[2 * C + co], beta = tl[3 * C + co];
+  const float sbias = round_to<__nv_bfloat16>(tl[4 * C + co]);
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) {
+    const int q = q0 + j * QS, qy = q / half, qx = q % half;
+    const int oy = y0 / 2 + qy, ox = x0 / 2 + qx;
+    if (oy >= ho || ox >= wo) continue;
+    const float* s = src + co * kP3 + 2 * qy * kTile + 2 * qx;
+    const float a = s[0], bb = s[1], c = s[kTile], d = s[kTile + 1];
+    const float p = round_to<__nv_bfloat16>(
+        pool_max ? fmaxf(fmaxf(a, bb), fmaxf(c, d))
+                 : (a + bb + c + d) * 0.25f);
+    const float bn = round_to<__nv_bfloat16>((p - mean) * inv * gamma + beta);
+    const float skip = round_to<__nv_bfloat16>(acc[j] + sbias);
+    out[((static_cast<size_t>(b) * ho + oy) * wo + ox) * C + co] =
+        __float2bfloat16(bn + skip);
   }
 }
 
@@ -827,13 +996,15 @@ __device__ __forceinline__ void bf16_stage(const uint32_t* __restrict__ src,
                                       y0, x0, H, W);
 }
 
-template <int C>
+// Whole = false: conv x3 + pool of NHWC x (the fused block); Whole = true:
+// the whole block, x in any layout (xs), tail its BatchNorm and skip
+template <int C, bool Whole>
 __global__ void __launch_bounds__(kThreads, 2)
-specblock_bf16_tc_kernel(const __nv_bfloat16* __restrict__ x,
+specblock_bf16_tc_kernel(const __nv_bfloat16* __restrict__ x, XStrides xs,
                          const uint32_t* __restrict__ w1,
                          const uint32_t* __restrict__ w2,
                          const uint32_t* __restrict__ w3,
-                         const float* __restrict__ bias,
+                         const float* __restrict__ bias, BlockTail tail,
                          __nv_bfloat16* __restrict__ out, int H, int W,
                          int cin, int tiles_x, int pool_max) {
   constexpr int CP = C / 2, RC = bf16_rows(C);   // conv2/conv3: 9*C/2 rows
@@ -845,6 +1016,7 @@ specblock_bf16_tc_kernel(const __nv_bfloat16* __restrict__ x,
   int* tbl = reinterpret_cast<int*>(sb + 3 * C);
   uint32_t* buf0 = reinterpret_cast<uint32_t*>(tbl + rows1);
   uint32_t* bufa = buf0 + bf16_buf0_words(cin, C);
+  float* tl = reinterpret_cast<float*>(bufa + bf16_bufa_words(C));  // Whole
 
   const int b = blockIdx.y;
   const int y0 = (blockIdx.x / tiles_x) * kTile;
@@ -852,8 +1024,9 @@ specblock_bf16_tc_kernel(const __nv_bfloat16* __restrict__ x,
   const int tid = threadIdx.x;
 
   stage_pairs_async<C>(w1, rows1, swa);
+  if constexpr (Whole) stage_tail_async<C>(tail, cin, tl);   // lands with w2
   stage_pairs_async<C>(w2, RC, swb);
-  stage_input_pairs(x, buf0, b, y0, x0, H, W, cin);
+  stage_input_pairs(x, xs, buf0, b, y0, x0, H, W, cin);
   for (int i = tid; i < 3 * C; i += blockDim.x) sb[i] = bias[i];
   const int cp = (cin + 1) / 2;
   for (int j = tid; j < rows1; j += blockDim.x) {   // pad rows: weights 0
@@ -862,6 +1035,8 @@ specblock_bf16_tc_kernel(const __nv_bfloat16* __restrict__ x,
   }
   cp_async_wait<1>();             // conv1's weights (conv2's may still fly)
   __syncthreads();
+  // conv1 only reads the staged tile too; conv2 overwrites it
+  if constexpr (Whole) skip_means(buf0, cin, tl + 5 * C + C * cin);
   bf16_stage<C, kR0, kP0, kP1, 0>(buf0, rows1, tbl, swa, sb, bufa, 2, y0, x0,
                                   H, W);
   cp_async_wait<0>();
@@ -875,7 +1050,10 @@ specblock_bf16_tc_kernel(const __nv_bfloat16* __restrict__ x,
   bf16_stage<C, kR2, kP2, kP3, CP>(buf0, RC, nullptr, swa, sb + 2 * C, c3, 0,
                                    y0, x0, H, W);
   __syncthreads();
-  pool_store<C, __nv_bfloat16>(c3, out, b, y0, x0, H, W, pool_max);
+  if constexpr (Whole)
+    pool_store_whole<C>(c3, tl, out, b, y0, x0, H, W, cin, pool_max);
+  else
+    pool_store<C, __nv_bfloat16>(c3, out, b, y0, x0, H, W, pool_max);
 }
 
 // --- wide path: one implicit-GEMM conv, three launches ---------------------
@@ -1244,19 +1422,12 @@ int wide_call(const WideKernel<T, Wt> (&kern)[3], const void* x,
   return cudaSuccess;
 }
 
-template <typename T, typename Wt>
-using Kernel = void (*)(const T*, const Wt*, const Wt*, const Wt*,
-                        const float*, T*, int, int, int, int, int);
-
 // One CTA per (sample, 16x16 tile): the tile in blockIdx.x, the sample in
 // blockIdx.y.  gridDim.y holds at most 65,535 samples, so a larger batch
-// launches in slices of that many, x and out offset to each slice's first
-// sample (the kernel itself unchanged).
-template <typename T, typename Wt>
-int launch(Kernel<T, Wt> kern, size_t smem, const void* x, const void* w1,
-           const void* w2, const void* w3, const float* bias, void* out,
-           int B, int H, int W, int cin, int C, int pool_max,
-           cudaStream_t st) {
+// launches in slices of that many: go(grid, b0, tiles_x) launches the
+// slice from sample b0, x and out offset to it (the kernel unchanged).
+template <typename Kern, typename Go>
+int launch_tiles(Kern kern, size_t smem, int B, int H, int W, Go go) {
   constexpr int kMaxGridY = 65535;
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
@@ -1265,14 +1436,9 @@ int launch(Kernel<T, Wt> kern, size_t smem, const void* x, const void* w1,
   if (e != cudaSuccess) return e;
   const int tiles_y = (H + kTile - 1) / kTile;
   const int tiles_x = (W + kTile - 1) / kTile;
-  const size_t x_step = static_cast<size_t>(H) * W * cin;
-  const size_t o_step = static_cast<size_t>(H / 2) * (W / 2) * C;
   for (int b0 = 0; b0 < B; b0 += kMaxGridY) {
     const dim3 grid(tiles_y * tiles_x, B - b0 < kMaxGridY ? B - b0 : kMaxGridY);
-    kern<<<grid, kThreads, smem, st>>>(
-        static_cast<const T*>(x) + b0 * x_step, static_cast<const Wt*>(w1),
-        static_cast<const Wt*>(w2), static_cast<const Wt*>(w3), bias,
-        static_cast<T*>(out) + b0 * o_step, H, W, cin, tiles_x, pool_max);
+    go(grid, b0, tiles_x);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
@@ -1285,20 +1451,52 @@ bool aligned16(std::initializer_list<const void*> ps) {
   return true;
 }
 
-// C <= 32: the tensor-core kernels, f32 (3xTF32) or bf16
+// specblock_bf16_tc_kernel<C, Whole> over B samples of x (strides xs)
+template <int C, bool Whole>
+int launch_bf16(const void* x, const XStrides& xs, const void* w1,
+                const void* w2, const void* w3, const float* bias,
+                const BlockTail& tail, void* out, int B, int H, int W,
+                int cin, int pool_max, cudaStream_t st) {
+  const size_t smem = bf16_smem_bytes(cin, C, Whole);
+  const size_t o_step = static_cast<size_t>(H / 2) * (W / 2) * C;
+  return launch_tiles(
+      specblock_bf16_tc_kernel<C, Whole>, smem, B, H, W,
+      [&](dim3 grid, int b0, int tiles_x) {
+        specblock_bf16_tc_kernel<C, Whole><<<grid, kThreads, smem, st>>>(
+            static_cast<const __nv_bfloat16*>(x) + b0 * xs.n, xs,
+            static_cast<const uint32_t*>(w1), static_cast<const uint32_t*>(w2),
+            static_cast<const uint32_t*>(w3), bias, tail,
+            static_cast<__nv_bfloat16*>(out) + b0 * o_step, H, W, cin,
+            tiles_x, pool_max);
+      });
+}
+
+// C <= 32: the tensor-core kernels, f32 (3xTF32) or bf16, on NHWC x
 template <int C>
 int dispatch(const void* x, const void* w1, const void* w2, const void* w3,
              const float* bias, void* out, int B, int H, int W, int cin,
              int pool_max, int bf16, cudaStream_t st) {
   if (!aligned16({x, w1, w2, w3}))   // 16-byte loads, cp.async
     return cudaErrorInvalidValue;
-  if (bf16)
-    return launch<__nv_bfloat16, uint32_t>(
-        specblock_bf16_tc_kernel<C>, bf16_smem_bytes(cin, C), x, w1, w2, w3,
-        bias, out, B, H, W, cin, C, pool_max, st);
-  return launch<float, float>(specblock_tc_kernel<C>, tc_smem_bytes(cin, C),
-                              x, w1, w2, w3, bias, out, B, H, W, cin, C,
-                              pool_max, st);
+  if (bf16) {
+    const XStrides nhwc{static_cast<long long>(H) * W * cin,
+                        static_cast<long long>(W) * cin, cin, 1};
+    return launch_bf16<C, false>(x, nhwc, w1, w2, w3, bias, BlockTail{}, out,
+                                 B, H, W, cin, pool_max, st);
+  }
+  const size_t smem = tc_smem_bytes(cin, C);
+  const size_t x_step = static_cast<size_t>(H) * W * cin;
+  const size_t o_step = static_cast<size_t>(H / 2) * (W / 2) * C;
+  return launch_tiles(
+      specblock_tc_kernel<C>, smem, B, H, W,
+      [&](dim3 grid, int b0, int tiles_x) {
+        specblock_tc_kernel<C><<<grid, kThreads, smem, st>>>(
+            static_cast<const float*>(x) + b0 * x_step,
+            static_cast<const float*>(w1), static_cast<const float*>(w2),
+            static_cast<const float*>(w3), bias,
+            static_cast<float*>(out) + b0 * o_step, H, W, cin, tiles_x,
+            pool_max);
+      });
 }
 
 }  // namespace
@@ -1398,6 +1596,47 @@ int specblock_convpool(const void* x, const void* w1, const void* w2,
     case 32:
       return dispatch<32>(x, w1, w2, w3, bias, out, B, H, W, cin, pool_max,
                           bf16, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The whole bf16 block (models/layers.SpectrogramBlock in eval mode) at
+// cout in {8, 16, 32}: one launch of specblock_bf16_tc_kernel<cout, true>.
+// x: bf16, B samples of cin channels on an H x W plane at element strides
+// sn, sh, sw, sc (sample, row, column, channel; any layout, 2-byte
+// aligned); w1, w2, w3, bias: as specblock_convpool's bf16 call; bn_w,
+// bn_b, bn_mean, bn_var: the BatchNorm's f32 (cout); skip_w: the 1x1
+// conv's f32 weight (cout, cin), skip_b its bias (cout); every pointer but
+// x and out 16-byte aligned;
+// out: (B, H/2, W/2, cout) NHWC bf16.  H, W even.  Returns the first
+// launch's cudaGetLastError() that is not cudaSuccess (or
+// cudaErrorInvalidValue for shapes it does not take).
+int specblock_whole_bf16(const void* x, long long sn, long long sh,
+                         long long sw, long long sc, const void* w1,
+                         const void* w2, const void* w3, const float* bias,
+                         const float* bn_w, const float* bn_b,
+                         const float* bn_mean, const float* bn_var,
+                         const float* skip_w, const float* skip_b, void* out,
+                         int B, int H, int W, int cin, int cout, int pool_max,
+                         void* stream) {
+  if (B < 1 || H < 2 || W < 2 || H % 2 || W % 2 || cin < 1 || sn < 0 ||
+      sh < 0 || sw < 0 || sc < 0 || reinterpret_cast<uintptr_t>(x) % 2 ||
+      !aligned16({w1, w2, w3, bn_w, bn_b, bn_mean, bn_var, skip_w, skip_b}))
+    return cudaErrorInvalidValue;
+  const XStrides xs{sn, sh, sw, sc};
+  const BlockTail tail{bn_w, bn_b, bn_mean, bn_var, skip_w, skip_b};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (cout) {
+    case 8:
+      return launch_bf16<8, true>(x, xs, w1, w2, w3, bias, tail, out, B, H, W,
+                                  cin, pool_max, st);
+    case 16:
+      return launch_bf16<16, true>(x, xs, w1, w2, w3, bias, tail, out, B, H,
+                                   W, cin, pool_max, st);
+    case 32:
+      return launch_bf16<32, true>(x, xs, w1, w2, w3, bias, tail, out, B, H,
+                                   W, cin, pool_max, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -13,6 +13,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import profiling
 from ..ops import cuda_specblock
 
 
@@ -202,6 +203,24 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
                     conv.stride, conv.padding)
 
 
+def block_path(fused: bool, training: bool, pool_size: Tuple[int, int],
+               plane: Tuple[int, int], dtype: torch.dtype, cout: int,
+               recording: bool, cuda: bool) -> str:
+    """How a :class:`SpectrogramBlock` call runs: ``"stock"`` (stock ops
+    throughout), ``"fused"`` (conv×3 + pool through the fused block, the
+    rest in stock ops: a fused module in eval mode with a 2×2 pool on an
+    even plane) or ``"whole"`` (a fused call on the card in bf16 at Cout
+    8/16/32 while autograd does not record: the whole block in one launch,
+    :func:`..ops.cuda_specblock.whole_block_bf16`)."""
+    if not (fused and not training and tuple(pool_size) == (2, 2)
+            and cuda_specblock.fused_applies(*plane)):
+        return "stock"
+    if (cuda and dtype == torch.bfloat16 and not recording
+            and cout in cuda_specblock.WHOLE_COUTS):
+        return "whole"
+    return "fused"
+
+
 class SpectrogramBlock(nn.Module):
     """3× conv3x3+ReLU → 2×2 pool → BN → dropout, plus a bilinear-resized
     1×1-conv skip connection.
@@ -210,7 +229,11 @@ class SpectrogramBlock(nn.Module):
     :mod:`..ops.cuda_specblock` when the module is in eval mode and the
     plane's sides are even (the JAX package's conditions); parameters are
     the same either way.  Gradients flow through the fused path by the
-    fused block's VJP (the unfused chain's autograd).
+    fused block's VJP (the unfused chain's autograd).  A fused bf16 call on
+    the card at Cout 8/16/32 that autograd does not record (no grad mode,
+    or nothing requires grad) runs the whole block, BatchNorm, skip and
+    add included, in one launch (:func:`block_path`).  Traced calls count
+    ``models.spec_block.fused`` and ``models.spec_block.whole``.
 
     ``dtype=torch.bfloat16`` is the JAX block's bf16 mode: x is cast on
     entry, the convs (the skip's 1×1 too) take bf16 operands with float32
@@ -239,8 +262,23 @@ class SpectrogramBlock(nn.Module):
             x = x.to(self.dtype)
         identity = x
         convs = (self.conv1, self.conv2, self.conv3)
-        if (self.fused and not self.training and self.pool_size == (2, 2)
-                and cuda_specblock.fused_applies(*x.shape[2:])):
+        recording = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+        path = block_path(self.fused, self.training, self.pool_size,
+                          x.shape[2:], x.dtype, self.conv1.out_channels,
+                          recording, x.is_cuda)
+        if path != "stock":
+            profiling.count("models.spec_block.fused")
+        if path == "whole":
+            profiling.count("models.spec_block.whole")
+            bn = self.bn
+            y = cuda_specblock.whole_block_bf16(
+                x, [c.weight.permute(2, 3, 1, 0) for c in convs],
+                [c.bias for c in convs], self.pool_type,
+                (bn.weight, bn.bias, bn.running_mean, bn.running_var),
+                (self.conv1x1.weight, self.conv1x1.bias))
+            return y.permute(0, 3, 1, 2)
+        if path == "fused":
             y = cuda_specblock.fused_specblock_convpool(
                 x.permute(0, 2, 3, 1).contiguous(),
                 [c.weight.permute(2, 3, 1, 0) for c in convs],

@@ -25,6 +25,15 @@ recomputes :func:`_chain_convpool` (the same function as unfused stock ops,
 cuDNN on the card) from them and returns that chain's autograd.  As in the
 JAX package, no backward kernel is written: the Pallas kernel had none.
 Backward calls are counted in ``fused_specblock_convpool.backward_calls``.
+
+:func:`whole_block_bf16` serves a whole bf16 ``SpectrogramBlock`` in eval
+mode at Cout 8/16/32 in one launch of the bf16 kernel: conv×3 + pool,
+then the block's eval BatchNorm, its 2×2 skip (the bilinear resize by ½,
+the 1×1 conv) and the residual add in the kernel's epilogue, with x read
+in whatever layout it has.  It is CUDA-only and not differentiable: the
+module takes it only where autograd does not record (its plain version is
+the module's own stock ops).  Counted in ``fused_specblock_convpool
+.launches`` and under :data:`WHOLE_KERNEL` in ``kernel_launches``.
 """
 
 from __future__ import annotations
@@ -42,6 +51,10 @@ from .. import _build
 #: kernels, :data:`WIDE_COUTS` on the wide kernel
 KERNEL_COUTS = (8, 16, 32, 64, 128, 256)
 WIDE_COUTS = (64, 128, 256)
+#: output widths :func:`whole_block_bf16` takes
+WHOLE_COUTS = (8, 16, 32)
+#: ``kernel_launches`` key of :func:`whole_block_bf16`
+WHOLE_KERNEL = "specblock_convpool_whole_bf16"
 #: conv1's Cin of a wide call is padded to a multiple of this: the bf16
 #: wide conv's K-block (one tap's 16 pair words), twice the f32 one's 16
 WIDE_K_CHANNELS = 32
@@ -59,6 +72,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("specblock")
     lib.specblock_convpool.argtypes = [_P] * 6 + [_I] * 7 + [_P]
     lib.specblock_convpool.restype = _I
+    lib.specblock_whole_bf16.argtypes = ([_P] + [ctypes.c_longlong] * 4
+                                         + [_P] * 11 + [_I] * 6 + [_P])
+    lib.specblock_whole_bf16.restype = _I
     for name in ("specblock_wide_bf16", "specblock_wide_f32"):
         getattr(lib, name).argtypes = [_P] * 8 + [_I] * 6 + [_P]
         getattr(lib, name).restype = _I
@@ -87,7 +103,8 @@ def kernel_name(cout: int, dtype: torch.dtype) -> str:
 
 
 KERNEL_NAMES = tuple(kernel_name(c, dt) for c in (32, 64)
-                     for dt in (torch.float32, torch.bfloat16))
+                     for dt in (torch.float32, torch.bfloat16)
+                     ) + (WHOLE_KERNEL,)
 
 
 def _chain_convpool(x: torch.Tensor, kernels: Sequence[torch.Tensor],
@@ -127,6 +144,10 @@ def _check_cuda_args(x, kernels, biases, pool, dtype) -> None:
     if not fused_applies(h, w) or (co in WIDE_COUTS
                                    and b * h * w > MAX_WIDE_PIXELS):
         raise ValueError(f"fused block does not take (B, H, W) = {(b, h, w)}")
+    _check_params(kernels, biases, pool, cin, co, x.device)
+
+
+def _check_params(kernels, biases, pool, cin, co, device) -> None:
     want = [(3, 3, cin, co), (3, 3, co, co), (3, 3, co, co)]
     if [tuple(k.shape) for k in kernels] != want:
         raise ValueError(f"kernels must be HWIO {want}")
@@ -134,7 +155,7 @@ def _check_cuda_args(x, kernels, biases, pool, dtype) -> None:
         raise ValueError(f"biases must be ({co},)")
     if pool not in ("max", "avg"):
         raise ValueError(f"pool must be 'max' or 'avg', got {pool!r}")
-    if any(t.device != x.device for t in (*kernels, *biases)):
+    if any(t.device != device for t in (*kernels, *biases)):
         raise ValueError("x, kernels and biases must share one device")
 
 
@@ -249,6 +270,57 @@ def fused_specblock_convpool(x: torch.Tensor,
     (B, H, W, Cin); ``kernels`` three HWIO (3, 3, ·, C); ``biases`` three
     (C,).  Returns NHWC (B, H/2, W/2, C) in ``dtype``."""
     return _FusedConvPool.apply(x, *kernels, *biases, pool, dtype)
+
+
+def whole_block_bf16(x: torch.Tensor, kernels: Sequence[torch.Tensor],
+                     biases: Sequence[torch.Tensor], pool: str,
+                     bn: Sequence[torch.Tensor],
+                     skip: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The whole bf16 spectrogram block in eval mode, on the card:
+    ``bn(pool(relu(conv3(relu(conv2(relu(conv1(x))))))))`` plus
+    ``conv1x1(bilinear_resize(x, (H/2, W/2)))``, rounded to bf16 at each of
+    the module's rounding points (the skip's 1×1 conv rounds once with its
+    bias, as on the CPU; the card's stock path rounds its sum, then adds
+    the bias in bf16: one bf16 unit of the skip at most between the two).
+    ``x`` (B, Cin, H, W) bf16 in any layout (its strides are passed on:
+    block 1's expanded plane, block 2's channels-last map); ``kernels``
+    three HWIO (3, 3, ·, C), ``biases`` three (C,); ``bn`` the BatchNorm's
+    (weight, bias, running_mean, running_var); ``skip`` the 1×1 conv's
+    (weight (C, Cin, 1, 1), bias).
+    Returns NHWC (B, H/2, W/2, C) bf16."""
+    if not x.is_cuda or x.dtype != torch.bfloat16 or x.dim() != 4:
+        raise ValueError("x must be a 4-D bf16 CUDA tensor")
+    b, cin, h, w = x.shape
+    co = kernels[0].shape[-1]
+    if co not in WHOLE_COUTS or not fused_applies(h, w):
+        raise ValueError(f"the whole block takes Cout in {WHOLE_COUTS} on an "
+                         f"even plane, got Cout {co} on {(h, w)}")
+    _check_params(kernels, biases, pool, cin, co, x.device)
+    wt, bt, mean, var, sb = (_aligned(t.float().contiguous())
+                             for t in (*bn, skip[1]))
+    if tuple(skip[0].shape) != (co, cin, 1, 1) or any(
+            tuple(t.shape) != (co,) for t in (wt, bt, mean, var, sb)):
+        raise ValueError(f"the skip must be a 1x1 conv ({co}, {cin}) and the "
+                         f"BatchNorm's tensors ({co},)")
+    skip_w = _aligned(skip[0].float().reshape(co, cin).contiguous())
+    if any(t.device != x.device for t in (wt, bt, mean, var, sb, skip_w)):
+        raise ValueError("x and the block's parameters must share one device")
+    ws = [_aligned(_pack_bf16_pairs(k)) for k in kernels]
+    bias = torch.stack([bi.float() for bi in biases]).contiguous()
+    out = torch.empty((b, h // 2, w // 2, co), dtype=x.dtype, device=x.device)
+    sn, sc, sh, sw = x.stride()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _lib().specblock_whole_bf16(
+            x.data_ptr(), sn, sh, sw, sc, ws[0].data_ptr(), ws[1].data_ptr(),
+            ws[2].data_ptr(), bias.data_ptr(), wt.data_ptr(), bt.data_ptr(),
+            mean.data_ptr(), var.data_ptr(), skip_w.data_ptr(),
+            sb.data_ptr(), out.data_ptr(), b, h, w, cin, co,
+            int(pool == "max"), stream)
+    _build.check(rc, "specblock_whole_bf16")
+    fused_specblock_convpool.launches += 1
+    fused_specblock_convpool.kernel_launches[WHOLE_KERNEL] += 1
+    return out
 
 
 fused_specblock_convpool.launches = 0

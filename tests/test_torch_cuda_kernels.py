@@ -522,6 +522,159 @@ def test_specblock_batch_above_grid_y(dev, dtype, cin, cout, h, w):
         assert _rel(got, plain) < 1e-2
 
 
+def _spec_block(cin, cout, pool, dev, seed=0):
+    """A bf16 fused ``SpectrogramBlock`` in eval mode with the benchmark's
+    weight scales (convs N(0, 1.4/fan_in), biases and running means sd
+    0.1, BatchNorm scales 1 + N(0, 0.1), running variances U(0.5, 1.5))."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch.models import (
+        layers)
+    g = torch.Generator().manual_seed(seed)
+    blk = layers.SpectrogramBlock(cin, cout, pool_type=pool, fused=True,
+                                  dtype=torch.bfloat16)
+    with torch.no_grad():
+        for m in (blk.conv1, blk.conv2, blk.conv3, blk.conv1x1):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=g)
+                           * (1.4 / m.weight[0].numel()) ** 0.5)
+            m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.1)
+        blk.bn.weight.copy_(1 + 0.1 * torch.randn(cout, generator=g))
+        blk.bn.bias.copy_(0.1 * torch.randn(cout, generator=g))
+        blk.bn.running_mean.copy_(0.1 * torch.randn(cout, generator=g))
+        blk.bn.running_var.copy_(0.5 + torch.rand(cout, generator=g))
+    return blk.to(dev).eval()
+
+
+def _block_input(cin, h, w, b, dev, seed=0):
+    """(base, x): block 1's input, a [0, 1] plane expanded to three
+    channels (channel stride 0, as ``hms_spectrogram_preprocess`` returns
+    it), or block 2's, ReLU outputs of ``cin`` channels in channels-last
+    (the NHWC output of block 1 seen as NCHW); writing ``base`` writes x."""
+    g = torch.Generator().manual_seed(seed)
+    if cin == 3:
+        base = torch.rand((b, 1, h, w), generator=g).to(dev, torch.bfloat16)
+        return base, base.expand(b, 3, h, w)
+    base = torch.randn((b, h, w, cin), generator=g).relu().to(
+        dev, torch.bfloat16)
+    return base, base.permute(0, 3, 1, 2)
+
+
+def _todays_path(blk, x):
+    """The block as it runs where autograd records: conv x3 + pool through
+    the fused kernel, BatchNorm, skip and add in stock ops."""
+    fused = cuda_specblock.fused_specblock_convpool
+    k0 = fused.kernel_launches["specblock_convpool_bf16"]
+    with torch.enable_grad():
+        out = blk(x).detach()
+    assert fused.kernel_launches["specblock_convpool_bf16"] == k0 + 1
+    return out
+
+
+# (cin, cout, h, w, batch, pool): blocks 1 and 2 of the 400x300 program at
+# B=256, and each width at B = 1 and 3 on ragged planes, both inputs
+_WHOLE_CASES = [
+    (3, 16, 400, 300, 256, "max"), (16, 32, 200, 150, 256, "avg"),
+    (3, 8, 34, 38, 3, "avg"), (16, 8, 34, 38, 1, "max"),
+    (3, 16, 18, 20, 1, "avg"), (16, 16, 50, 38, 3, "max"),
+    (3, 32, 36, 22, 3, "max"), (16, 32, 200, 150, 1, "avg"),
+]
+
+
+@pytest.mark.parametrize("graph", [False, True], ids=["eager", "graph"])
+@pytest.mark.parametrize("cin,cout,h,w,batch,pool", _WHOLE_CASES)
+def test_whole_block_matches_todays_path(dev, cin, cout, h, w, batch, pool,
+                                         graph):
+    """The whole bf16 block (one launch of ``specblock_bf16_tc_kernel<C,
+    true>``, x read in place) against the same block on today's path (the
+    fused kernel, then BatchNorm, skip and add in stock ops): 1e-2 of the
+    latter's max (BF16_PLAIN_REL), NHWC out seen as NCHW.  Captured in a
+    CUDA graph, each replay on a new input written into the captured one
+    equals the eager whole block exactly."""
+    blk = _spec_block(cin, cout, pool, dev, seed=cin + cout)
+    base, x = _block_input(cin, h, w, batch, dev)
+    fused = cuda_specblock.fused_specblock_convpool
+    name = cuda_specblock.WHOLE_KERNEL
+
+    def whole():
+        k0 = fused.kernel_launches[name]
+        with torch.no_grad():
+            out = blk(x)
+        assert fused.kernel_launches[name] == k0 + 1
+        return out
+
+    if not graph:
+        got = whole()
+        assert got.shape == (batch, cout, h // 2, w // 2)
+        assert got.permute(0, 2, 3, 1).is_contiguous()
+        assert _rel(got, _todays_path(blk, x)) < 1e-2
+        return
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        whole()                                  # warm-up (build, pack)
+    torch.cuda.current_stream().wait_stream(side)
+    cuda_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(cuda_graph):
+        out = whole()
+    for seed in (1, 2):
+        base.copy_(_block_input(cin, h, w, batch, dev, seed=seed)[0])
+        cuda_graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, whole())
+        assert _rel(out, _todays_path(blk, x)) < 1e-2
+
+
+def test_speccnn_whole_blocks_match_todays_path(dev):
+    """The bf16 ``SpectrogramCNN(fused_blocks=2)`` at 400x300: with autograd
+    off its blocks 1-2 run whole (two launches, no fused-only launch);
+    with it on they take today's path.  Probabilities within 2e-2 (the
+    JAX package's bf16 bound), log-probs within 1e-2 of their max."""
+    model = SpectrogramCNN(fused_blocks=2, dtype=torch.bfloat16)
+    model.load_state_dict(seeded_state_dict(model, 4))
+    model.to(dev).eval()
+    x = torch.rand((2, 1, 400, 300), generator=torch.Generator()
+                   .manual_seed(3)).to(dev, torch.bfloat16).expand(
+                       2, 3, 400, 300)
+    fused = cuda_specblock.fused_specblock_convpool
+    k = dict(fused.kernel_launches)
+    with torch.inference_mode():
+        got = model(x)
+    torch.cuda.synchronize()
+    assert fused.kernel_launches[cuda_specblock.WHOLE_KERNEL] == k[
+        cuda_specblock.WHOLE_KERNEL] + 2
+    assert fused.kernel_launches["specblock_convpool_bf16"] == k[
+        "specblock_convpool_bf16"]
+    with torch.enable_grad():
+        want = model(x).detach()
+    assert fused.kernel_launches["specblock_convpool_bf16"] == k[
+        "specblock_convpool_bf16"] + 2
+    assert got.shape == want.shape == (2, 6)
+    assert float((got.exp() - want.exp()).abs().max()) < 2e-2
+    assert _rel(got, want) < 1e-2
+
+
+def test_whole_block_counters(dev):
+    """A traced bf16 forward on the card counts each of its two fused
+    blocks in ``models.spec_block.fused`` and ``models.spec_block.whole``,
+    and ``kernel_launches`` ticks under the whole block's own key; untraced,
+    the counters stay."""
+    from multimodal_brain_pattern_identification_xai_tpu_torch import (
+        profiling)
+    model = SpectrogramCNN(fused_blocks=2, dtype=torch.bfloat16)
+    model.load_state_dict(seeded_state_dict(model, 4))
+    model.to(dev).eval()
+    x = torch.rand((1, 3, 64, 48), device=dev).to(torch.bfloat16)
+    fused = cuda_specblock.fused_specblock_convpool
+    before = dict(profiling.collect().counters)
+    k0 = fused.kernel_launches[cuda_specblock.WHOLE_KERNEL]
+    with torch.inference_mode():
+        model(x)
+        with profiling.traced():
+            model(x)
+    got = profiling.collect().counters
+    for name in ("models.spec_block.fused", "models.spec_block.whole"):
+        assert got.get(name, 0) - before.get(name, 0) == 2
+    assert fused.kernel_launches[cuda_specblock.WHOLE_KERNEL] == k0 + 4
+
+
 def test_preprocess_13_sections_matches_cpu(dev):
     """The finite route with ``denoise_bandpass_order=8`` is one 5 + 8 =
     13-section cascade, one more than a launch takes: on the card it runs
@@ -631,10 +784,11 @@ def test_captured_forward_times_its_layers(dev):
 def test_preset_forward_matches_cpu(dev, dtype):
     """The 200x150 preset's forward (both EEG routes) on the card against
     the CPU: log-probs within 1e-3 (float32) or probabilities within 2e-2
-    (bf16); the fused block once a forward (block 2's 100x75 plane is odd);
-    captured equal to eager (1e-6)."""
+    (bf16); the fused block once a forward (block 2's 100x75 plane is odd),
+    in bf16 as the whole block; captured equal to eager (1e-6)."""
     serving = None if dtype == torch.float32 else dtype
-    name = cuda_specblock.kernel_name(16, dtype)
+    name = (cuda_specblock.kernel_name(16, dtype) if serving is None
+            else cuda_specblock.WHOLE_KERNEL)
     for finite in (True, False):
         fwd, (eeg, spec) = entry(device="cuda", batch=2, assume_finite=finite,
                                  serving_dtype=serving,
